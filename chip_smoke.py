@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0] [--n-jobs 10000] [--n-event-loop 500]
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
+
+1. prints the card (``nvidia-smi`` name and power limit), the torch and
+   CUDA versions and the kernel build time;
+2. kernel phase: holds ``availscan`` and ``availscan_select`` against
+   their plain PyTorch versions on the card, exact equality on every
+   output, over random timelines (n_pe in {1024, 1000, 2048, 64},
+   capacity in {128, 1024, 4096}, all seven policies) and the edge
+   cases (empty timeline, dead candidates, an infeasible request, a
+   window at the horizon); times both at the paper's shape;
+3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
+   ``WorkloadParams(n_jobs=10000, seed=0)``, PE_W) on the card, its
+   decisions, slowdowns and busy area held against the host event loop;
+   then the per-operation event loop ``simulate(engine="device")`` on
+   the stream's first jobs, held against the host loop; then the
+   kernel-backed rectangle query ``ops.availability_rectangles`` over
+   probe requests on the admitted timeline.  Launch counts are reset
+   before each path and read after it;
+4. paper claims: all seven policies on ``WorkloadParams(n_jobs=1500,
+   seed=11)``: PE_W's acceptance within 0.01 of the best, FF the lowest
+   slowdown.
+
+The line before the last is one JSON object with every kernel's
+launches, error, times and bound; the last line is the run's verdict.
+Any failure raises and exits non-zero.  Without a CUDA device, or
+without the repository's ``src/`` beside it, it exits non-zero and
+prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+T_INF = 2**31 - 1
+# H100 SXM peaks.  HBM bandwidth: NVIDIA's data sheet.  int32 ALU rate:
+# 64 INT32 lanes per SM (NVIDIA H100 Tensor Core GPU Architecture
+# whitepaper) x 132 SMs x the 1.98 GHz clock implied by the data
+# sheet's 67 TFLOP/s float32 (132 SMs x 128 lanes x 2 per FMA).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+PAPER_SHAPE = dict(n_pe=1024, capacity=128)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# random canonical timelines (numpy, from the seed)
+# ---------------------------------------------------------------------------
+
+
+def random_timeline(rng, n_pe: int, capacity: int, fill: float):
+    """Sorted, merged records of random reservations, padded to capacity.
+
+    Returns ``times int32[S]`` and ``occ uint32[S, W]`` satisfying the
+    timeline invariants (distinct consecutive rows, empty padding, no
+    bits past ``n_pe``), with about ``fill * capacity`` records.
+    """
+    W = (n_pe + 31) // 32
+    n_iv = max(1, int(fill * capacity) // 2)
+    starts = np.cumsum(rng.integers(0, 40, n_iv))
+    ends = starts + rng.integers(1, 400, n_iv)
+    bounds = np.unique(np.concatenate([starts, ends]))
+    rows = np.zeros((bounds.shape[0], W), np.uint32)
+    for s, e in zip(starts, ends):
+        k = int(rng.integers(1, max(2, n_pe // 6)))
+        ids = rng.choice(n_pe, size=k, replace=False)
+        bits = np.zeros(W * 32, np.uint8)
+        bits[ids] = 1
+        mask = np.packbits(bits, bitorder="little").view("<u4")
+        rows[np.searchsorted(bounds, s):np.searchsorted(bounds, e)] |= mask
+    prev = np.vstack([np.zeros((1, W), np.uint32), rows[:-1]])
+    keep = (rows != prev).any(axis=1)
+    t, o = bounds[keep], rows[keep]
+    if t.shape[0] > capacity:
+        fail(f"random timeline has {t.shape[0]} records > {capacity}")
+    times = np.full(capacity, T_INF, np.int32)
+    times[:t.shape[0]] = t
+    occ = np.zeros((capacity, W), np.uint32)
+    occ[:t.shape[0]] = o
+    return times, occ
+
+
+def scan_work(times, occ, starts, t_du) -> tuple:
+    """(bytes, word ops) this input needs.
+
+    Bytes: what the scan reads, once each: the occupancy rows of the
+    live records (padding rows are never read), the live times and the
+    padding sentinel that stops the right scan, every candidate start.
+    Word ops: the OR over each live window's records, its popcount, and
+    the AND tests of the outward scans up to the first blocking record.
+    """
+    W = occ.shape[1]
+    t64 = times.astype(np.int64)
+    n_valid = int((times < T_INF).sum())
+    ops = 0
+    for s in starts[starts < T_INF].astype(np.int64):
+        a = min(int(s), T_INF - t_du)
+        b = a + t_du
+        # overlapping records [lo, hi), as the kernel finds them
+        lo = max(int(np.searchsorted(t64, a, side="right")) - 1, 0)
+        hi = int(np.searchsorted(t64, b, side="left"))
+        busy = np.bitwise_or.reduce(occ[lo:hi], axis=0) if hi > lo \
+            else np.zeros(W, np.uint32)
+        blocking = ((occ[:n_valid] & ~busy) != 0).any(axis=1)
+        left = np.nonzero(blocking[:lo])[0]
+        right = np.nonzero(blocking[hi:])[0]
+        n_left = lo - int(left[-1]) if left.size else lo
+        n_right = int(right[0]) + 1 if right.size else n_valid - hi
+        ops += W * ((hi - lo) + 1 + 2 * (n_left + n_right))
+    n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
+                   + starts.size)
+    return n_bytes, ops
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def cuda_time_ms(fn, reps: int, rounds: int = 7) -> float:
+    """Median over rounds of the mean per-call time (CUDA events)."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        per_call.append(start.elapsed_time(stop) / reps)
+    return float(np.median(per_call))
+
+
+def device_ms(fn, reps: int = 50):
+    """Kernel time on the card per call, from the profiler's trace (the
+    sum of every kernel's self device time); None if it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in prof.key_averages())
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def _us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def kernel_phase(rng, dev) -> dict:
+    import torch
+    from repro_torch.core import search as search_lib
+    from repro_torch.core.timeline import Timeline
+    from repro_torch.core.words import to_int32
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import ref as R
+
+    n_checked = 0
+
+    def check_case(times_np, occ_np, starts, t_du, t_now, n_pe, n_req,
+                   policies, label):
+        nonlocal n_checked
+        times = torch.from_numpy(times_np).to(dev)
+        occ = torch.from_numpy(to_int32(occ_np)).to(dev)
+        if not isinstance(starts, torch.Tensor):
+            starts = torch.from_numpy(np.asarray(starts, np.int32)).to(dev)
+        got = K.availscan(times, occ, starts, t_du, t_now, n_pe)
+        want = R.availscan_ref(times, occ, starts, t_du, t_now, n_pe)
+        for name, g, w in zip(("n_free", "t_begin", "t_end"), got, want):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5, 0].tolist()
+                fail(f"availscan {name} differs ({label}) at {bad}: "
+                     f"{g[bad].tolist()} vs {w[bad].tolist()}")
+        for pid in policies:
+            g = K.availscan_select(times, occ, starts, t_du, t_now, n_req,
+                                   pid, n_pe)
+            w = R.availscan_select_ref(times, occ, starts, t_du, t_now,
+                                       n_req, pid, n_pe)
+            if not torch.equal(g, w):
+                fail(f"availscan_select differs ({label}, policy {pid}): "
+                     f"{g.tolist()} vs {w.tolist()}")
+        n_checked += 1
+
+    all_pol = range(7)
+    for n_pe in (1024, 1000, 2048, 64):
+        for cap in (128, 1024, 4096):
+            times_np, occ_np = random_timeline(rng, n_pe, cap, 0.9)
+            span = int(times_np[times_np < T_INF][-1])
+            t_r = int(rng.integers(0, max(1, span // 2)))
+            t_du = int(rng.integers(1, 400))
+            t_dl = t_r + t_du + int(rng.integers(0, span))
+            tl = Timeline(torch.from_numpy(times_np).to(dev),
+                          torch.from_numpy(to_int32(occ_np)).to(dev))
+            starts = search_lib.candidate_starts(tl, t_r, t_du, t_dl)
+            n_req = int(rng.integers(1, n_pe + 1))
+            check_case(times_np, occ_np, starts, t_du, t_r, n_pe, n_req,
+                       all_pol, f"n_pe={n_pe} S={cap}")
+            # the same timeline, every candidate slot a random start,
+            # with random dead holes (no compaction)
+            rand = rng.integers(0, span + 1, 2 * cap + 2).astype(np.int32)
+            rand[rng.random(rand.shape[0]) < 0.3] = T_INF
+            check_case(times_np, occ_np, rand, t_du, 0, n_pe,
+                       n_pe // 3, all_pol, f"random starts S={cap}")
+        # edge cases at this n_pe
+        W = (n_pe + 31) // 32
+        empty_t = np.full(128, T_INF, np.int32)
+        empty_o = np.zeros((128, W), np.uint32)
+        check_case(empty_t, empty_o, [5, 9, T_INF, T_INF], 7, 0, n_pe,
+                   n_pe, all_pol, "empty timeline")
+        times_np, occ_np = random_timeline(rng, n_pe, 1024, 0.9)
+        dead = np.full(2050, T_INF, np.int32)
+        check_case(times_np, occ_np, dead, 5, 0, n_pe, 1, all_pol,
+                   "all candidates dead")
+        dead[1] = 17          # one live candidate, not at index 0
+        check_case(times_np, occ_np, dead, 5, 0, n_pe, 1, all_pol,
+                   "dead tiles around one live candidate")
+        live = times_np[times_np < T_INF]
+        check_case(times_np, occ_np, np.sort(live[:200]), 50, 0, n_pe,
+                   n_pe + 1, all_pol, "infeasible request")
+        check_case(times_np, occ_np,
+                   [int(live[-1]), T_INF - 10, T_INF - 1, T_INF - 3000],
+                   5000, 0, n_pe, 1, all_pol, "window at the horizon")
+    print(f"kernel phase: {n_checked} cases exact (each: availscan + "
+          f"availscan_select x policies)")
+
+    # ---- times at the paper's shape: S = 128, P = 258, n_pe = 1024
+    n_pe, cap = PAPER_SHAPE["n_pe"], PAPER_SHAPE["capacity"]
+    times_np, occ_np = random_timeline(rng, n_pe, cap, 0.2)
+    tl = Timeline(torch.from_numpy(times_np).to(dev),
+                  torch.from_numpy(to_int32(occ_np)).to(dev))
+    t_du = 900
+    span = int(times_np[times_np < T_INF][-1])
+    starts = search_lib.candidate_starts(tl, 0, t_du, span + 4 * t_du)
+    pid, n_req = 2, 256
+    args = (tl.times, tl.occ, starts, t_du, 0)
+    rows = {}
+    for name, kern, plain, extra, out_bytes in (
+            ("availscan", K.availscan, R.availscan_ref, (n_pe,),
+             3 * 4 * starts.numel()),
+            ("availscan_select", K.availscan_select, R.availscan_select_ref,
+             (n_req, pid, n_pe), 8 * 4)):
+        ms = cuda_time_ms(lambda: kern(*args, *extra), reps=200)
+        plain_ms = cuda_time_ms(lambda: plain(*args, *extra), reps=20)
+        dev_ms = device_ms(lambda: kern(*args, *extra))
+        plain_dev_ms = device_ms(lambda: plain(*args, *extra), reps=10)
+        g, w = kern(*args, *extra), plain(*args, *extra)
+        g = torch.stack(g) if isinstance(g, tuple) else g
+        w = torch.stack(w) if isinstance(w, tuple) else w
+        err = int((g.long() - w.long()).abs().max())
+        if err != 0:
+            fail(f"{name} differs at the paper shape")
+        n_bytes, ops = scan_work(times_np, occ_np, starts.cpu().numpy(),
+                                 t_du)
+        n_bytes += out_bytes
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/availscan.cu",
+            replaces={
+                "availscan": "src/repro/kernels/availscan.py:175",
+                "availscan_select": "src/repro/kernels/availscan.py:406",
+            }[name],
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, exact=True, device_ms=dev_ms,
+            plain_device_ms=plain_dev_ms,
+            shape=dict(S=cap, P=int(starts.numel()),
+                       live=int((starts < T_INF).sum()), n_pe=n_pe),
+            bytes=n_bytes, word_ops=ops)
+        print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
+              f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
+              f"{_us(plain_dev_ms)}), bound "
+              f"{rows[name]['bound_ms'] * 1e6:.2f} ns "
+              f"({rows[name]['bound_by']}; {n_bytes} B, {ops} word ops)")
+    return rows
+
+
+def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
+    import torch
+    from repro_torch.core import search as search_lib
+    from repro_torch.core.batch import StreamStats
+    from repro_torch.core.scheduler import DeviceEngine
+    from repro_torch.core.types import Policy, T_INF as TI
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.sim import simulate, simulate_batched
+
+    stats = StreamStats()
+    K.reset_launches()
+    res = simulate_batched(jobs, 1024, Policy.PE_W, device=dev,
+                           stats=stats)
+    launches = dict(K.LAUNCHES)
+    n = len(jobs)
+    if launches["availscan_select"] < n:
+        fail(f"availscan_select launched {launches['availscan_select']} "
+             f"times for {n} requests")
+    rows["availscan_select"]["launches"] = launches["availscan_select"]
+    t0 = time.perf_counter()
+    ref = simulate(jobs, 1024, Policy.PE_W, engine="host",
+                   record_decisions=True)
+    host_s = time.perf_counter() - t0
+    if ref.decisions != res.decisions:
+        diff = [i for i, (x, y) in enumerate(zip(ref.decisions,
+                                                 res.decisions)) if x != y]
+        fail(f"card decisions differ from the host loop at {diff[:10]} "
+             f"({len(diff)}/{n})")
+    if (ref.slowdowns, ref.busy_area) != (res.slowdowns, res.busy_area):
+        fail("card slowdowns / busy area differ from the host loop")
+    print(f"main path: {n} jobs, PE_W, 1024 PEs: acceptance "
+          f"{res.acceptance_rate:.4f}, avg slowdown {res.avg_slowdown:.6f}, "
+          f"card run {res.wall_seconds:.3f} s = "
+          f"{n / res.wall_seconds:.1f} requests/s "
+          f"(host oracle {host_s:.3f} s); identical to the host loop")
+    print(f"main path: availscan_select launches {launches['availscan_select']}"
+          f", host syncs {stats.host_syncs} = "
+          f"{stats.host_syncs / n:.3f} per request, release passes "
+          f"{stats.release_passes}, growths {stats.growths}, final capacity "
+          f"{stats.capacity} records / {stats.pending_capacity} pending")
+
+    # per-operation path: the event loop over DeviceEngine's three
+    # paper operations (add / delete through timeline.update, find
+    # through the kernel on the power-of-two search prefix)
+    n_ops = min(n_event_loop, n)
+    K.reset_launches()
+    dev_loop = simulate(jobs[:n_ops], 1024, Policy.PE_W, engine="device",
+                        device=dev, record_decisions=True)
+    loop_launches = dict(K.LAUNCHES)
+    if loop_launches["availscan_select"] < n_ops:
+        fail(f"event loop: availscan_select launched "
+             f"{loop_launches['availscan_select']} times for {n_ops} "
+             f"requests")
+    host_loop = simulate(jobs[:n_ops], 1024, Policy.PE_W, engine="host",
+                         record_decisions=True)
+    if host_loop.decisions != dev_loop.decisions or (
+            host_loop.slowdowns, host_loop.busy_area) != (
+            dev_loop.slowdowns, dev_loop.busy_area):
+        fail("card event loop differs from the host event loop")
+    rows["availscan_select"]["launches_event_loop"] = \
+        loop_launches["availscan_select"]
+    print(f"event loop: simulate(engine='device'), {n_ops} jobs, PE_W, "
+          f"1024 PEs: acceptance {dev_loop.acceptance_rate:.4f}, card "
+          f"{dev_loop.wall_seconds:.3f} s = "
+          f"{n_ops / dev_loop.wall_seconds:.1f} requests/s (host "
+          f"{host_loop.wall_seconds:.3f} s); availscan_select launches "
+          f"{loop_launches['availscan_select']}; identical to the host loop")
+
+    # rectangle query path: the kernel-backed availability_rectangles
+    # over probe requests on a timeline the engine admitted
+    n_admit = min(2000, n - 64)
+    eng = DeviceEngine(1024, capacity=128, device=dev)
+    eng.admit_stream(jobs[:n_admit], Policy.PE_W)
+    print(f"main path: engine after {n_admit} jobs: capacity "
+          f"{eng.tl.capacity}, pending {eng.state.pending_capacity}, "
+          f"records {int(eng.tl.n_valid())}")
+    probes = jobs[n_admit:n_admit + 64]
+    starts = [search_lib.candidate_starts(eng.tl, j.t_r, j.t_du, j.t_dl)
+              for j in probes]
+    K.reset_launches()
+    got = [ops.availability_rectangles(eng.tl, s, j.t_du, j.t_a, 1024)
+           for s, j in zip(starts, probes)]
+    launches = dict(K.LAUNCHES)
+    if launches["availscan"] < len(probes):
+        fail(f"availscan launched {launches['availscan']} times for "
+             f"{len(probes)} probes")
+    rows["availscan"]["launches"] = launches["availscan"]
+    for g, s, j in zip(got, starts, probes):
+        w = R.availscan_ref(eng.tl.times, eng.tl.occ, s, j.t_du, j.t_a,
+                            1024)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((g.n_free, g.t_begin, g.t_end), w)):
+            fail("rectangle query differs from the plain version")
+        if not bool(((g.starts < TI) == g.valid).all()):
+            fail("rectangle query validity mask wrong")
+    print(f"rectangle query: {len(probes)} probes, availscan launches "
+          f"{launches['availscan']}, exact")
+
+
+def profile_steps(jobs, dev, n_steps: int = 300) -> None:
+    """Where an admit step's time goes: one profiled stream of
+    ``n_steps`` requests (wall clock, kernel launches, device busy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import batch as batch_lib
+    from repro_torch.core import timeline as tl_lib
+    from repro_torch.core.types import Policy
+
+    batch = batch_lib.requests_to_batch(jobs[:n_steps], device=dev)
+    state = tl_lib.init_state(128, 1024, 256, device=dev)
+    batch_lib.admit_stream(state, batch, Policy.PE_W, n_pe=1024)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch_lib.admit_stream(state, batch, Policy.PE_W, n_pe=1024)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    n_kernels = sum(e.count for e in events)
+    print(f"profiled {n_steps} admit steps: wall {wall:.3f} s "
+          f"({wall / n_steps * 1e3:.3f} ms/step, profiler on), device busy "
+          f"{busy_s:.4f} s, idle share {1 - busy_s / wall:.4f}, "
+          f"{n_kernels / n_steps:.1f} kernels/step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / n_steps:8.2f} us/step "
+              f"{e.count / n_steps:5.2f} x/step  {e.key[:90]}")
+
+
+def paper_claims(dev) -> None:
+    from repro_torch.core.types import ALL_POLICIES, Policy
+    from repro_torch.sim import WorkloadParams, generate, simulate_batched
+
+    jobs = generate(WorkloadParams(n_jobs=1500, seed=11))
+    acc, sd = {}, {}
+    print("paper claims (1500 jobs, seed 11, 1024 PEs, card, cross-checked):")
+    for pol in ALL_POLICIES:
+        r = simulate_batched(jobs, 1024, pol, device=dev, cross_check=True)
+        acc[pol.value], sd[pol.value] = r.acceptance_rate, r.avg_slowdown
+        print(f"  {pol.value:7s} acceptance {r.acceptance_rate:.4f} "
+              f"slowdown {r.avg_slowdown:.4f} card {r.wall_seconds:.2f} s")
+    best = max(acc.values())
+    if acc[Policy.PE_W.value] < best - 0.01:
+        fail(f"PE_W acceptance {acc['PE_W']:.4f} not within 0.01 of "
+             f"the best {best:.4f}")
+    if sd[Policy.FF.value] != min(sd.values()):
+        fail(f"FF slowdown {sd['FF']:.4f} is not the lowest")
+    print("paper claims: PE_W within 0.01 of the best acceptance, "
+          "FF the lowest slowdown")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-jobs", type=int, default=10_000)
+    ap.add_argument("--n-event-loop", type=int, default=500,
+                    help="jobs for the per-operation event loop")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    from repro_torch.sim import WorkloadParams, generate
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {sys.version.split()[0]}, "
+          f"numpy {np.__version__}")
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.load()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    log = lib_path.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    rows = kernel_phase(rng, dev)
+    print(f"kernel phase took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    jobs = generate(WorkloadParams(n_jobs=args.n_jobs, seed=args.seed))
+    main_path(jobs, dev, rows, args.n_event_loop)
+    profile_steps(jobs, dev)
+    print(f"main path took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    paper_claims(dev)
+    print(f"paper claims took {time.perf_counter() - t0:.1f} s")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

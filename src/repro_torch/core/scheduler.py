@@ -1,0 +1,145 @@
+"""Engine facade: one API over the host and device engines.
+
+Both engines expose the paper's three operations (``add_allocation``,
+``delete_allocation``, ``find_allocation``).  :class:`DeviceEngine`
+holds one :class:`~repro_torch.core.timeline.SchedulerState` on the
+card and adds the fused ``admit`` step and the ``admit_stream`` batch
+path of :mod:`repro_torch.core.batch`.  Capacity overflow grows the
+state to the needed record count and re-runs.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+from repro_torch.core import batch as batch_lib
+from repro_torch.core import search as search_lib
+from repro_torch.core import timeline as tl_lib
+from repro_torch.core.hostsched import HostScheduler
+from repro_torch.core.policies import policy_index
+from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
+from repro_torch.device import DeviceLike
+
+
+class DeviceEngine:
+    """Device-resident scheduler with the HostScheduler interface."""
+
+    def __init__(self, n_pe: int, capacity: int = 256,
+                 use_kernel: bool = True, pending_capacity: int = 256,
+                 device: DeviceLike = None):
+        self.n_pe = n_pe
+        self.use_kernel = use_kernel
+        # valid-record count for the search bucket; None = stale
+        # (recounted on the next search)
+        self._n_valid: Optional[int] = 0
+        self.state = tl_lib.init_state(capacity, n_pe, pending_capacity,
+                                       device=device)
+
+    @property
+    def tl(self) -> tl_lib.Timeline:
+        return self.state.tl
+
+    def _set_tl(self, new_tl: tl_lib.Timeline) -> None:
+        self.state = self.state._replace(tl=new_tl)
+        self._n_valid = None
+
+    def _update(self, t_s: int, t_e: int, pes, is_add: bool) -> None:
+        mask = tl_lib.ids_to_mask32(sorted(pes), self.tl.words,
+                                    n_pe=self.n_pe, device=self.tl.device)
+        new_tl, overflow, n_keep = tl_lib.update(
+            self.tl, t_s, t_e, mask, is_add=is_add, with_count=True)
+        if bool(overflow):
+            # grow once to the needed record count, then redo
+            self.state = tl_lib.grow_state(self.state, new_capacity=max(
+                2 * self.tl.capacity, tl_lib.next_pow2(int(n_keep))))
+            new_tl, overflow = tl_lib.update(self.tl, t_s, t_e, mask,
+                                             is_add=is_add)
+            if bool(overflow):
+                raise RuntimeError("update overflowed after growth")
+        self._set_tl(new_tl)
+
+    def _search_view(self) -> tl_lib.Timeline:
+        """Smallest power-of-two prefix covering the valid records.
+
+        The search walks capacity-sized tensors; searching the prefix
+        cuts that work when the timeline is mostly empty (padding rows
+        never change a decision).
+        """
+        if self._n_valid is None:
+            self._n_valid = int(self.tl.n_valid())
+        k = 16
+        while k < self._n_valid:
+            k *= 2
+        k = min(k, self.tl.capacity)
+        return tl_lib.Timeline(times=self.tl.times[:k], occ=self.tl.occ[:k])
+
+    # -- the three operations ------------------------------------------
+    def add_allocation(self, t_s: int, t_e: int, pes) -> None:
+        self._update(t_s, t_e, pes, is_add=True)
+
+    def delete_allocation(self, t_s: int, t_e: int, pes) -> None:
+        self._update(t_s, t_e, pes, is_add=False)
+
+    def find_allocation(self, req: ARRequest, policy: Policy,
+                        t_now: Optional[int] = None) -> Optional[Allocation]:
+        t_now = req.t_a if t_now is None else t_now
+        res = search_lib.find_allocation(
+            self._search_view(), req.t_r, req.t_du, req.t_dl, req.n_pe,
+            policy_index(policy), t_now, n_pe=self.n_pe,
+            use_kernel=self.use_kernel)
+        return batch_lib.search_result_to_allocation(res)
+
+    # -- the fused batch path --------------------------------------------
+    def admit(self, req: ARRequest, policy: Policy,
+              auto_release: bool = True) -> Optional[Allocation]:
+        """Fused find + commit.
+
+        With ``auto_release`` the committed reservation joins the
+        pending-release buffer and every earlier reservation ending by
+        ``req.t_a`` is deleted first; do not mix this mode with manual
+        ``delete_allocation`` of the same reservations.
+        """
+        self.state, alloc = batch_lib.admit_one(
+            self.state, req, policy, n_pe=self.n_pe,
+            auto_release=auto_release, use_kernel=self.use_kernel)
+        self._n_valid = None
+        return alloc
+
+    def admit_stream(self,
+                     requests: Union[batch_lib.RequestBatch,
+                                     Sequence[ARRequest]],
+                     policy: Policy,
+                     auto_release: bool = True) -> batch_lib.Decision:
+        """Admit a whole arrival-ordered stream; stacked decisions.
+
+        Overflow mid-stream grows the state and re-runs the stream.
+        """
+        if not isinstance(requests, batch_lib.RequestBatch):
+            requests = batch_lib.requests_to_batch(list(requests),
+                                                   device=self.tl.device)
+        self.state, dec = batch_lib.admit_stream_grow(
+            self.state, requests, policy, n_pe=self.n_pe,
+            auto_release=auto_release, use_kernel=self.use_kernel)
+        self._n_valid = None
+        return dec
+
+    def records(self):
+        times = self.tl.times.cpu().numpy()
+        occ = self.tl.occ.cpu().numpy()
+        return [(int(t), frozenset(batch_lib.mask32_to_ids(row)))
+                for t, row in zip(times, occ) if t < T_INF]
+
+
+ENGINES = {
+    "host": HostScheduler,
+    "device": DeviceEngine,
+}
+
+
+def _make_engine(n_pe: int, engine: str = "device", **kwargs):
+    """Engine factory."""
+    try:
+        cls = ENGINES[engine]
+    except KeyError:
+        raise ValueError(
+            f"unknown engine {engine!r}; pick one of {sorted(ENGINES)}")
+    return cls(n_pe, **kwargs)

@@ -1,0 +1,59 @@
+"""Timeline-level entry points of the availability-scan kernels.
+
+A tensor on the CPU goes to the plain version in
+:mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
+kernel in :mod:`repro_torch.kernels.availscan`, which launches or
+raises.  The CUDA kernels take any capacity ``S`` (they stream the
+records), so no shape limit sends a card tensor to the plain version.
+
+Scalars (``t_du``, ``t_now``, ``n_req``, ``policy_id``) are host
+integers: they are kernel arguments, and reading them from the card
+would stall the host.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import search as search_lib
+from repro_torch.core.timeline import Timeline
+from repro_torch.core.types import T_INF
+from repro_torch.kernels import availscan as _k
+from repro_torch.kernels import ref as _ref
+
+
+def availability_rectangles(tl: Timeline, starts: torch.Tensor, t_du: int,
+                            t_now: int, n_pe: int
+                            ) -> search_lib.Rectangles:
+    """Kernel-backed :func:`repro_torch.core.search.availability_rectangles`."""
+    if starts.device.type == "cpu":
+        n_free, t_begin, t_end = _ref.availscan_ref(
+            tl.times, tl.occ, starts, int(t_du), int(t_now), n_pe)
+    else:
+        n_free, t_begin, t_end = _k.availscan(
+            tl.times, tl.occ, starts, int(t_du), int(t_now), n_pe)
+    return search_lib.Rectangles(starts=starts, n_free=n_free,
+                                 t_begin=t_begin, t_end=t_end,
+                                 valid=starts < T_INF)
+
+
+def search_select(tl: Timeline, starts: torch.Tensor, t_du: int,
+                  t_now: int, n_req: int, policy_id: int,
+                  n_pe: int) -> Dict[str, torch.Tensor]:
+    """Fused scan + policy selection: the winning candidate.
+
+    Returns ``found``, ``best`` (index into ``starts``) and the
+    winner's ``n_free`` / ``t_begin`` / ``t_end``, all 0-d tensors on
+    the timeline's device, identical to
+    :func:`availability_rectangles` followed by ``policies.select``
+    on compacted candidates.
+    """
+    args = (tl.times, tl.occ, starts, int(t_du), int(t_now), int(n_req),
+            int(policy_id), n_pe)
+    if starts.device.type == "cpu":
+        row = _ref.availscan_select_ref(*args)
+    else:
+        row = _k.availscan_select(*args)
+    return dict(found=row[7] > 0, best=row[3], n_free=row[4],
+                t_begin=row[5], t_end=row[6])

@@ -1,0 +1,115 @@
+"""Plain PyTorch versions of the two availability-scan kernels.
+
+Each function computes exactly what its CUDA kernel in
+``csrc/availscan.cu`` computes, on any device.  The wrappers in
+:mod:`repro_torch.kernels.ops` take these for tensors on the CPU; on
+the card they serve only as the yardstick the kernels are held to.
+
+Both work on the packed int32 occupancy words (bitwise OR / AND plus
+popcount), the form :func:`repro.core.search.availability_rectangles`
+uses in the reference, rather than the bit-expanded matrix products
+of the TPU kernels.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import policies as policies_lib
+from repro_torch.core import words as words_lib
+from repro_torch.core.types import T_INF
+
+BIG = policies_lib.BIG
+# bound on the [P, S, W] intermediates of one candidate chunk (int32
+# elements): S = 4096 records of 64 words takes 64 candidates a chunk
+_CHUNK_ELEMS = 1 << 24
+
+
+def _scan(times, nxt, occ, starts, t_du, t_now, n_pe):
+    a = starts.clamp(max=T_INF - t_du)       # no int32 overflow in a + t_du
+    b = a + t_du
+    # window overlap and busy-PE union
+    ov = (times[None, :] < b[:, None]) & (nxt[None, :] > a[:, None])
+    busy = words_lib.or_reduce(
+        torch.where(ov[:, :, None], occ[None, :, :], 0), dim=1)  # [P, W]
+    # occupancy never sets bits past n_pe, so the busy popcount counts
+    # real PEs only
+    n_free = (n_pe - words_lib.popcount(busy).sum(dim=1)).to(torch.int32)
+    # a slot blocks the rectangle iff it occupies a PE free in the window
+    blocking = ((~busy)[:, None, :] & occ[None, :, :]).ne(0).any(dim=2)
+    left = blocking & (nxt[None, :] <= a[:, None])
+    t_begin = torch.where(left, nxt[None, :], -T_INF).amax(dim=1)
+    t_begin = torch.minimum(t_begin.clamp(min=t_now), a)
+    right = blocking & (times[None, :] >= b[:, None])
+    t_end = torch.where(right, times[None, :], T_INF).amin(dim=1)
+    return n_free, t_begin, t_end
+
+
+def availscan_ref(times: torch.Tensor, occ: torch.Tensor,
+                  starts: torch.Tensor, t_du: int, t_now: int, n_pe: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Maximum availability rectangle of each candidate start.
+
+    Returns int32 ``(n_free, t_begin, t_end)``, one entry per start.
+    For candidate window ``[a, a + t_du)`` (``a`` = the start, clamped
+    so the end stays at most ``T_INF``): ``n_free`` counts the PEs free
+    over every overlapping record; ``t_begin`` is the end of the latest
+    record before ``a`` that occupies one of those PEs, clamped to
+    ``[t_now, a]``; ``t_end`` is the start of the earliest such record
+    at or after the window's end (``T_INF`` if none).  Dead candidates
+    (``T_INF`` padding) get zeros.
+    """
+    nxt = torch.cat([times[1:], times.new_full((1,), T_INF)])
+    S, W = occ.shape
+    chunk = max(1, _CHUNK_ELEMS // max(1, S * W))
+    parts = [_scan(times, nxt, occ, starts[i:i + chunk], t_du, t_now, n_pe)
+             for i in range(0, starts.shape[0], chunk)]
+    if not parts:
+        empty = starts.new_zeros((0,))
+        return empty, empty, empty
+    n_free, t_begin, t_end = (torch.cat(p) for p in zip(*parts))
+    live = starts < T_INF
+    return (torch.where(live, n_free, 0), torch.where(live, t_begin, 0),
+            torch.where(live, t_end, 0))
+
+
+def availscan_select_ref(times: torch.Tensor, occ: torch.Tensor,
+                         starts: torch.Tensor, t_du: int, t_now: int,
+                         n_req: int, policy_id: int, n_pe: int
+                         ) -> torch.Tensor:
+    """Fused scan + policy selection: one int32[8] result row.
+
+    Row layout: ``key1, key2, start_key, best_index, n_free, t_begin,
+    t_end, feasible`` of the winner, the lexicographic minimum of
+    ``(key1, key2, start_key, index)`` over live candidates.  An
+    infeasible candidate carries ``INT32_MAX`` in its three keys, so
+    with nothing feasible the lowest live index wins and reports its
+    own rectangle.  With no live candidate the row is ``INT32_MAX`` in
+    the four keys and 0 elsewhere.
+    """
+    n_free, t_begin, t_end = availscan_ref(times, occ, starts, t_du,
+                                           t_now, n_pe)
+    live = starts < T_INF
+    feasible = live & (n_free >= n_req)
+    key1, key2 = policies_lib.integer_keys(policy_id, n_free,
+                                           t_end - t_begin)
+    key1 = torch.where(feasible, key1, BIG)
+    key2 = torch.where(feasible, key2, BIG)
+    start_key = torch.where(feasible, starts, BIG)
+    idx = torch.arange(starts.shape[0], dtype=torch.int32,
+                       device=starts.device)
+    m1 = torch.where(live, key1, BIG).min()
+    e1 = live & (key1 == m1)
+    m2 = torch.where(e1, key2, BIG).min()
+    e2 = e1 & (key2 == m2)
+    m3 = torch.where(e2, start_key, BIG).min()
+    e3 = e2 & (start_key == m3)
+    m4 = torch.where(e3, idx, BIG).min()
+    win = e3 & (idx == m4)
+
+    def pick(v):
+        return torch.where(win, v, 0).sum().to(torch.int32)
+
+    return torch.stack([m1, m2, m3, m4, pick(n_free), pick(t_begin),
+                        pick(t_end), pick(feasible.to(torch.int32))])

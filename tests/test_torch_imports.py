@@ -1,0 +1,105 @@
+"""The port stands alone and never falls back to the CPU on its own.
+
+Importing every ``repro_torch`` module loads neither ``jax`` nor the
+JAX package; without a card, entry points called with no device
+raise; a tensor that is not on the CPU never reaches a plain version.
+"""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import batch, scheduler, timeline
+from repro_torch.core.types import ARRequest, Policy
+from repro_torch.kernels import availscan, ops
+from repro_torch.sim import run_policies, simulate, simulate_batched
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules()
+    assert "repro_torch.kernels.availscan" in mods and len(mods) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]), ids=lambda p: p.name)
+def test_no_source_imports_jax_or_the_reference(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_points_without_a_device_raise_when_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: None means cuda there")
+    job = ARRequest(0, 0, 5, 10, 1)
+    calls = [
+        lambda: timeline.init_state(16, 8),
+        lambda: timeline.empty(16, 8),
+        lambda: scheduler.DeviceEngine(8),
+        lambda: batch.requests_to_batch([job]),
+        lambda: simulate_batched([job], 8, Policy.FF),
+        lambda: simulate([job], 8, Policy.FF, engine="device"),
+        lambda: simulate([job], 8, Policy.FF),
+        lambda: run_policies([job], 8, [Policy.FF]),
+        lambda: timeline.init_state(16, 8, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asking for the CPU works
+    assert timeline.init_state(16, 8, device="cpu").tl.capacity == 16
+
+
+def test_kernel_wrappers_never_fall_back():
+    tl = timeline.empty(16, 64, "cpu")
+    starts = torch.tensor([0, 5], dtype=torch.int32)
+    # the CUDA wrappers refuse CPU tensors
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        availscan.availscan(tl.times, tl.occ, starts, 4, 0, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        availscan.availscan_select(tl.times, tl.occ, starts, 4, 0, 1, 0, 64)
+    # a tensor off the CPU goes to the kernel wrapper, which raises,
+    # rather than to the plain version
+    meta = timeline.Timeline(tl.times.to("meta"), tl.occ.to("meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.availability_rectangles(meta, starts.to("meta"), 4, 0, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.search_select(meta, starts.to("meta"), 4, 0, 1, 0, 64)
+    assert availscan.LAUNCHES == {"availscan": 0, "availscan_select": 0}
+    # the CPU takes the plain version
+    row = ops.search_select(tl, starts, 4, 0, 1, 0, 64)
+    assert bool(row["found"]) and int(row["best"]) == 0
