@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--n-jobs 10000] [--n-event-loop 500]
+    python3 chip_smoke.py [--seed 0] [--n-jobs 5000] [--n-event-loop 500]
+                          [--n-session 10000]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -14,7 +15,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    cases (empty timeline, dead candidates, an infeasible request, a
    window at the horizon); times both at the paper's shape;
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
-   ``WorkloadParams(n_jobs=10000, seed=0)``, PE_W) on the card, its
+   ``WorkloadParams(n_jobs=5000, seed=0)``, PE_W; the paper's 10,000
+   jobs with ``--n-jobs 10000``, cut by default to keep the run short
+   now that phase 6 drives a 10,000-job session) on the card, its
    decisions, slowdowns and busy area held against the host event loop;
    then the per-operation event loop ``simulate(engine="device")`` on
    the stream's first jobs, held against the host loop; then the
@@ -23,7 +26,24 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    before each path and read after it;
 4. paper claims: all seven policies on ``WorkloadParams(n_jobs=1500,
    seed=11)``: PE_W's acceptance within 0.01 of the best, FF the lowest
-   slowdown.
+   slowdown;
+5. multi-resource kernel phase (after phase 2): holds ``availscan_mr``
+   and ``availscan_select_mr`` against their plain versions, exact, on
+   the layouts (1024,), (1024,) with 1000 live PEs, (64, 8, 4, 16),
+   (1024, 128, 64, 256) and (2048, 14336) (512 words) at capacities
+   128, 1024 and 4096, all seven policies, demand tails of zero, half
+   and full, and the edge cases (plus a request only a secondary plane
+   refuses); times both at the session's shape;
+6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
+   resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
+   chunk_size=64, ring_capacity=256))`` on the 10,000-job paper stream
+   stamped with half-intensity secondary demands, offered in pieces of
+   100 and flushed; decisions and records held against the port's
+   ``MultiResourceOracle``; one ``availscan_select_mr`` launch per admit
+   step; then a profiled window of the session, one-shot sessions for
+   all seven policies, a heterogeneous lane (``machine_sizes=(1000,)``),
+   the per-operation event loop and the kernel-backed rectangle query,
+   each held against the oracle or the plain version.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -34,6 +54,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +74,12 @@ T_INF = 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 PAPER_SHAPE = dict(n_pe=1024, capacity=128)
+# the multi-resource machine: LANL-CM5's 1024 PEs plus the repo's R = 4
+# pools (benchmarks/bench_multires.py, R4_TAIL at 64 PEs) scaled with it
+MR_UNITS = (1024, 128, 64, 256)
+MR_LAYOUTS = (((1024,), None), ((1024,), (1000,)), ((64, 8, 4, 16), None),
+              (MR_UNITS, None), ((2048, 14336), None))
+MR_CAPACITIES = (128, 1024, 4096)
 
 
 def fail(msg: str) -> None:
@@ -79,29 +106,9 @@ def random_timeline(rng, n_pe: int, capacity: int, fill: float):
     timeline invariants (distinct consecutive rows, empty padding, no
     bits past ``n_pe``), with about ``fill * capacity`` records.
     """
-    W = (n_pe + 31) // 32
-    n_iv = max(1, int(fill * capacity) // 2)
-    starts = np.cumsum(rng.integers(0, 40, n_iv))
-    ends = starts + rng.integers(1, 400, n_iv)
-    bounds = np.unique(np.concatenate([starts, ends]))
-    rows = np.zeros((bounds.shape[0], W), np.uint32)
-    for s, e in zip(starts, ends):
-        k = int(rng.integers(1, max(2, n_pe // 6)))
-        ids = rng.choice(n_pe, size=k, replace=False)
-        bits = np.zeros(W * 32, np.uint8)
-        bits[ids] = 1
-        mask = np.packbits(bits, bitorder="little").view("<u4")
-        rows[np.searchsorted(bounds, s):np.searchsorted(bounds, e)] |= mask
-    prev = np.vstack([np.zeros((1, W), np.uint32), rows[:-1]])
-    keep = (rows != prev).any(axis=1)
-    t, o = bounds[keep], rows[keep]
-    if t.shape[0] > capacity:
-        fail(f"random timeline has {t.shape[0]} records > {capacity}")
-    times = np.full(capacity, T_INF, np.int32)
-    times[:t.shape[0]] = t
-    occ = np.zeros((capacity, W), np.uint32)
-    occ[:t.shape[0]] = o
-    return times, occ
+    from repro_torch.core.resources import ResourceSpec
+    return random_timeline_mr(rng, ResourceSpec((n_pe,)), None, capacity,
+                              fill)
 
 
 def scan_work(times, occ, starts, t_du) -> tuple:
@@ -134,6 +141,89 @@ def scan_work(times, occ, starts, t_du) -> tuple:
     n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
                    + starts.size)
     return n_bytes, ops
+
+
+def random_timeline_mr(rng, spec, live, capacity: int, fill: float):
+    """:func:`random_timeline` on a multi-resource layout: each random
+    reservation takes random live units of every plane (at least one of
+    plane 0), so occupancy stays on live units."""
+    valid = spec.valid_bits_np(live)
+    planes = []
+    for r in range(spec.R):
+        o = spec.bit_offset(r)
+        planes.append(o + np.nonzero(valid[o:o + 32 * spec.words_per[r]])[0])
+    W = spec.total_words
+    n_iv = max(1, int(fill * capacity) // 2)
+    starts = np.cumsum(rng.integers(0, 40, n_iv))
+    ends = starts + rng.integers(1, 400, n_iv)
+    bounds = np.unique(np.concatenate([starts, ends]))
+    rows = np.zeros((bounds.shape[0], W), np.uint32)
+    for s, e in zip(starts, ends):
+        bits = np.zeros(W * 32, np.uint8)
+        for r, ids in enumerate(planes):
+            k = int(rng.integers(1 if r == 0 else 0,
+                                 max(2, ids.size // (6 if r == 0 else 3))))
+            bits[rng.choice(ids, size=min(k, ids.size), replace=False)] = 1
+        mask = np.packbits(bits, bitorder="little").view("<u4")
+        rows[np.searchsorted(bounds, s):np.searchsorted(bounds, e)] |= mask
+    prev = np.vstack([np.zeros((1, W), np.uint32), rows[:-1]])
+    keep = (rows != prev).any(axis=1)
+    t, o = bounds[keep], rows[keep]
+    if t.shape[0] > capacity:
+        fail(f"random timeline has {t.shape[0]} records > {capacity}")
+    times = np.full(capacity, T_INF, np.int32)
+    times[:t.shape[0]] = t
+    occ = np.zeros((capacity, W), np.uint32)
+    occ[:t.shape[0]] = o
+    return times, occ
+
+
+def scan_work_mr(times, occ, starts, t_du, valid, n_planes) -> tuple:
+    """(bytes, word ops) a multi-resource scan of this input needs.
+
+    As :func:`scan_work`, with the free words ``~busy & valid``; bytes
+    add the valid mask, the per-word plane ids and the demand tail;
+    operations add the AND with the valid mask, the popcount, the
+    per-plane add of every word and the demand compares.
+    """
+    W = occ.shape[1]
+    t64 = times.astype(np.int64)
+    n_valid = int((times < T_INF).sum())
+    ops = 0
+    for s in starts[starts < T_INF].astype(np.int64):
+        a = min(int(s), T_INF - t_du)
+        b = a + t_du
+        lo = max(int(np.searchsorted(t64, a, side="right")) - 1, 0)
+        hi = int(np.searchsorted(t64, b, side="left"))
+        busy = np.bitwise_or.reduce(occ[lo:hi], axis=0) if hi > lo \
+            else np.zeros(W, np.uint32)
+        free = ~busy & valid
+        blocking = ((occ[:n_valid] & free) != 0).any(axis=1)
+        left = np.nonzero(blocking[:lo])[0]
+        right = np.nonzero(blocking[hi:])[0]
+        n_left = lo - int(left[-1]) if left.size else lo
+        n_right = int(right[0]) + 1 if right.size else n_valid - hi
+        ops += W * ((hi - lo) + 3 + 2 * (n_left + n_right)) + n_planes - 1
+    n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
+                   + starts.size + 2 * W + n_planes - 1)
+    return n_bytes, ops
+
+
+def stamp(jobs, units):
+    """Half-intensity secondary demands, scaled by the job's PE share
+    (the rule of benchmarks/bench_multires.py::_stamp)."""
+    n_pe = units[0]
+    return [dataclasses.replace(j, demand=(j.n_pe,) + tuple(
+        min(u, max(0, int(round(0.5 * u * (j.n_pe / n_pe)))))
+        for u in units[1:])) for j in jobs]
+
+
+def bound_row(n_bytes: int, ops: int) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, word_ops=ops)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +401,171 @@ def kernel_phase(rng, dev) -> dict:
     return rows
 
 
+def kernel_phase_mr(rng, dev, rows: dict) -> None:
+    """Both multi-resource kernels against their plain versions, exact."""
+    import torch
+    from repro_torch.core import search as search_lib
+    from repro_torch.core.resources import ResourceSpec, device_layout
+    from repro_torch.core.timeline import Timeline
+    from repro_torch.core.words import to_int32
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import ref as R
+
+    n_checked = 0
+
+    def check_case(spec, live, times_np, occ_np, starts, t_du, t_now,
+                   n_req, label, infeasible=False):
+        nonlocal n_checked
+        times = torch.from_numpy(times_np).to(dev)
+        occ = torch.from_numpy(to_int32(occ_np)).to(dev)
+        if not isinstance(starts, torch.Tensor):
+            starts = torch.from_numpy(np.asarray(starts, np.int32)).to(dev)
+        valid = torch.from_numpy(spec.valid_mask_np(live)).to(dev)
+        plane = device_layout(spec, dev).plane_of_word
+        got = K.availscan_mr(times, occ, starts, valid, plane, spec.R, t_du,
+                             t_now, n_pe=spec.n_pe)
+        want = R.availscan_mr_ref(times, occ, starts, valid, plane, spec.R,
+                                  t_du, t_now)
+        for name, g, w in zip(("n_free", "n_free_tail", "t_begin", "t_end"),
+                              got, want):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5, 0].tolist()
+                fail(f"availscan_mr {name} differs ({label}) at {bad}")
+        n_free, tail, t_begin, t_end = want
+        demands = {(0,) * (spec.R - 1), tuple(u // 2 for u in spec.units[1:]),
+                   spec.units[1:]}
+        for d in sorted(demands):
+            d_t = torch.tensor(d, dtype=torch.int32).to(dev)
+            # the plain select's own feasibility, on the plain rectangles
+            feasible = ((starts < T_INF) & (n_free >= n_req)
+                        & (tail >= d_t[None, :]).all(dim=1))
+            for pid in range(7):
+                g = K.availscan_select_mr(times, occ, starts, valid, plane,
+                                          d_t, t_du, t_now, n_req, pid,
+                                          n_pe=spec.n_pe)
+                w = R.select_row(starts, n_free, t_begin, t_end, feasible,
+                                 pid)
+                if not torch.equal(g, w):
+                    fail(f"availscan_select_mr differs ({label}, policy "
+                         f"{pid}, demand {d}): {g.tolist()} vs {w.tolist()}")
+                if infeasible and d == spec.units[1:] and int(g[7]):
+                    fail(f"{label}: a full secondary demand was feasible")
+        w = R.availscan_select_mr_ref(times, occ, starts, valid, plane, d_t,
+                                      t_du, t_now, n_req, 6)
+        if not torch.equal(g, w):
+            fail(f"availscan_select_mr differs from its plain version "
+                 f"({label})")
+        n_checked += 1
+
+    for units, live in MR_LAYOUTS:
+        spec = ResourceSpec(units)
+        lu = None if live is None else live + units[1:]
+        n_live = units[0] if live is None else live[0]
+        for cap in MR_CAPACITIES:
+            times_np, occ_np = random_timeline_mr(rng, spec, lu, cap, 0.9)
+            span = int(times_np[times_np < T_INF][-1])
+            t_r = int(rng.integers(0, max(1, span // 2)))
+            t_du = int(rng.integers(1, 400))
+            t_dl = t_r + t_du + int(rng.integers(0, span))
+            tl = Timeline(torch.from_numpy(times_np).to(dev),
+                          torch.from_numpy(to_int32(occ_np)).to(dev))
+            starts = search_lib.candidate_starts(tl, t_r, t_du, t_dl)
+            check_case(spec, lu, times_np, occ_np, starts, t_du, t_r,
+                       int(rng.integers(1, n_live + 1)),
+                       f"{units} live {live} S={cap}")
+            rand = rng.integers(0, span + 1, 2 * cap + 2).astype(np.int32)
+            rand[rng.random(rand.shape[0]) < 0.3] = T_INF
+            check_case(spec, lu, times_np, occ_np, rand, t_du, 0,
+                       n_live // 3, f"{units} random starts S={cap}")
+        # edge cases on this layout
+        W = spec.total_words
+        empty_t = np.full(128, T_INF, np.int32)
+        empty_o = np.zeros((128, W), np.uint32)
+        check_case(spec, lu, empty_t, empty_o, [5, 9, T_INF, T_INF], 7, 0,
+                   n_live, f"{units} empty timeline")
+        times_np, occ_np = random_timeline_mr(rng, spec, lu, 1024, 0.9)
+        dead = np.full(2050, T_INF, np.int32)
+        check_case(spec, lu, times_np, occ_np, dead, 5, 0, 1,
+                   f"{units} all candidates dead")
+        dead[1] = 17
+        check_case(spec, lu, times_np, occ_np, dead, 5, 0, 1,
+                   f"{units} dead tiles around one live candidate")
+        live_t = times_np[times_np < T_INF]
+        check_case(spec, lu, times_np, occ_np, np.sort(live_t[:200]), 50, 0,
+                   units[0] + 1, f"{units} infeasible request")
+        check_case(spec, lu, times_np, occ_np,
+                   [int(live_t[-1]), T_INF - 10, T_INF - 1, T_INF - 3000],
+                   5000, 0, 1, f"{units} window at the horizon")
+        if spec.R > 1:
+            # one unit of the last plane held over the whole horizon: a
+            # one-PE request that asks for that whole plane fits nowhere
+            hold = occ_np.copy()
+            hold[:live_t.size, spec.word_offsets[-1]] |= np.uint32(1)
+            check_case(spec, lu, times_np, hold, np.sort(live_t[:100]), 30,
+                       0, 1, f"{units} only a secondary plane refuses",
+                       infeasible=True)
+    print(f"multi-resource kernel phase: {n_checked} cases exact (each: "
+          f"availscan_mr + availscan_select_mr x 7 policies x demand tails)")
+
+    # ---- times at the session's shape: S = 128, P = 258, (1024, 128, 64,
+    # 256) = 46 words
+    spec = ResourceSpec(MR_UNITS)
+    lay = device_layout(spec, dev)
+    times_np, occ_np = random_timeline_mr(rng, spec, None, 128, 0.2)
+    tl = Timeline(torch.from_numpy(times_np).to(dev),
+                  torch.from_numpy(to_int32(occ_np)).to(dev))
+    t_du = 900
+    span = int(times_np[times_np < T_INF][-1])
+    starts = search_lib.candidate_starts(tl, 0, t_du, span + 4 * t_du)
+    d_t = torch.tensor([u // 4 for u in MR_UNITS[1:]],
+                       dtype=torch.int32).to(dev)
+    pid, n_req = 2, 256
+    base = (tl.times, tl.occ, starts, lay.valid_mask, lay.plane_of_word)
+    calls = {
+        "availscan_mr": (
+            lambda: K.availscan_mr(*base, spec.R, t_du, 0, n_pe=1024),
+            lambda: R.availscan_mr_ref(*base, spec.R, t_du, 0),
+            4 * starts.numel() * (3 + spec.R - 1),
+            "src/repro/kernels/availscan.py:253"),
+        "availscan_select_mr": (
+            lambda: K.availscan_select_mr(*base, d_t, t_du, 0, n_req, pid,
+                                          n_pe=1024),
+            lambda: R.availscan_select_mr_ref(*base, d_t, t_du, 0, n_req,
+                                              pid),
+            8 * 4, "src/repro/kernels/availscan.py:529"),
+    }
+    valid_np = spec.valid_mask_np().view(np.uint32)
+    for name, (kern, plain, out_bytes, replaces) in calls.items():
+        ms = cuda_time_ms(kern, reps=200)
+        plain_ms = cuda_time_ms(plain, reps=20)
+        dev_ms = device_ms(kern)
+        plain_dev_ms = device_ms(plain, reps=10)
+        g, w = kern(), plain()
+        if isinstance(g, tuple):
+            g = torch.cat([x.reshape(-1) for x in g])
+            w = torch.cat([x.reshape(-1) for x in w])
+        err = int((g.long() - w.long()).abs().max())
+        if err != 0:
+            fail(f"{name} differs at the session shape")
+        n_bytes, ops = scan_work_mr(times_np, occ_np, starts.cpu().numpy(),
+                                    t_du, valid_np, spec.R)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/availscan.cu",
+            replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=None, exact=True,
+            device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+            shape=dict(S=128, P=int(starts.numel()),
+                       live=int((starts < T_INF).sum()), units=MR_UNITS,
+                       words=spec.total_words),
+            **bound_row(n_bytes + out_bytes, ops))
+        r = rows[name]
+        print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
+              f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
+              f"{_us(plain_dev_ms)}), bound {r['bound_ms'] * 1e6:.2f} ns "
+              f"({r['bound_by']}; {r['bytes']} B, {ops} word ops)")
+
+
 def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
     import torch
     from repro_torch.core import search as search_lib
@@ -465,12 +720,220 @@ def paper_claims(dev) -> None:
           "FF the lowest slowdown")
 
 
+def _decisions(results):
+    allocs = [a for r in results for a in r.allocations()]
+    return allocs, [(a is not None, a.t_s if a is not None else -1)
+                    for a in allocs]
+
+
+def _first_diff(got, want) -> str:
+    diff = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    return f"at {diff[:10]} ({len(diff)}/{len(want)}; lengths " \
+        f"{len(got)}/{len(want)})"
+
+
+def session_path(jobs, dev, rows: dict) -> None:
+    """The multi-resource session on the stamped paper stream."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import MultiResourceOracle
+    from repro_torch.core.resources import ResourceSpec
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    spec = ResourceSpec(MR_UNITS)
+    n = len(jobs)
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, resources=MR_UNITS, policy=Policy.PE_W, use_kernel=True,
+        chunk_size=64, ring_capacity=256, device=dev)).session()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = [sess.offer(jobs[i:i + 100], flush=False)
+               for i in range(0, n, 100)]
+    results.append(sess.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    m = sess.metrics()
+    allocs, got = _decisions(results)
+    t0 = time.perf_counter()
+    oracle = MultiResourceOracle(spec, Policy.PE_W, "none")
+    want = oracle.run(jobs)
+    host_s = time.perf_counter() - t0
+    if got != want:
+        fail(f"session decisions differ from the oracle {_first_diff(got, want)}")
+    if sess.records() != oracle.records():
+        fail("session records differ from the oracle's")
+    if launches["availscan_select_mr"] != m["steps"] or m["steps"] < n:
+        fail(f"availscan_select_mr launched {launches['availscan_select_mr']}"
+             f" times for {m['steps']} admit steps ({n} requests)")
+    if launches["availscan_select"] or launches["availscan"]:
+        fail(f"single-resource kernels launched on the session: {launches}")
+    rows["availscan_select_mr"]["launches"] = launches["availscan_select_mr"]
+    acc = [(a, j) for a, j in zip(allocs, jobs) if a is not None]
+    slow = [(a.t_s - j.t_r + j.t_du) / j.t_du for a, j in acc]
+    print(f"session: {n} stamped jobs, PE_W, units {MR_UNITS}: acceptance "
+          f"{len(acc) / n:.4f}, avg slowdown {np.mean(slow):.6f}, card run "
+          f"{wall:.3f} s = {n / wall:.1f} requests/s (oracle {host_s:.3f} s)"
+          f"; decisions and records identical to MultiResourceOracle")
+    print(f"session: {m['chunks']} chunks, {m['steps']} admit steps "
+          f"({m['steps'] - n} filler or re-run), availscan_select_mr "
+          f"launches {launches['availscan_select_mr']}, host syncs "
+          f"{m['host_syncs']} = {m['host_syncs'] / n:.3f} per request, "
+          f"release passes {m['release_passes']}, growths {m['growths']}, "
+          f"final capacity {m['capacity']} records / "
+          f"{m['pending_capacity']} pending")
+    rows["availscan_select_mr"]["session"] = dict(
+        n=n, wall_s=wall, steps=m["steps"], host_syncs=m["host_syncs"],
+        growths=m["growths"], capacity=m["capacity"])
+
+    # rectangle query: the kernel-backed availability_rectangles over
+    # probes on the timeline the session left
+    from repro_torch.core import search as search_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    tl, lane_valid = sess.engine.tl, sess.engine.state.lane_valid
+    probes = jobs[-64:]
+    starts = [search_lib.candidate_starts(tl, j.t_r, j.t_du, j.t_dl)
+              for j in probes]
+    K.reset_launches()
+    got = [ops.availability_rectangles(tl, st, j.t_du, j.t_a, 1024,
+                                       rspec=spec, valid_mask=lane_valid)
+           for st, j in zip(starts, probes)]
+    launches = dict(K.LAUNCHES)
+    if launches["availscan_mr"] != len(probes):
+        fail(f"availscan_mr launched {launches['availscan_mr']} times for "
+             f"{len(probes)} probes")
+    rows["availscan_mr"]["launches"] = launches["availscan_mr"]
+    from repro_torch.core.resources import device_layout
+    plane = device_layout(spec, tl.device).plane_of_word
+    for g, st, j in zip(got, starts, probes):
+        w = R.availscan_mr_ref(tl.times, tl.occ, st, lane_valid, plane,
+                               spec.R, j.t_du, j.t_a)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (g.n_free, g.n_free_tail, g.t_begin, g.t_end), w)):
+            fail("multi-resource rectangle query differs from the plain "
+                 "version")
+    print(f"rectangle query: {len(probes)} probes on the session's "
+          f"timeline ({int(tl.n_valid())} records), availscan_mr launches "
+          f"{launches['availscan_mr']}, exact")
+
+
+def profile_session(jobs, dev, n_jobs: int = 320) -> None:
+    """Where a session's admit step goes: a warm session, then one
+    profiled offer of ``n_jobs`` requests."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.types import Policy
+
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, resources=MR_UNITS, policy=Policy.PE_W, use_kernel=True,
+        chunk_size=64, ring_capacity=256, device=dev)).session()
+    sess.offer(jobs[:n_jobs])
+    before = sess.metrics()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.offer(jobs[n_jobs:2 * n_jobs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = sess.metrics()
+    steps = after["steps"] - before["steps"]
+    syncs = after["host_syncs"] - before["host_syncs"]
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    n_kernels = sum(e.count for e in events)
+    print(f"profiled session: {steps} admit steps, wall {wall:.3f} s "
+          f"({wall / steps * 1e3:.3f} ms/step, profiler on), device busy "
+          f"{busy_s:.4f} s, idle share {1 - busy_s / wall:.4f}, "
+          f"{n_kernels / steps:.1f} kernels/step, {syncs / steps:.3f} host "
+          f"syncs/step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / steps:8.2f} us/step "
+              f"{e.count / steps:5.2f} x/step  {e.key[:90]}")
+
+
+def session_variants(jobs_mr, jobs, dev, n_event_loop: int) -> None:
+    """One-shot sessions for every policy, a heterogeneous lane and the
+    per-operation event loop, each against the oracle."""
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import MultiResourceOracle
+    from repro_torch.core.resources import ResourceSpec
+    from repro_torch.core.types import ALL_POLICIES, Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.sim import simulate
+
+    spec = ResourceSpec(MR_UNITS)
+    few = jobs_mr[:500]
+    K.reset_launches()
+    for pol in ALL_POLICIES:
+        sess = ReservationService(ServiceConfig(
+            n_pe=1024, resources=MR_UNITS, policy=pol, use_kernel=True,
+            chunk_size=None, device=dev)).session()
+        _, got = _decisions([sess.offer(few)])
+        oracle = MultiResourceOracle(spec, pol, "none")
+        if got != oracle.run(few) or sess.records() != oracle.records():
+            fail(f"one-shot session, {pol.value}: differs from the oracle")
+    if K.LAUNCHES["availscan_select_mr"] < 7 * len(few):
+        fail(f"one-shot sessions launched availscan_select_mr "
+             f"{K.LAUNCHES['availscan_select_mr']} times")
+    print(f"one-shot sessions: {len(few)} stamped jobs x 7 policies "
+          f"identical to the oracle (availscan_select_mr launches "
+          f"{K.LAUNCHES['availscan_select_mr']})")
+
+    lane_jobs = jobs[:2000]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, machine_sizes=(1000,), device=dev)).session()
+    allocs, got = _decisions([sess.offer(lane_jobs)])
+    wall = time.perf_counter() - t0
+    oracle = MultiResourceOracle(ResourceSpec((1024,)), Policy.PE_W, "none",
+                                 live_units=(1000,))
+    want = oracle.run(lane_jobs)
+    if got != want or sess.records() != oracle.records():
+        fail(f"machine_sizes=(1000,) lane differs from the oracle "
+             f"{_first_diff(got, want)}")
+    if any(a is not None and max(a.pe_ids) >= 1000 for a in allocs):
+        fail("a dead PE of the heterogeneous lane was allocated")
+    if K.LAUNCHES["availscan_select_mr"] < len(lane_jobs):
+        fail("the heterogeneous lane did not run availscan_select_mr")
+    print(f"heterogeneous lane: machine_sizes=(1000,), {len(lane_jobs)} "
+          f"paper jobs, acceptance {sum(g[0] for g in got) / len(got):.4f},"
+          f" {len(lane_jobs) / wall:.1f} requests/s; identical to the oracle"
+          f" (availscan_select_mr launches "
+          f"{K.LAUNCHES['availscan_select_mr']})")
+
+    loop_jobs = jobs_mr[:n_event_loop]
+    K.reset_launches()
+    res = simulate(loop_jobs, 1024, Policy.PE_W, engine="device",
+                   engine_kwargs=dict(rspec=spec, use_kernel=True),
+                   device=dev, record_decisions=True)
+    n_launch = K.LAUNCHES["availscan_select_mr"]
+    want = MultiResourceOracle(spec, Policy.PE_W, "none").run(loop_jobs)
+    if res.decisions != want:
+        fail(f"multi-resource event loop differs from the oracle "
+             f"{_first_diff(res.decisions, want)}")
+    if n_launch != len(loop_jobs):
+        fail(f"event loop: {n_launch} availscan_select_mr launches for "
+             f"{len(loop_jobs)} jobs")
+    print(f"event loop: simulate(engine='device', rspec), {len(loop_jobs)} "
+          f"stamped jobs: acceptance {res.acceptance_rate:.4f}, "
+          f"{len(loop_jobs) / res.wall_seconds:.1f} requests/s; "
+          f"availscan_select_mr launches {n_launch}; identical to the oracle")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n-jobs", type=int, default=10_000)
+    ap.add_argument("--n-jobs", type=int, default=5_000,
+                    help="jobs of the single-resource paper stream")
     ap.add_argument("--n-event-loop", type=int, default=500,
-                    help="jobs for the per-operation event loop")
+                    help="jobs for the per-operation event loops")
+    ap.add_argument("--n-session", type=int, default=10_000,
+                    help="jobs for the multi-resource session")
     args = ap.parse_args(argv)
 
     import torch
@@ -500,6 +963,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows = kernel_phase(rng, dev)
     print(f"kernel phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernel_phase_mr(rng, dev, rows)
+    print(f"multi-resource kernel phase took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     jobs = generate(WorkloadParams(n_jobs=args.n_jobs, seed=args.seed))
@@ -510,6 +976,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paper_claims(dev)
     print(f"paper claims took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    paper = generate(WorkloadParams(n_jobs=max(args.n_session, 2000),
+                                    seed=args.seed))
+    jobs_mr = stamp(paper[:args.n_session], MR_UNITS)
+    session_path(jobs_mr, dev, rows)
+    profile_session(jobs_mr, dev)
+    session_variants(jobs_mr, paper, dev, args.n_event_loop)
+    print(f"multi-resource session phases took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -1,0 +1,296 @@
+"""`ServiceConfig`: one declarative knob set for the reservation service.
+
+The port's copy of ``repro/api/config.py``.  It keeps every field the
+reference has except ``donate`` and ``placement`` (JAX buffer donation
+and device meshes) and ``bucketing`` (the port always searches the
+smallest power-of-two prefix of the timeline that holds its records),
+validates each one as the reference does, and adds ``device``.  The
+port runs one device timeline per session; fields that ask for more
+(ensemble lanes, partitions, backfilling, tenants, the availability
+index, the host engines) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional, Tuple, Union
+
+from repro_torch.core import batch as batch_lib
+from repro_torch.core.policies import policy_index
+from repro_torch.core.resources import ResourceSpec
+from repro_torch.core.types import BackfillMode, Policy
+from repro_torch.device import DeviceLike
+
+#: The three engine implementations of the reference.
+ENGINE_NAMES = ("list", "host", "device")
+
+#: Partition routing strategies of the reference.
+ROUTINGS = ("round_robin", "least_loaded", "best_acceptance")
+
+#: Backfilling admission modes.
+BACKFILLS = tuple(m.value for m in BackfillMode)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Complete configuration of a :class:`~repro_torch.api.ReservationService`.
+
+    ``engine`` / ``policy`` / ``use_kernel``
+        The port runs ``engine="device"``; ``policy`` is the default
+        Section-5 policy (overridable per ``offer``); ``use_kernel``
+        runs the search through the hand-written CUDA kernels (on the
+        CPU it takes their plain versions), ``False`` through plain
+        tensor code.  Both make the same decisions.
+    ``capacity`` / ``pending_capacity`` / ``auto_grow`` / ``max_growths``
+        Starting sizes of the timeline and the pending-release buffer.
+        An overflowing dispatch grows to the high-water mark it
+        recorded and re-runs; ``auto_grow=False`` raises instead,
+        commits nothing of the overflowing chunk and leaves its
+        requests in the ring.
+    ``chunk_size`` / ``ring_capacity``
+        :meth:`~repro_torch.api.Session.offer` stages arrivals in a
+        ``ring_capacity``-slot ring and admits them in chunks of
+        ``chunk_size``; ``None`` admits each offer as one batch.
+    ``resources`` / ``machine_sizes``
+        ``resources`` makes the machine multi-resource: one unit count
+        per resource, ``resources[0] == n_pe``, one packed bitplane
+        each, and requests may carry a full ``demand`` vector.
+        ``machine_sizes`` (one entry per lane) gives the lane fewer
+        live PEs than ``n_pe``.
+    ``device``
+        Where the session's state lives; ``None`` means cuda (raising
+        without a card).
+    """
+
+    n_pe: int
+    engine: str = "device"
+    policy: Policy = Policy.PE_W
+    capacity: int = 128
+    pending_capacity: int = 256
+    auto_grow: bool = True
+    max_growths: int = batch_lib.MAX_DOUBLINGS
+    auto_release: bool = True
+    use_kernel: bool = True
+    lanes: int = 1
+    n_partitions: int = 1
+    routing: str = "round_robin"
+    chunk_size: Optional[int] = 64
+    ring_capacity: int = 256
+    backfill: Union[str, Tuple[str, ...]] = "none"
+    backfill_queue: int = 8
+    tenants: Optional[Any] = None
+    resources: Optional[Tuple[int, ...]] = None
+    machine_sizes: Optional[Tuple[int, ...]] = None
+    index_tile: Optional[int] = None
+    engine_kwargs: Optional[Mapping[str, Any]] = None
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        if self.n_pe < 1:
+            raise ValueError(f"n_pe must be >= 1, got {self.n_pe}")
+        if self.engine not in ENGINE_NAMES:
+            raise ValueError(
+                f"unknown engine {self.engine!r}; pick one of "
+                f"{ENGINE_NAMES}")
+        if isinstance(self.policy, str):
+            object.__setattr__(self, "policy", Policy(self.policy))
+        if self.lanes < 1 or self.n_partitions < 1:
+            raise ValueError("lanes and n_partitions must be >= 1")
+        if self.lanes > 1 and self.n_partitions > 1:
+            raise ValueError(
+                "lanes (whole-machine replicas) and n_partitions "
+                "(machine slices) are exclusive scale-out axes")
+        if (self.lanes > 1 or self.n_partitions > 1) \
+                and self.engine != "device":
+            raise ValueError(
+                "ensemble lanes and partitions are device states; use "
+                "engine='device'")
+        if self.n_partitions > 1 and self.n_pe % self.n_partitions:
+            raise ValueError(
+                f"n_pe={self.n_pe} not divisible into "
+                f"{self.n_partitions} partitions")
+        if self.n_partitions > 1 and not self.auto_grow:
+            raise ValueError(
+                "the partitioned core grows internally; "
+                "auto_grow=False is not supported with n_partitions>1")
+        if self.engine_kwargs and self.engine == "device":
+            raise ValueError(
+                "device-engine knobs are first-class config fields "
+                "(capacity/pending_capacity/use_kernel); "
+                "engine_kwargs is for host/list engines")
+        if self.max_growths < 0:
+            raise ValueError("max_growths must be >= 0")
+        if self.routing not in ROUTINGS:
+            raise ValueError(
+                f"unknown routing {self.routing!r}; pick one of "
+                f"{ROUTINGS}")
+        if self.chunk_size is not None:
+            if self.chunk_size < 1:
+                raise ValueError("chunk_size must be >= 1 or None")
+            if self.ring_capacity < self.chunk_size:
+                raise ValueError(
+                    f"ring_capacity ({self.ring_capacity}) must hold "
+                    f"at least one chunk ({self.chunk_size})")
+        if self.capacity < 2 or self.pending_capacity < 1:
+            raise ValueError("capacity >= 2 and pending_capacity >= 1")
+        self._check_backfill()
+        self._check_resources()
+        if self.index_tile is not None:
+            it = int(self.index_tile)
+            object.__setattr__(self, "index_tile", it)
+            if self.engine != "device":
+                raise ValueError(
+                    "the availability index lives in the device state; "
+                    "use engine='device'")
+            if it < 1 or (it & (it - 1)) != 0:
+                raise ValueError(
+                    f"index_tile must be a positive power of two: got "
+                    f"{it}")
+            if self.capacity % it:
+                raise ValueError(
+                    f"capacity ({self.capacity}) must be divisible by "
+                    f"index_tile ({it})")
+        self._check_ported()
+
+    def _check_backfill(self) -> None:
+        bf = self.backfill
+        if isinstance(bf, str):
+            if bf not in BACKFILLS:
+                raise ValueError(
+                    f"unknown backfill {bf!r}; pick one of {BACKFILLS}")
+        else:
+            bf = tuple(bf)
+            object.__setattr__(self, "backfill", bf)
+            unknown = [m for m in bf if m not in BACKFILLS]
+            if unknown:
+                raise ValueError(
+                    f"unknown backfill modes {unknown}; pick from "
+                    f"{BACKFILLS}")
+            if self.n_partitions > 1:
+                raise ValueError(
+                    "partition lanes share one backfill mode; pass a "
+                    "single name (per-lane tuples are for ensemble "
+                    "sessions)")
+            if len(bf) != self.lanes:
+                raise ValueError(
+                    f"{len(bf)} backfill modes for {self.lanes} lanes "
+                    f"(a tuple gives one mode per ensemble lane)")
+        if self.backfilling:
+            if self.engine != "device":
+                raise ValueError(
+                    "backfilling runs on the device deferral queue; "
+                    "use engine='device'")
+            if not self.auto_release:
+                raise ValueError(
+                    "backfilling promotes parked reservations through "
+                    "the pending-release buffer; it requires "
+                    "auto_release=True")
+            if self.backfill_queue < 1:
+                raise ValueError(
+                    "backfill_queue must be >= 1 when backfilling")
+
+    def _check_resources(self) -> None:
+        if self.resources is not None:
+            rs = tuple(int(x) for x in self.resources)
+            object.__setattr__(self, "resources", rs)
+            if not rs or rs[0] != self.n_pe:
+                raise ValueError(
+                    f"resources[0] must equal n_pe={self.n_pe}: got {rs}")
+            if any(x < 1 for x in rs):
+                raise ValueError(
+                    f"every resource needs >= 1 unit: got {rs}")
+            if self.engine != "device":
+                raise ValueError(
+                    "multi-resource timelines live in the device state; "
+                    "use engine='device'")
+            if self.n_partitions > 1:
+                raise ValueError(
+                    "resources and n_partitions>1 are not supported "
+                    "together (partitions slice the single PE pool)")
+        if self.machine_sizes is not None:
+            ms = tuple(int(x) for x in self.machine_sizes)
+            object.__setattr__(self, "machine_sizes", ms)
+            if self.engine != "device":
+                raise ValueError(
+                    "machine_sizes masks the device timeline; use "
+                    "engine='device'")
+            if self.n_partitions > 1:
+                raise ValueError(
+                    "machine_sizes and n_partitions>1 are not supported "
+                    "together")
+            if self.tenants is not None:
+                raise ValueError(
+                    "machine_sizes with tenants is not supported "
+                    "(tenant PE-seconds accounting assumes homogeneous "
+                    "lanes)")
+            if len(ms) != self.lanes:
+                raise ValueError(
+                    f"{len(ms)} machine_sizes for {self.lanes} lanes "
+                    f"(one live-PE count per ensemble lane)")
+            bad = [m for m in ms if not 0 < m <= self.n_pe]
+            if bad:
+                raise ValueError(
+                    f"machine_sizes entries must be in (0, n_pe="
+                    f"{self.n_pe}]: got {bad}")
+
+    def _check_ported(self) -> None:
+        """Valid settings the port does not run yet."""
+        for on, what, item in (
+                (self.engine != "device", f"engine={self.engine!r}", "A9"),
+                (self.lanes > 1, "lanes > 1", "A12"),
+                (self.n_partitions > 1, "n_partitions > 1", "A15"),
+                (self.backfilling, f"backfill={self.backfill!r}", "A11"),
+                (self.tenants is not None, "tenants", "A14"),
+                (self.index_tile is not None, "index_tile", "A10")):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP {item}); the "
+                    f"port runs one device timeline per session")
+
+    @property
+    def rspec(self) -> Optional[ResourceSpec]:
+        """The session's :class:`ResourceSpec`; ``None`` on plain configs.
+
+        ``machine_sizes`` without ``resources`` implies an R=1 spec
+        (heterogeneous lanes need the masked fit test).
+        """
+        if self.resources is None and self.machine_sizes is None:
+            return None
+        return ResourceSpec(self.resources if self.resources is not None
+                            else (self.n_pe,))
+
+    @property
+    def extra_demand(self) -> int:
+        """Staged demand-tail width (R-1) for rings and batches."""
+        spec = self.rspec
+        return 0 if spec is None else spec.R - 1
+
+    @property
+    def machine_units(self) -> Optional[Tuple[Tuple[int, ...], ...]]:
+        """Per-lane live-unit tuples for heterogeneous lanes."""
+        if self.machine_sizes is None:
+            return None
+        spec = self.rspec
+        return tuple((m,) + spec.units[1:] for m in self.machine_sizes)
+
+    @property
+    def backfilling(self) -> bool:
+        """Whether any lane runs a non-``none`` backfill mode."""
+        bf = self.backfill
+        modes = (bf,) if isinstance(bf, str) else bf
+        return any(m != BackfillMode.NONE.value for m in modes)
+
+    def replace(self, **changes) -> "ServiceConfig":
+        return dataclasses.replace(self, **changes)
+
+
+PolicyLike = Union[Policy, int, str]
+
+
+def policy_id_of(policy: PolicyLike) -> int:
+    """Any policy spelling -> its int32 id."""
+    if isinstance(policy, str):
+        policy = Policy(policy)
+    if isinstance(policy, Policy):
+        return policy_index(policy)
+    return int(policy)

@@ -17,11 +17,17 @@ Host syncs.  The release loop reads one flag per pass to learn whether
 another :data:`RELEASE_CHUNK` pass is due (the reference's
 ``while_loop``); a stream reads the batch to the host once and the
 overflow latch once per attempt.  :class:`StreamStats` counts them.
+
+Multi-resource states (``state.rspec`` set) admit with the vector fit:
+each step hands its row of the batch's ``demand`` column (the
+secondary planes' demands, int32[R-1], on the device) and the lane's
+``lane_valid`` mask to the search.  Streaming arrivals stage through
+the host-side :class:`RequestRing` and leave as fixed-shape chunks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,13 +53,23 @@ RELEASE_CHUNK = 8
 
 
 class RequestBatch(NamedTuple):
-    """Struct-of-tensors AR request stream, sorted by arrival time."""
+    """Struct-of-tensors AR request stream, sorted by arrival time.
+
+    ``demand`` is the optional multi-resource column: int32[N, R-1]
+    secondary-plane demands (plane 0 is ``n_pe``); ``None`` for
+    single-resource streams.
+    """
 
     t_a: torch.Tensor   # int32[N]
     t_r: torch.Tensor
     t_du: torch.Tensor
     t_dl: torch.Tensor
     n_pe: torch.Tensor
+    demand: Optional[torch.Tensor] = None  # int32[N, R-1]
+
+
+#: The paper's five request coordinates: the always-present columns.
+REQ_FIELDS: Tuple[str, ...] = ("t_a", "t_r", "t_du", "t_dl", "n_pe")
 
 
 class Decision(NamedTuple):
@@ -84,19 +100,202 @@ class StreamStats:
         self.host_syncs += n
 
 
-def requests_to_batch(jobs: Sequence[ARRequest],
-                      device: DeviceLike = None) -> RequestBatch:
-    """Pack host requests into the device struct-of-tensors layout."""
+def _req_field(r: ARRequest, f: str) -> int:
+    """One staging column of a host request.
+
+    ``demand<k>`` (k >= 1) reads plane ``k`` of the request's demand
+    vector; a request without one stages 0 there (PEs only).
+    """
+    if f.startswith("demand"):
+        k = int(f[len("demand"):])
+        return 0 if r.demand is None else int(r.demand[k])
+    return int(getattr(r, f))
+
+
+def _demand_fields(extra_demand: int) -> Tuple[str, ...]:
+    """Staging column names of the demand tail (planes 1..R-1)."""
+    return tuple(f"demand{k}" for k in range(1, extra_demand + 1))
+
+
+def _fields_to_batch(fields: Dict[str, np.ndarray],
+                     device: torch.device) -> RequestBatch:
+    """Host columns (with any ``demand<k>``) -> a RequestBatch on device.
+
+    The five request columns cross in one copy; the demand columns
+    stack along a trailing axis into the int32[N, R-1] tail (``None``
+    without any).
+    """
+    cols = np.stack([np.asarray(fields[f], np.int32) for f in REQ_FIELDS])
+    t = torch.from_numpy(cols).to(device)
+    dcols = sorted((k for k in fields if k.startswith("demand")),
+                   key=lambda k: int(k[len("demand"):]))
+    demand = None
+    if dcols:
+        demand = torch.from_numpy(np.stack(
+            [np.asarray(fields[k], np.int32) for k in dcols],
+            axis=-1)).to(device)
+    return RequestBatch(*t, demand=demand)
+
+
+def requests_to_batch(jobs: Sequence[ARRequest], device: DeviceLike = None,
+                      extra_demand: int = 0) -> RequestBatch:
+    """Pack host requests into the device struct-of-tensors layout.
+
+    ``extra_demand`` (= R - 1) adds the multi-resource demand column;
+    requests without a demand vector stage zeros there.
+    """
     dev = resolve_device(device)
-    cols = np.array([[j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe] for j in jobs],
-                    dtype=np.int32).reshape(-1, 5)
-    t = torch.from_numpy(np.ascontiguousarray(cols.T)).to(dev)
-    return RequestBatch(*t)
+    names = REQ_FIELDS + _demand_fields(extra_demand)
+    fields = {f: np.array([_req_field(j, f) for j in jobs], np.int32)
+              for f in names}
+    return _fields_to_batch(fields, dev)
+
+
+def request_struct(req: ARRequest, extra_demand: int = 0,
+                   device: DeviceLike = None) -> RequestBatch:
+    """A single request as 0-d tensors (demand int32[R-1]) for :func:`admit`."""
+    b = requests_to_batch([req], device, extra_demand)
+    return RequestBatch(*(None if x is None else x[0] for x in b))
+
+
+def filler_request(n_pe: int, t_a: int) -> ARRequest:
+    """A never-feasible padding request (asks for ``n_pe + 1`` PEs).
+
+    Rejected without touching the timeline.  It carries the arrival
+    time of the last request already popped for admission, so it can
+    never reorder releases (a filler stamped past a still-staged
+    request would trigger its releases early).
+    """
+    return ARRequest(t_a=t_a, t_r=t_a, t_du=1, t_dl=t_a + 1, n_pe=n_pe + 1)
+
+
+def check_arrival_order(requests: Sequence[ARRequest],
+                        last_t_a: int) -> None:
+    """Validate ``t_a`` monotonicity of a whole slice before any
+    mutation, so a rejected offer or push changes nothing."""
+    last = last_t_a
+    for r in requests:
+        if r.t_a < last:
+            raise ValueError(
+                f"requests must be arrival-ordered across offers: "
+                f"got t_a={r.t_a} after t_a={last}")
+        last = r.t_a
+
+
+class RequestRing:
+    """Fixed-capacity FIFO staging ring for streaming admission.
+
+    Arriving requests are staged in host numpy storage and leave as
+    fixed-shape device chunks via :meth:`pop_chunk`, so every chunk has
+    the same shapes however the arrivals are grouped.  Slots are reused
+    modulo ``capacity``; a full ring rejects the push.
+    """
+
+    def __init__(self, capacity: int, extra_demand: int = 0):
+        if capacity < 1:
+            raise ValueError("ring capacity must be >= 1")
+        self.capacity = capacity
+        self._fields = REQ_FIELDS + _demand_fields(extra_demand)
+        self._buf = {f: np.zeros(capacity, np.int32) for f in self._fields}
+        self._head = 0          # index of the oldest staged request
+        self.count = 0          # staged (not yet popped) requests
+        self.pushed = 0         # lifetime pushes
+        self.popped = 0         # lifetime pops (valid only)
+        self.wrapped = False    # a slot has been reused (index wrapped)
+        self.last_t_a = 0       # arrival time of the newest push
+        self.last_popped_t_a = 0  # arrival time of the newest pop
+
+    @property
+    def free(self) -> int:
+        return self.capacity - self.count
+
+    def push(self, requests: Sequence[ARRequest]) -> None:
+        """Stage arrival-ordered requests; raises when they don't fit.
+
+        All-or-nothing: the whole slice is validated before any slot is
+        written, so a rejected push leaves the ring untouched.
+        """
+        if len(requests) > self.free:
+            raise OverflowError(
+                f"ring full: {len(requests)} requests, "
+                f"{self.free}/{self.capacity} slots free; pop a chunk "
+                f"first or configure a larger ring_capacity")
+        check_arrival_order(requests, self.last_t_a)
+        for r in requests:
+            i = (self._head + self.count) % self.capacity
+            if self.pushed >= self.capacity:
+                self.wrapped = True
+            for f in self._fields:
+                self._buf[f][i] = _req_field(r, f)
+            self.count += 1
+            self.pushed += 1
+            self.last_t_a = r.t_a
+
+    def pop_chunk(self, chunk: int, n_pe: int, device: DeviceLike = None
+                  ) -> Tuple[RequestBatch, np.ndarray]:
+        """Dequeue up to ``chunk`` requests as one fixed-shape batch.
+
+        Always ``chunk`` long: missing tail positions hold
+        :func:`filler_request` padding and are ``False`` in the
+        returned ``valid`` mask.
+        """
+        n = min(chunk, self.count)
+        idx = (self._head + np.arange(chunk)) % self.capacity
+        fields = {f: self._buf[f][idx].copy() for f in self._fields}
+        valid = np.arange(chunk) < n
+        if n > 0:
+            self.last_popped_t_a = int(fields["t_a"][n - 1])
+        if n < chunk:
+            # filler is stamped with the newest *popped* arrival, never
+            # a still-staged one: stamping past staged requests would
+            # release their predecessors early and change decisions
+            pad = filler_request(n_pe, self.last_popped_t_a)
+            for f in self._fields:
+                fields[f][n:] = _req_field(pad, f)
+        self._head = (self._head + n) % self.capacity
+        self.count -= n
+        self.popped += n
+        return _fields_to_batch(fields, resolve_device(device)), valid
+
+    def snapshot(self) -> dict:
+        """Copy of the ring's mutable state (see :meth:`restore`)."""
+        return {"buf": {f: v.copy() for f, v in self._buf.items()},
+                "head": self._head, "count": self.count,
+                "pushed": self.pushed, "popped": self.popped,
+                "wrapped": self.wrapped, "last_t_a": self.last_t_a,
+                "last_popped_t_a": self.last_popped_t_a}
+
+    def restore(self, snap: dict) -> None:
+        for f, v in snap["buf"].items():
+            self._buf[f][:] = v
+        self._head = snap["head"]
+        self.count = snap["count"]
+        self.pushed = snap["pushed"]
+        self.popped = snap["popped"]
+        self.wrapped = snap["wrapped"]
+        self.last_t_a = snap["last_t_a"]
+        self.last_popped_t_a = snap["last_popped_t_a"]
 
 
 def _field_tuple(req) -> Tuple[int, int, int, int, int]:
-    return tuple(int(getattr(req, f)) for f in
-                 ("t_a", "t_r", "t_du", "t_dl", "n_pe"))
+    return tuple(int(getattr(req, f)) for f in REQ_FIELDS)
+
+
+def request_demand(state: SchedulerState, req) -> Optional[torch.Tensor]:
+    """A request's secondary-plane demands on the state's device.
+
+    ``req`` is an :class:`ARRequest` (its ``demand`` vector checked
+    against the spec) or a :func:`request_struct`.  ``None`` on
+    single-resource states.
+    """
+    spec = state.rspec
+    if spec is None:
+        return None
+    dev = state.tl.device
+    if isinstance(req.demand, torch.Tensor):
+        return req.demand.to(device=dev, dtype=I32)
+    tail = spec.demand_tail(req.demand, int(req.n_pe))
+    return torch.tensor(tail, dtype=I32).to(dev)
 
 
 def _release_chunk(s: SchedulerState, t_now: int) -> SchedulerState:
@@ -161,15 +360,23 @@ def release_due(state: SchedulerState, t_now: int,
             stats.release_passes += 1
 
 
+# the fields an admit step may change (the layout fields stay)
+_STEP_FIELDS = tuple(f for f in SchedulerState._fields
+                     if f not in ("lane_valid", "rspec"))
+
+
 def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
                 policy_id: int, *, n_pe: int, auto_release: bool,
-                use_kernel: bool, stats: Optional[StreamStats]
+                use_kernel: bool, stats: Optional[StreamStats],
+                demand: Optional[torch.Tensor] = None
                 ) -> Tuple[SchedulerState, Decision]:
     t_a, t_r, t_du, t_dl, n_req = req
     if auto_release:
         state = release_due(state, t_a, stats)
     res = search_lib.search(state.tl, t_r, t_du, t_dl, n_req, policy_id,
-                            t_a, n_pe=n_pe, use_kernel=use_kernel)
+                            t_a, n_pe=n_pe, use_kernel=use_kernel,
+                            rspec=state.rspec, demand_tail=demand,
+                            valid_mask=state.lane_valid)
     # a win whose end reaches the horizon sentinel is rejected: the
     # update's T_INF guard would make its commit a silent no-op
     found = res.found & ~state.overflow & (res.t_e < T_INF)
@@ -199,10 +406,10 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
         overflow=s.overflow | ovf,
         hw_records=torch.maximum(s.hw_records, n_keep),
         hw_pending=torch.maximum(s.hw_pending, n_used))
-    state = SchedulerState(*(
-        _where_tl(found, c, o) if isinstance(o, tl_lib.Timeline)
-        else torch.where(found, c, o)
-        for c, o in zip(committed, state)))
+    state = state._replace(**{
+        f: (_where_tl if f == "tl" else torch.where)(
+            found, getattr(committed, f), getattr(state, f))
+        for f in _STEP_FIELDS})
     accepted = found & ~state.overflow
     return state, Decision(
         accepted=accepted,
@@ -225,13 +432,14 @@ def admit(state: SchedulerState, req, policy, *, n_pe: int,
           ) -> Tuple[SchedulerState, Decision]:
     """One fused admission step: release due -> search -> commit.
 
-    ``req`` is an :class:`ARRequest` (or anything with its five
-    integer fields).  ``auto_release=False`` skips the release pass for
-    callers that manage completions themselves.
+    ``req`` is an :class:`ARRequest` or a :func:`request_struct`.
+    ``auto_release=False`` skips the release pass for callers that
+    manage completions themselves.
     """
     return _admit_impl(state, _field_tuple(req), _policy_id(policy),
                        n_pe=n_pe, auto_release=auto_release,
-                       use_kernel=use_kernel, stats=stats)
+                       use_kernel=use_kernel, stats=stats,
+                       demand=request_demand(state, req))
 
 
 def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
@@ -245,14 +453,21 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
     search takes them as kernel arguments.
     """
     pid = _policy_id(policy)
-    rows = torch.stack(list(batch)).cpu().numpy().T
+    demand = batch.demand if state.rspec is not None else None
+    if demand is not None and tuple(demand.shape) != (
+            batch.t_a.shape[0], state.rspec.R - 1):
+        raise ValueError(f"demand column {tuple(demand.shape)} does not "
+                         f"match the spec's {state.rspec.R - 1} planes")
+    rows = torch.stack([getattr(batch, f) for f in REQ_FIELDS]
+                       ).cpu().numpy().T
     if stats is not None:
         stats.sync()
     decisions: List[Decision] = []
-    for row in rows:
+    for i, row in enumerate(rows):
         state, dec = _admit_impl(
             state, tuple(int(x) for x in row), pid, n_pe=n_pe,
-            auto_release=auto_release, use_kernel=use_kernel, stats=stats)
+            auto_release=auto_release, use_kernel=use_kernel, stats=stats,
+            demand=None if demand is None else demand[i])
         decisions.append(dec)
     if stats is not None:
         stats.steps += len(rows)
@@ -351,8 +566,36 @@ def admit_one(state: SchedulerState, req: ARRequest, policy: Policy, *,
         f"pending {start.pending_capacity})")
 
 
+def release_until(state: SchedulerState, t_now: int, *,
+                  max_growths: int = MAX_DOUBLINGS,
+                  stats: Optional[StreamStats] = None) -> SchedulerState:
+    """Delete every pending reservation ending by ``t_now``, with growth.
+
+    A deletion can split a merged record and overflow the timeline; the
+    retry re-runs from the pre-call state on a grown one.
+    ``max_growths=0`` raises on the first overflow instead, changing
+    nothing.
+    """
+    start = state
+    for attempt in range(max_growths + 1):
+        out = release_due(start, t_now, stats)
+        if stats is not None:
+            stats.sync()
+        if not bool(out.overflow):
+            return out
+        if attempt < max_growths:
+            start = _grown(start, out, stats)
+    raise GrowthError(
+        f"release_until still overflowing after {max_growths + 1} "
+        f"attempts (last tried capacity {start.tl.capacity})")
+
+
 def mask32_to_ids(mask32) -> Tuple[int, ...]:
-    """int32 (or uint32) [W] bitmask -> sorted tuple of PE ids."""
+    """int32 (or uint32) [W] bitmask -> sorted tuple of PE ids.
+
+    On multi-resource masks the ids are global bit ids: plane ``r``'s
+    unit ``u`` is ``rspec.bit_offset(r) + u``.
+    """
     if isinstance(mask32, torch.Tensor):
         mask32 = mask32.cpu().numpy()
     bits = np.unpackbits(
@@ -375,6 +618,16 @@ def decision_to_allocation(dec: Decision) -> Optional[Allocation]:
     """One 0-d :class:`Decision` -> host :class:`Allocation`."""
     return _allocation(dec.accepted, dec.t_s, dec.t_e, dec.pe_mask,
                        dec.n_free, dec.t_begin, dec.t_end)
+
+
+def decisions_to_allocations(dec: Decision) -> List[Optional[Allocation]]:
+    """Stacked decisions -> one host allocation (or None) per request."""
+    accepted, t_s, t_e, masks, n_free, t_begin, t_end = (
+        x.cpu().numpy() for x in (dec.accepted, dec.t_s, dec.t_e,
+                                  dec.pe_mask, dec.n_free, dec.t_begin,
+                                  dec.t_end))
+    return [_allocation(*f) for f in zip(accepted, t_s, t_e, masks, n_free,
+                                         t_begin, t_end)]
 
 
 def search_result_to_allocation(res: search_lib.SearchResult

@@ -4,7 +4,10 @@ The paper's data structure with PE sets as uint64 bitmask rows and
 every operation vectorised in numpy.  It shares no code with the
 device path, so :func:`repro_torch.sim.simulate_batched` holds the
 card's decisions against it (``cross_check=True``) on a machine that
-has no JAX.
+has no JAX.  :class:`MultiResourceOracle` is the same for
+multi-resource sessions: the event loop of the admit step (with the
+backfilling modes of :class:`BackfillOracle`) over a
+:class:`MultiHostScheduler` timeline in the device's global bit space.
 
 Representation
 --------------
@@ -14,6 +17,7 @@ with all PEs free before ``times[0]`` and from ``times[-1]`` on.
 """
 from __future__ import annotations
 
+import heapq
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,6 +25,7 @@ import numpy as np
 from repro_torch.core.types import (
     Allocation,
     ARRequest,
+    BackfillMode,
     Policy,
     Rectangle,
     T_INF,
@@ -199,19 +204,21 @@ class HostScheduler:
             cands.append(shifted[(shifted >= lo) & (shifted <= hi)])
         return np.unique(np.concatenate(cands))
 
-    def _rectangles(self, starts: np.ndarray, t_du: int, t_now: int
-                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Vectorised rectangles ``(n_free, t_begin, t_end)``.
+    def _rect_core(self, starts: np.ndarray, t_du: int, t_now: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Free-word rectangles ``(free[P, W], t_begin, t_end)``.
 
         Windows over the sorted timeline cover contiguous record
         ranges ``[lo, hi)``, so the busy union is a segmented OR
         (``np.bitwise_or.reduceat``) and the rectangle bounds expand
-        outward from the window until the first blocking record.
+        outward from the window until the first blocking record.  The
+        popcount stays with the caller: :meth:`_rectangles` takes one
+        count, the multi-resource subclass one per plane.
         """
         P = starts.shape[0]
         if self.n_slots == 0:
-            return (np.full(P, self.n_pe, np.int64),
-                    np.minimum(t_now, starts.astype(np.int64)),
+            free = np.broadcast_to(self._pe_mask, (P, self.W)).copy()
+            return (free, np.minimum(t_now, starts.astype(np.int64)),
                     np.full(P, T_INF, np.int64))
         a = starts.astype(np.int64)
         b = a + t_du
@@ -256,6 +263,12 @@ class HostScheduler:
             act = act[~blocked]
             pos[act] += 1
             act = act[pos[act] < self.n_slots]
+        return free, t_begin, t_end
+
+    def _rectangles(self, starts: np.ndarray, t_du: int, t_now: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Vectorised rectangles ``(n_free, t_begin, t_end)``."""
+        free, t_begin, t_end = self._rect_core(starts, t_du, t_now)
         return popcount(free), t_begin, t_end
 
     def find_allocation(self, req: ARRequest, policy: Policy,
@@ -281,3 +294,322 @@ class HostScheduler:
     def records(self) -> List[Tuple[int, frozenset]]:
         return [(int(t), frozenset(ids_from_mask(row)))
                 for t, row in zip(self.times, self.occ)]
+
+
+class MultiHostScheduler(HostScheduler):
+    """Host mirror of the multi-resource timeline.
+
+    The bit space is the device's global bit space (``rspec.total_bits``
+    bits, plane ``r`` from ``rspec.bit_offset(r)``), so host unit ids
+    equal the ids :func:`repro_torch.core.batch.mask32_to_ids` decodes
+    from device masks and records compare verbatim.  ``live_units``
+    shrinks planes for heterogeneous machine lanes; bits outside a
+    plane's live range are never counted or allocated.  Feasibility is
+    the vector test (every plane's free count covers its demand);
+    policies score the primary plane's count, as on the device.
+    """
+
+    def __init__(self, rspec, live_units=None):
+        super().__init__(rspec.total_bits)
+        self.rspec = rspec
+        valid = rspec.valid_bits_np(live_units)
+        self._pe_mask = mask_from_ids(np.nonzero(valid)[0], rspec.total_bits)
+        self._plane_masks = []
+        for r in range(rspec.R):
+            o = rspec.bit_offset(r)
+            w = rspec.words_per[r] * 32
+            ids = o + np.nonzero(valid[o:o + w])[0]
+            self._plane_masks.append(mask_from_ids(ids, rspec.total_bits))
+
+    def _demand_vec(self, req: ARRequest) -> Tuple[int, ...]:
+        tail = self.rspec.demand_tail(getattr(req, "demand", None),
+                                      req.n_pe)
+        return (int(req.n_pe),) + tail
+
+    def find_allocation(self, req: ARRequest, policy: Policy,
+                        t_now: Optional[int] = None
+                        ) -> Optional[Allocation]:
+        t_now = req.t_a if t_now is None else t_now
+        demand = self._demand_vec(req)
+        starts = self.candidate_starts(req)
+        free, t_begin, t_end = self._rect_core(starts, req.t_du, t_now)
+        plane_free = np.stack([popcount(free & pm)
+                               for pm in self._plane_masks], axis=1)
+        n_free = plane_free[:, 0]
+        feas = np.all(plane_free >= np.asarray(demand, np.int64)[None, :],
+                      axis=1)
+        if not feas.any():
+            return None
+        primary = np.where(
+            feas, _policy_primary(policy, n_free, t_begin, t_end), np.inf)
+        tiebreak = np.where(feas, starts, T_INF)
+        best = int(np.lexsort((tiebreak, primary))[0])
+        rect = Rectangle(t_s=int(starts[best]), t_begin=int(t_begin[best]),
+                         t_end=int(t_end[best]), n_free=int(n_free[best]))
+        busy = self.window_busy(rect.t_s, rect.t_s + req.t_du)
+        free_w = ~busy & self._pe_mask
+        # lowest free units per plane, like the device winning mask
+        chosen = np.zeros_like(free_w)
+        for r, pm in enumerate(self._plane_masks):
+            chosen |= lowest_bits(free_w & pm, demand[r])
+        return Allocation(t_s=rect.t_s, t_e=rect.t_s + req.t_du,
+                          pe_ids=ids_from_mask(chosen), rectangle=rect)
+
+
+class BackfillOracle:
+    """Host event-loop oracle for the backfilling admission modes.
+
+    A literal Python re-statement of
+    the device pipeline — promote due parked reservations, release due
+    completions, EASY retry sweep, search, commit-or-park, EASY
+    displacement transaction — over a :class:`HostScheduler` timeline.
+    The differential suites assert the device ``admit_stream`` is
+    bit-identical to :meth:`admit` called per request, and the
+    ``moves`` log carries every reservation move for the safety-
+    invariant property tests (conservative never moves anything; EASY
+    never delays the head of queue or a committed start).
+    """
+
+    def __init__(self, n_pe: int, policy: Policy, mode,
+                 park_capacity: int = 8):
+        self.sched = HostScheduler(n_pe)
+        self.n_pe = n_pe
+        self.policy = policy
+        self.mode = BackfillMode(mode)
+        self.Q = park_capacity
+        self.parked: List[dict] = []      # ordered by _order_key
+        # heap (t_e, heap_seq, t_s, ids, tenant); tenant -1 = anonymous
+        self.completions: List[tuple] = []
+        self._next_seq = 0
+        self._heap_seq = 0
+        self.n_parked = self.n_promoted = self.n_moved = 0
+        self.retry_flag = False   # armed by cancel, consumed per admit
+        # (seq, old_t_s, new_t_s, was_head, event) per reservation move
+        self.moves: List[tuple] = []
+
+    # -- tenancy hooks -------------------------------------------------
+    # The oracle is single-tenant: FCFS order, anonymous owners, no
+    # accounting.  A tenant-aware oracle overrides exactly these four
+    # hooks; everything else (promote / release / retry / displace /
+    # commit) stays shared.
+    def _order_key(self, entry: dict, t_now: int) -> tuple:
+        """Queue-sweep priority of a parked entry (ascending)."""
+        return (entry["seq"],)
+
+    def _tenant_of(self, req: ARRequest) -> int:
+        return -1
+
+    def _on_release(self, tenant: int) -> None:
+        """A held reservation left the machine (release or cancel)."""
+
+    def _on_reap(self, tenant: int) -> None:
+        """A held reservation was reaped overdue."""
+
+    # -- helpers -------------------------------------------------------
+    def _heap_push(self, t_s: int, t_e: int, ids,
+                   tenant: int = -1) -> None:
+        heapq.heappush(self.completions,
+                       (t_e, self._heap_seq, t_s, tuple(ids), tenant))
+        self._heap_seq += 1
+
+    def _promote_due(self, t_now: int) -> None:
+        self.parked.sort(key=lambda p: self._order_key(p, t_now))
+        still = []
+        for p in self.parked:
+            if p["t_s"] <= t_now:
+                self._heap_push(p["t_s"], p["t_e"], p["pe_ids"],
+                                p.get("tenant", -1))
+                self.n_promoted += 1
+            else:
+                still.append(p)
+        self.parked = still
+
+    def _release_due(self, t_now: int) -> None:
+        while self.completions and self.completions[0][0] <= t_now:
+            t_e, _, t_s, ids, tenant = heapq.heappop(self.completions)
+            self.sched.delete_allocation(t_s, t_e, list(ids))
+            self._on_release(tenant)
+
+    def _replacement(self, entry: dict, t_now: int,
+                     policy: Policy) -> Optional[Allocation]:
+        """The clamped-window re-placement search of a parked entry."""
+        req = ARRequest(
+            t_a=t_now, t_r=max(entry["t_r"], t_now),
+            t_du=entry["t_e"] - entry["t_s"], t_dl=entry["t_dl"],
+            n_pe=entry["n_pe"], demand=entry.get("demand"))
+        return self.sched.find_allocation(req, policy, t_now=t_now)
+
+    def _retry_parked(self, t_now: int) -> None:
+        """EASY retry-on-release sweep: pull reservations earlier
+        (never later), in ``_order_key`` order (FCFS, or weighted
+        fair-share on the tenant oracle); runs once after a cancel
+        armed the latch (only a cancel frees *future* capacity)."""
+        for p in sorted(self.parked,
+                        key=lambda q: self._order_key(q, t_now)):
+            self.sched.delete_allocation(p["t_s"], p["t_e"],
+                                         list(p["pe_ids"]))
+            alloc = self._replacement(p, t_now, Policy.FF)
+            if alloc is not None and alloc.t_s < p["t_s"]:
+                self.moves.append((p["seq"], p["t_s"], alloc.t_s,
+                                   self._is_head(p, t_now), "retry"))
+                p["t_s"], p["t_e"] = alloc.t_s, alloc.t_e
+                p["pe_ids"] = alloc.pe_ids
+                self.n_moved += 1
+            self.sched.add_allocation(p["t_s"], p["t_e"],
+                                      list(p["pe_ids"]))
+
+    def _is_head(self, entry: dict, t_now: int) -> bool:
+        if not self.parked:
+            return False
+        head = min(self.parked,
+                   key=lambda p: self._order_key(p, t_now))
+        return entry["seq"] == head["seq"]
+
+    def _commit_or_park(self, req: ARRequest, t_s: int, t_e: int,
+                        pe_ids) -> bool:
+        """Book an accepted reservation; returns whether it parked."""
+        parks = (self.mode != BackfillMode.NONE
+                 and t_s > req.t_r and len(self.parked) < self.Q)
+        if parks:
+            self.parked.append(dict(
+                seq=self._next_seq, t_s=t_s, t_e=t_e, t_r=req.t_r,
+                t_dl=req.t_dl, n_pe=req.n_pe, pe_ids=tuple(pe_ids),
+                tenant=self._tenant_of(req), t_a=req.t_a,
+                demand=req.demand))
+            self._next_seq += 1
+            self.n_parked += 1
+        else:
+            self._heap_push(t_s, t_e, pe_ids, self._tenant_of(req))
+        return parks
+
+    def _displace(self, req: ARRequest) -> Optional[Allocation]:
+        """The EASY transaction: move non-head reservations for req."""
+        snap = (self.sched.times.copy(), self.sched.occ.copy(),
+                [dict(p) for p in self.parked])
+        head_seq = min(self.parked,
+                       key=lambda p: self._order_key(p, req.t_a))["seq"]
+        nonhead = sorted((p for p in self.parked
+                          if p["seq"] != head_seq),
+                         key=lambda p: self._order_key(p, req.t_a))
+        for p in nonhead:
+            self.sched.delete_allocation(p["t_s"], p["t_e"],
+                                         list(p["pe_ids"]))
+        alloc = self.sched.find_allocation(req, self.policy,
+                                           t_now=req.t_a)
+        moves = []
+        ok = alloc is not None
+        if ok:
+            self.sched.add_allocation(alloc.t_s, alloc.t_e,
+                                      list(alloc.pe_ids))
+            for p in nonhead:
+                re = self._replacement(p, req.t_a, Policy.FF)
+                if re is None:
+                    ok = False
+                    break
+                if re.t_s != p["t_s"]:
+                    moves.append((p["seq"], p["t_s"], re.t_s, False,
+                                  "displace"))
+                p["t_s"], p["t_e"] = re.t_s, re.t_e
+                p["pe_ids"] = re.pe_ids
+                self.sched.add_allocation(re.t_s, re.t_e,
+                                          list(re.pe_ids))
+        if not ok:
+            self.sched.times, self.sched.occ, self.parked = \
+                snap[0], snap[1], snap[2]
+            return None
+        self.moves.extend(moves)
+        self.n_moved += len(moves)
+        return alloc
+
+    # -- one admission step (mirrors the device _admit_impl) ----------
+    def admit(self, req: ARRequest) -> Tuple[bool, int, bool]:
+        """Decide one arrival; returns ``(accepted, t_s, parked)``."""
+        t_now = req.t_a
+        self._promote_due(t_now)
+        self._release_due(t_now)
+        if self.mode == BackfillMode.EASY and self.parked \
+                and self.retry_flag:
+            self._retry_parked(t_now)
+        self.retry_flag = False
+        alloc = self.sched.find_allocation(req, self.policy,
+                                           t_now=t_now)
+        if alloc is None and self.mode == BackfillMode.EASY \
+                and len(self.parked) >= 2:
+            # a lone head cannot be displaced around: the transaction
+            # would re-run the identical failed search (device parity)
+            alloc = self._displace(req)
+            if alloc is None:
+                return False, -1, False
+            parked = self._commit_or_park(req, alloc.t_s, alloc.t_e,
+                                          alloc.pe_ids)
+            return True, alloc.t_s, parked
+        if alloc is None:
+            return False, -1, False
+        self.sched.add_allocation(alloc.t_s, alloc.t_e,
+                                  list(alloc.pe_ids))
+        parked = self._commit_or_park(req, alloc.t_s, alloc.t_e,
+                                      alloc.pe_ids)
+        return True, alloc.t_s, parked
+
+    def run(self, jobs) -> List[Tuple[bool, int]]:
+        """Admit an arrival-ordered stream; per-job (accepted, t_s)."""
+        return [self.admit(r)[:2] for r in jobs]
+
+    def tick(self, t_now: int) -> None:
+        """Advance time only: promote and release everything due."""
+        self._promote_due(t_now)
+        self._release_due(t_now)
+
+    def cancel(self, t_s: int, t_e: int, pe_ids) -> bool:
+        """Withdraw a parked or committed reservation; arms the
+        EASY retry-on-release sweep (mirrors ``cancel_step``)."""
+        key = (t_s, t_e, tuple(pe_ids))
+        for p in self.parked:
+            if (p["t_s"], p["t_e"], tuple(p["pe_ids"])) == key:
+                self.parked.remove(p)
+                self._on_release(p.get("tenant", -1))
+                break
+        else:
+            match = [c for c in self.completions
+                     if (c[2], c[0], c[3]) == key]
+            if not match:
+                return False
+            self.completions.remove(match[0])
+            heapq.heapify(self.completions)
+            self._on_release(match[0][4])
+        self.sched.delete_allocation(t_s, t_e, list(pe_ids))
+        self.retry_flag = True
+        return True
+
+    def pending(self) -> List[dict]:
+        """FCFS deferral-queue view, one dict per parked entry."""
+        out = []
+        for p in sorted(self.parked, key=lambda q: q["seq"]):
+            d = dict(seq=p["seq"], t_s=p["t_s"], t_e=p["t_e"],
+                     t_r=p["t_r"], t_dl=p["t_dl"], n_pe=p["n_pe"],
+                     pe_ids=tuple(p["pe_ids"]))
+            if p.get("demand") is not None:
+                d["demand"] = tuple(p["demand"])
+            out.append(d)
+        return out
+
+    def records(self):
+        return self.sched.records()
+
+
+class MultiResourceOracle(BackfillOracle):
+    """Differential mirror of the multi-resource device admit path.
+
+    :class:`BackfillOracle` with its timeline swapped for a
+    :class:`MultiHostScheduler` — every shared sweep (promote /
+    release / retry / displace / commit-or-park) already threads the
+    request's ``demand`` vector through the parked entries, so the
+    vector feasibility test is the only behavioural difference.
+    ``live_units`` mirrors a heterogeneous machine lane.
+    """
+
+    def __init__(self, rspec, policy: Policy, mode,
+                 park_capacity: int = 8, live_units=None):
+        super().__init__(rspec.n_pe, policy, mode, park_capacity)
+        self.rspec = rspec
+        self.sched = MultiHostScheduler(rspec, live_units=live_units)

@@ -5,7 +5,9 @@ Both engines expose the paper's three operations (``add_allocation``,
 holds one :class:`~repro_torch.core.timeline.SchedulerState` on the
 card and adds the fused ``admit`` step and the ``admit_stream`` batch
 path of :mod:`repro_torch.core.batch`.  Capacity overflow grows the
-state to the needed record count and re-runs.
+state to the needed record count and re-runs.  ``rspec`` makes the
+engine multi-resource: PE ids become global bit ids across planes, and
+requests carry their ``demand`` vectors.
 """
 from __future__ import annotations
 
@@ -25,14 +27,16 @@ class DeviceEngine:
 
     def __init__(self, n_pe: int, capacity: int = 256,
                  use_kernel: bool = True, pending_capacity: int = 256,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, rspec=None,
+                 live_units=None):
         self.n_pe = n_pe
         self.use_kernel = use_kernel
         # valid-record count for the search bucket; None = stale
         # (recounted on the next search)
         self._n_valid: Optional[int] = 0
         self.state = tl_lib.init_state(capacity, n_pe, pending_capacity,
-                                       device=device)
+                                       device=device, rspec=rspec,
+                                       live_units=live_units)
 
     @property
     def tl(self) -> tl_lib.Timeline:
@@ -42,9 +46,15 @@ class DeviceEngine:
         self.state = self.state._replace(tl=new_tl)
         self._n_valid = None
 
+    def _mask32(self, pes):
+        # on multi-resource states ids are global bit ids spanning every
+        # plane, so the word width bounds them; otherwise the machine
+        limit = None if self.state.rspec is not None else self.n_pe
+        return tl_lib.ids_to_mask32(sorted(pes), self.tl.words, n_pe=limit,
+                                    device=self.tl.device)
+
     def _update(self, t_s: int, t_e: int, pes, is_add: bool) -> None:
-        mask = tl_lib.ids_to_mask32(sorted(pes), self.tl.words,
-                                    n_pe=self.n_pe, device=self.tl.device)
+        mask = self._mask32(pes)
         new_tl, overflow, n_keep = tl_lib.update(
             self.tl, t_s, t_e, mask, is_add=is_add, with_count=True)
         if bool(overflow):
@@ -85,7 +95,9 @@ class DeviceEngine:
         res = search_lib.find_allocation(
             self._search_view(), req.t_r, req.t_du, req.t_dl, req.n_pe,
             policy_index(policy), t_now, n_pe=self.n_pe,
-            use_kernel=self.use_kernel)
+            use_kernel=self.use_kernel, rspec=self.state.rspec,
+            demand_tail=batch_lib.request_demand(self.state, req),
+            valid_mask=self.state.lane_valid)
         return batch_lib.search_result_to_allocation(res)
 
     # -- the fused batch path --------------------------------------------
@@ -114,8 +126,10 @@ class DeviceEngine:
         Overflow mid-stream grows the state and re-runs the stream.
         """
         if not isinstance(requests, batch_lib.RequestBatch):
-            requests = batch_lib.requests_to_batch(list(requests),
-                                                   device=self.tl.device)
+            spec = self.state.rspec
+            requests = batch_lib.requests_to_batch(
+                list(requests), device=self.tl.device,
+                extra_demand=0 if spec is None else spec.R - 1)
         self.state, dec = batch_lib.admit_stream_grow(
             self.state, requests, policy, n_pe=self.n_pe,
             auto_release=auto_release, use_kernel=self.use_kernel)

@@ -6,14 +6,22 @@ selection run fused in the ``availscan_select`` kernel
 (:mod:`repro_torch.kernels.ops`); without it they run as plain tensor
 code on the timeline's device.  Request fields are host integers; the
 results stay on the device.
+
+Multi-resource timelines (``rspec`` set) switch to the vector fit: a
+candidate is feasible iff plane 0 fits ``n_req`` and every secondary
+plane fits its ``demand_tail`` entry; the policies keep scoring plane
+0's free count, and the winning mask takes units on every plane.
+``valid_mask`` (the lane's live units, default the spec's full layout)
+carries heterogeneous machine sizes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import policies as policies_lib
+from repro_torch.core import resources as res_lib
 from repro_torch.core import timeline as tl_lib
 from repro_torch.core import words as words_lib
 from repro_torch.core.timeline import Timeline, take
@@ -39,6 +47,8 @@ class Rectangles(NamedTuple):
     t_begin: torch.Tensor  # int32[P]
     t_end: torch.Tensor    # int32[P]
     valid: torch.Tensor    # bool[P]
+    # int32[P, R-1] free units of planes 1..R-1 (multi-resource only)
+    n_free_tail: Optional[torch.Tensor] = None
 
 
 def candidate_starts(tl: Timeline, t_r: int, t_du: int,
@@ -76,18 +86,30 @@ def candidate_starts(tl: Timeline, t_r: int, t_du: int,
 
 
 def availability_rectangles(tl: Timeline, starts: torch.Tensor, t_du: int,
-                            t_now: int, n_pe: int) -> Rectangles:
+                            t_now: int, n_pe: int, *, rspec=None,
+                            valid_mask: Optional[torch.Tensor] = None
+                            ) -> Rectangles:
     """Maximum availability rectangle per candidate (Algorithm 3 l.6-9).
 
     Plain tensor code on the packed words, on the timeline's device.
     Invalid candidates (``T_INF`` padding) get ``n_free = t_begin =
     t_end = 0``; they are never feasible, and the all-infeasible
-    fallback index 0 is always a live candidate.
+    fallback index 0 is always a live candidate.  With ``rspec`` the
+    free words are masked with ``valid_mask`` and counted per plane:
+    ``n_free`` is plane 0's count, ``n_free_tail`` the others'.
     """
-    n_free, t_begin, t_end = kernel_ref.availscan_ref(
-        tl.times, tl.occ, starts, int(t_du), int(t_now), n_pe)
+    if rspec is None:
+        n_free, t_begin, t_end = kernel_ref.availscan_ref(
+            tl.times, tl.occ, starts, int(t_du), int(t_now), n_pe)
+        tail = None
+    else:
+        lay = res_lib.device_layout(rspec, tl.device)
+        n_free, tail, t_begin, t_end = kernel_ref.availscan_mr_ref(
+            tl.times, tl.occ, starts,
+            lay.valid_mask if valid_mask is None else valid_mask,
+            lay.plane_of_word, rspec.R, int(t_du), int(t_now))
     return Rectangles(starts=starts, n_free=n_free, t_begin=t_begin,
-                      t_end=t_end, valid=starts < T_INF)
+                      t_end=t_end, valid=starts < T_INF, n_free_tail=tail)
 
 
 def _winning_pe_mask(tl: Timeline, t_s: torch.Tensor, t_du: int,
@@ -104,25 +126,66 @@ def _winning_pe_mask(tl: Timeline, t_s: torch.Tensor, t_du: int,
     return words_lib.pack_bits(padded[None, :])[0]
 
 
+def _winning_mask_mr(tl: Timeline, t_s: torch.Tensor, t_du: int,
+                     n_req: int, demand_tail: torch.Tensor, rspec,
+                     valid_mask: torch.Tensor) -> torch.Tensor:
+    """Lowest-index free valid units of each plane over the window.
+
+    Plane 0 takes ``n_req`` units, plane ``r`` ``demand_tail[r - 1]``,
+    each in its own bit range.  One cumulative sum over all bits, less
+    its value before each plane's first bit, walks every plane at once;
+    plane 0 matches :func:`_winning_pe_mask` bit for bit on a
+    full-width lane (invalid bits are never free).
+    """
+    lay = res_lib.device_layout(rspec, tl.device)
+    a = t_s.clamp(max=T_INF - int(t_du))
+    busy = tl_lib.window_busy(tl, a, a + int(t_du))
+    free_bits = words_lib.unpack_bits(
+        (~busy & valid_mask)[None, :], rspec.total_bits)[0].to(torch.int64)
+    before = torch.cumsum(free_bits, dim=0) - free_bits  # exclusive
+    rank = before - before[lay.plane_start]               # within plane
+    need = torch.cat([torch.full((1,), int(n_req), dtype=torch.int64,
+                                 device=tl.device),
+                      demand_tail.to(torch.int64)])
+    sel = (free_bits == 1) & (rank < need[lay.plane_of_bit])
+    return words_lib.pack_bits(sel.to(torch.int32)[None, :])[0]
+
+
 def search(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,
            policy_id: int, t_now: int, *, n_pe: int,
-           use_kernel: bool = True) -> SearchResult:
-    """Full Algorithm 3: candidates -> rectangles -> policy -> PE pick."""
+           use_kernel: bool = True, rspec=None,
+           demand_tail: Optional[torch.Tensor] = None,
+           valid_mask: Optional[torch.Tensor] = None) -> SearchResult:
+    """Full Algorithm 3: candidates -> rectangles -> policy -> PE pick.
+
+    With ``rspec``, ``demand_tail`` (int32[R-1] on the timeline's
+    device, default zeros) and ``valid_mask`` (int32[W], default every
+    unit live) feed the vector fit.
+    """
+    if rspec is not None:
+        lay = res_lib.device_layout(rspec, tl.device)
+        valid_mask = lay.valid_mask if valid_mask is None else valid_mask
+        demand_tail = lay.zero_tail if demand_tail is None else demand_tail
     starts = candidate_starts(tl, t_r, t_du, t_dl)
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
         # fused rectangles + selection: the per-candidate vectors never
         # leave the kernel
-        sel = kernel_ops.search_select(tl, starts, t_du, t_now, n_req,
-                                       policy_id, n_pe)
+        sel = kernel_ops.search_select(
+            tl, starts, t_du, t_now, n_req, policy_id, n_pe, rspec=rspec,
+            demand_tail=demand_tail, valid_mask=valid_mask)
         found = sel["found"]
         # best is INT32_MAX only with no live candidate, which never
         # happens (the ready time is always a candidate)
         best = sel["best"].clamp(max=starts.shape[0] - 1)
         n_free, t_begin, t_end = sel["n_free"], sel["t_begin"], sel["t_end"]
     else:
-        rects = availability_rectangles(tl, starts, t_du, t_now, n_pe)
+        rects = availability_rectangles(tl, starts, t_du, t_now, n_pe,
+                                        rspec=rspec, valid_mask=valid_mask)
         feasible = rects.valid & (rects.n_free >= int(n_req))
+        if rspec is not None and rspec.R > 1:
+            feasible = feasible & (
+                rects.n_free_tail >= demand_tail[None, :]).all(dim=1)
         best, found = policies_lib.select(
             policy_id, rects.n_free, rects.t_end - rects.t_begin,
             rects.starts, feasible)
@@ -130,7 +193,11 @@ def search(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,
         t_begin = take(rects.t_begin, best)
         t_end = take(rects.t_end, best)
     t_s = take(starts, best)
-    pe_mask = _winning_pe_mask(tl, t_s, t_du, n_req, n_pe)
+    if rspec is None:
+        pe_mask = _winning_pe_mask(tl, t_s, t_du, n_req, n_pe)
+    else:
+        pe_mask = _winning_mask_mr(tl, t_s, t_du, n_req, demand_tail,
+                                   rspec, valid_mask)
     return SearchResult(
         found=found, t_s=t_s, t_e=t_s + int(t_du),
         pe_mask=torch.where(found, pe_mask, 0),

@@ -7,6 +7,11 @@ records) becomes a fixed-capacity struct of tensors:
 ``occ   : int32[S, W]``   busy-PE bitmask during ``[times[i], times[i+1])``
                           (uint32 bits kept in int32, see ``words``)
 
+Multi-resource states (``rspec`` set) widen the word axis to
+``rspec.total_words``: one packed bitplane per resource, plane ``r`` on
+the words of ``rspec.plane_slice(r)``, and bit ``u`` of that plane is
+unit ``u`` of resource ``r``.
+
 Invariants (kept by ``update``):
   * valid entries are strictly sorted and precede all padding;
   * consecutive valid rows differ (merged records, the paper's "clean");
@@ -19,7 +24,7 @@ tensors; none of them reads a value back to the host.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -102,31 +107,61 @@ class SchedulerState(NamedTuple):
     overflow: torch.Tensor    # bool
     hw_records: torch.Tensor  # int32: max records any update needed
     hw_pending: torch.Tensor  # int32: max pending slots needed
+    # multi-resource layout, None on single-resource states:
+    # ``lane_valid`` is the packed valid-unit mask of this lane (a
+    # heterogeneous machine size shrinks it below the spec's padded
+    # word layout); ``rspec`` the static ResourceSpec
+    lane_valid: Optional[torch.Tensor] = None  # int32[W]
+    rspec: Optional[Any] = None
 
     @property
     def pending_capacity(self) -> int:
         return self.pend_te.shape[0]
 
 
-def empty(capacity: int, n_pe: int, device: DeviceLike = None) -> Timeline:
-    """All-free timeline of ``capacity`` records."""
+def empty(capacity: int, n_pe: int, device: DeviceLike = None,
+          words: Optional[int] = None) -> Timeline:
+    """All-free timeline of ``capacity`` records.
+
+    ``words`` overrides the word width (multi-resource layouts pass
+    ``rspec.total_words``).
+    """
     dev = resolve_device(device)
+    W = n_words(n_pe) if words is None else words
     return Timeline(
         times=torch.full((capacity,), T_INF, dtype=I32, device=dev),
-        occ=torch.zeros((capacity, n_words(n_pe)), dtype=I32, device=dev))
+        occ=torch.zeros((capacity, W), dtype=I32, device=dev))
 
 
 def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
-               device: DeviceLike = None) -> SchedulerState:
-    """Fresh all-free scheduler state on ``device`` (``None``: cuda)."""
+               device: DeviceLike = None, *, rspec=None,
+               live_units: Optional[Sequence[int]] = None
+               ) -> SchedulerState:
+    """Fresh all-free scheduler state on ``device`` (``None``: cuda).
+
+    ``rspec`` (a :class:`~repro_torch.core.resources.ResourceSpec` with
+    ``units[0] == n_pe``) switches to the multi-resource layout: the
+    occupancy and every reservation mask widen to ``rspec.total_words``
+    words, and ``live_units`` optionally shrinks this lane's live units
+    per plane (heterogeneous machine sizes).
+    """
+    if rspec is not None and rspec.n_pe != n_pe:
+        raise ValueError(
+            f"rspec.units[0]={rspec.n_pe} must equal n_pe={n_pe}")
+    if live_units is not None and rspec is None:
+        raise ValueError("live_units requires rspec")
     dev = resolve_device(device)
-    W = n_words(n_pe)
+    W = n_words(n_pe) if rspec is None else rspec.total_words
+    lane_valid = None
+    if rspec is not None:
+        lane_valid = torch.from_numpy(
+            rspec.valid_mask_np(live_units)).to(dev)
 
     def zero():
         return torch.zeros((), dtype=I32, device=dev)
 
     return SchedulerState(
-        tl=empty(capacity, n_pe, dev),
+        tl=empty(capacity, n_pe, dev, words=W),
         pend_ts=torch.full((pending_capacity,), T_INF, dtype=I32,
                            device=dev),
         pend_te=torch.full((pending_capacity,), T_INF, dtype=I32,
@@ -135,7 +170,8 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
                               device=dev),
         n_accepted=zero(), n_released=zero(),
         overflow=torch.zeros((), dtype=torch.bool, device=dev),
-        hw_records=zero(), hw_pending=zero())
+        hw_records=zero(), hw_pending=zero(),
+        lane_valid=lane_valid, rspec=rspec)
 
 
 def grow(tl: Timeline, new_capacity: int) -> Timeline:
@@ -399,7 +435,8 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
     """Field-by-field numpy arrays under the reference's field names.
 
     Occupancy and masks come back as ``uint32`` like the reference's
-    ``SchedulerState``; scalars as 0-d arrays.
+    ``SchedulerState``; scalars as 0-d arrays.  Multi-resource states
+    add ``lane_valid`` (uint32).
     """
     out = {
         "times": state.tl.times.cpu().numpy(),
@@ -411,18 +448,26 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
     }
     for f in _SCALARS:
         out[f] = np.asarray(getattr(state, f).cpu().numpy(), np.int32)
+    if state.lane_valid is not None:
+        out["lane_valid"] = words_lib.to_uint32(
+            state.lane_valid.cpu().numpy())
     return out
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], *,
-                     device: DeviceLike = None) -> SchedulerState:
+                     device: DeviceLike = None,
+                     rspec=None) -> SchedulerState:
     """Inverse of :func:`state_to_numpy`.
 
     Takes the arrays of a reference ``SchedulerState`` (``times``,
     ``occ`` as uint32, ``pend_ts``, ``pend_te``, ``pend_mask``, the
     counters, ``overflow`` and the ``hw_*`` marks), so a half-run
-    state can cross from the JAX package to the port.
+    state can cross from the JAX package to the port.  A multi-resource
+    state also needs ``lane_valid`` and its ``rspec``.
     """
+    if (rspec is None) != (arrays.get("lane_valid") is None):
+        raise ValueError("a multi-resource state needs both rspec and "
+                         "lane_valid; a plain one neither")
     dev = resolve_device(device)
 
     def i32(name):
@@ -439,4 +484,6 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
         pend_mask=words("pend_mask"),
         overflow=torch.from_numpy(
             np.array(arrays["overflow"], dtype=bool)).to(dev),
+        lane_valid=None if rspec is None else words("lane_valid"),
+        rspec=rspec,
         **{f: i32(f).reshape(()) for f in _SCALARS})

@@ -31,6 +31,24 @@ class Policy(str, enum.Enum):
 ALL_POLICIES: Tuple[Policy, ...] = tuple(Policy)
 
 
+class BackfillMode(str, enum.Enum):
+    """Admission-order relaxation of the deferral queue.
+
+    ``NONE`` is the paper's strict arrival-order admission.  Under the
+    backfilling modes an accepted request whose start is delayed past
+    its ready time parks in a bounded FCFS queue: ``CONSERVATIVE``
+    reservations never move (decision-identical to ``NONE``); under
+    ``EASY`` only the head of the queue binds, so later reservations
+    may be pulled earlier or displaced inside their deadline windows.
+    The port's device path runs ``NONE`` only; the host oracle
+    (:class:`repro_torch.core.hostsched.BackfillOracle`) runs all three.
+    """
+
+    NONE = "none"
+    EASY = "easy"
+    CONSERVATIVE = "conservative"
+
+
 @dataclasses.dataclass(frozen=True)
 class ARRequest:
     """An advance-reservation request (paper Section 3).
@@ -41,6 +59,11 @@ class ARRequest:
       t_du: duration on the current cluster.
       t_dl: deadline, ``t_dl >= t_r + t_du``.
       n_pe: number of processing elements required.
+      demand: optional full per-resource demand vector for
+            multi-resource sessions (keyword only); ``demand[0]`` must
+            equal ``n_pe``, and the session's
+            :class:`~repro_torch.core.resources.ResourceSpec` checks
+            the rest.  ``None`` means "PEs only".
     """
 
     t_a: int
@@ -48,6 +71,8 @@ class ARRequest:
     t_du: int
     t_dl: int
     n_pe: int
+    demand: Optional[Tuple[int, ...]] = dataclasses.field(
+        default=None, kw_only=True)
 
     def __post_init__(self) -> None:
         if self.t_r < self.t_a:
@@ -60,6 +85,14 @@ class ARRequest:
                 f"{self.t_r + self.t_du}")
         if self.n_pe <= 0:
             raise ValueError(f"n_pe={self.n_pe} must be positive")
+        if self.demand is not None:
+            d = tuple(int(x) for x in self.demand)
+            if not d or d[0] != self.n_pe:
+                raise ValueError(
+                    f"demand[0] must equal n_pe={self.n_pe}: got {d}")
+            if any(x < 0 for x in d):
+                raise ValueError(f"demand must be >= 0: got {d}")
+            object.__setattr__(self, "demand", d)
 
 
 @dataclasses.dataclass(frozen=True)

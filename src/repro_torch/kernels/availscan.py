@@ -5,7 +5,8 @@ Each wrapper checks its operands, allocates outputs and scratch with
 synchronising, raises if the launch was refused, and adds one to its
 entry in :data:`LAUNCHES`.  Anything the kernels do not take (a tensor
 off the card, another dtype, a non-contiguous tensor, ``n_pe`` outside
-``[1, 2048]``) raises; no wrapper falls back to the plain version.
+``[1, 2048]``, a multi-resource layout wider than 512 words) raises; no
+wrapper falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -18,11 +19,15 @@ from repro_torch.core.words import n_words
 from repro_torch.kernels import build
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES = {"availscan": 0, "availscan_select": 0}
+LAUNCHES = {"availscan": 0, "availscan_select": 0, "availscan_mr": 0,
+            "availscan_select_mr": 0}
 
-# the policies' exact integer keys need n_free < 2**11
+# the policies' exact integer keys need n_free < 2**11 (plane 0's units
+# on multi-resource layouts)
 MAX_PE = 2048
 N_POLICIES = 7
+# multi-resource occupancy words the _mr kernels take (16 per lane)
+MAX_WORDS_MR = 512
 
 
 def reset_launches() -> None:
@@ -30,9 +35,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(times: torch.Tensor, occ: torch.Tensor, starts: torch.Tensor,
-           n_pe: int, t_du: int, t_now: int) -> Tuple[int, int, int]:
-    for name, x in (("times", times), ("occ", occ), ("starts", starts)):
+def _check_tensors(times: torch.Tensor, **named: torch.Tensor) -> None:
+    for name, x in (("times", times), *named.items()):
         if x.device.type != "cuda":
             raise ValueError(
                 f"{name} is on {x.device}; the CUDA kernel takes CUDA "
@@ -44,6 +48,17 @@ def _check(times: torch.Tensor, occ: torch.Tensor, starts: torch.Tensor,
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(times: torch.Tensor, occ: torch.Tensor, starts: torch.Tensor,
+           n_pe: int, t_du: int, t_now: int, n_words_of=n_words
+           ) -> Tuple[int, int, int]:
+    """Shapes and scalars every wrapper shares; ``(S, W, P)``.
+
+    ``n_words_of(n_pe)`` is the word width ``occ`` must have (``None``
+    to take any).
+    """
+    _check_tensors(times, occ=occ, starts=starts)
     if times.dim() != 1 or occ.dim() != 2 or starts.dim() != 1:
         raise ValueError(
             f"expected times[S], occ[S, W], starts[P]; got "
@@ -57,9 +72,9 @@ def _check(times: torch.Tensor, occ: torch.Tensor, starts: torch.Tensor,
                          f"starts[{P}]")
     if not 1 <= n_pe <= MAX_PE:
         raise ValueError(f"n_pe={n_pe} outside the kernel's [1, {MAX_PE}]")
-    if W != n_words(n_pe):
+    if n_words_of is not None and W != n_words_of(n_pe):
         raise ValueError(f"occ has {W} words, n_pe={n_pe} needs "
-                         f"{n_words(n_pe)}")
+                         f"{n_words_of(n_pe)}")
     if not 1 <= t_du < T_INF or not -T_INF <= t_now <= T_INF:
         raise ValueError(f"t_du={t_du} / t_now={t_now} out of int32 range")
     return S, W, P
@@ -118,4 +133,92 @@ def availscan_select(times: torch.Tensor, occ: torch.Tensor,
             int(t_now), int(n_req), int(policy_id), int(n_pe), stream)
     _raise_on(rc, lib, "availscan_select")
     LAUNCHES["availscan_select"] += 1
+    return out
+
+
+def _check_mr(times, occ, starts, valid_mask, plane_of_word, n_planes,
+              n_pe, t_du, t_now) -> Tuple[int, int, int]:
+    S, W, P = _check(times, occ, starts, n_pe, t_du, t_now,
+                     n_words_of=None)
+    _check_tensors(times, valid_mask=valid_mask, plane_of_word=plane_of_word)
+    if not 1 <= W <= MAX_WORDS_MR:
+        raise ValueError(f"occ has {W} words; the multi-resource kernels "
+                         f"take 1 to {MAX_WORDS_MR}")
+    if valid_mask.shape != (W,) or plane_of_word.shape != (W,):
+        raise ValueError(
+            f"valid_mask and plane_of_word must be [{W}]; got "
+            f"{tuple(valid_mask.shape)}, {tuple(plane_of_word.shape)}")
+    if not 1 <= n_planes <= W:
+        raise ValueError(f"{n_planes} planes on {W} words")
+    if n_words(n_pe) > W:
+        raise ValueError(f"plane 0 of {n_pe} units needs {n_words(n_pe)} "
+                         f"words, occ has {W}")
+    return S, W, P
+
+
+def availscan_mr(times: torch.Tensor, occ: torch.Tensor,
+                 starts: torch.Tensor, valid_mask: torch.Tensor,
+                 plane_of_word: torch.Tensor, n_planes: int, t_du: int,
+                 t_now: int, *, n_pe: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Multi-resource rectangles on the card.
+
+    ``(n_free[P], n_free_tail[P, R-1], t_begin[P], t_end[P])``, the same
+    function as :func:`repro_torch.kernels.ref.availscan_mr_ref`.
+    ``n_pe`` (plane 0's units) is checked against the keys' range.
+    """
+    S, W, P = _check_mr(times, occ, starts, valid_mask, plane_of_word,
+                        n_planes, n_pe, t_du, t_now)
+    out = torch.empty((3, P), dtype=torch.int32, device=times.device)
+    tail = torch.empty((P, n_planes - 1), dtype=torch.int32,
+                       device=times.device)
+    lib = build.load()
+    with torch.cuda.device(times.device):
+        stream = torch.cuda.current_stream(times.device).cuda_stream
+        rc = lib.availscan_rects_mr(
+            times.data_ptr(), occ.data_ptr(), valid_mask.data_ptr(),
+            plane_of_word.data_ptr(), starts.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), tail.data_ptr(), S, W,
+            int(n_planes), P, int(t_du), int(t_now), stream)
+    _raise_on(rc, lib, "availscan_mr")
+    LAUNCHES["availscan_mr"] += 1
+    return out[0], tail, out[1], out[2]
+
+
+def availscan_select_mr(times: torch.Tensor, occ: torch.Tensor,
+                        starts: torch.Tensor, valid_mask: torch.Tensor,
+                        plane_of_word: torch.Tensor,
+                        demand_tail: torch.Tensor, t_du: int, t_now: int,
+                        n_req: int, policy_id: int, *, n_pe: int
+                        ) -> torch.Tensor:
+    """Multi-resource fused scan + selection on the card: int32[8] row.
+
+    Same function as
+    :func:`repro_torch.kernels.ref.availscan_select_mr_ref`; the demand
+    tail (int32[R-1]) is read on the card, never by the host.
+    """
+    n_planes = demand_tail.shape[0] + 1 if demand_tail.dim() == 1 else -1
+    S, W, P = _check_mr(times, occ, starts, valid_mask, plane_of_word,
+                        n_planes, n_pe, t_du, t_now)
+    _check_tensors(times, demand_tail=demand_tail)
+    if not 0 <= policy_id < N_POLICIES:
+        raise ValueError(f"policy id {policy_id} not in [0, {N_POLICIES})")
+    if not -T_INF <= n_req <= T_INF:
+        raise ValueError(f"n_req={n_req} out of int32 range")
+    lib = build.load()
+    n_blocks = -(-P // lib.availscan_candidates_per_block())
+    partial = torch.empty((n_blocks, 8), dtype=torch.int32,
+                          device=times.device)
+    out = torch.empty((8,), dtype=torch.int32, device=times.device)
+    with torch.cuda.device(times.device):
+        stream = torch.cuda.current_stream(times.device).cuda_stream
+        rc = lib.availscan_select_mr(
+            times.data_ptr(), occ.data_ptr(), valid_mask.data_ptr(),
+            plane_of_word.data_ptr(), demand_tail.data_ptr(),
+            starts.data_ptr(), partial.data_ptr(), out.data_ptr(), S, W,
+            n_planes, P, int(t_du), int(t_now), int(n_req), int(policy_id),
+            stream)
+    _raise_on(rc, lib, "availscan_select_mr")
+    LAUNCHES["availscan_select_mr"] += 1
     return out

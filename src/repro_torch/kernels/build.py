@@ -75,4 +75,10 @@ def load() -> ctypes.CDLL:
     lib.availscan_rects.restype = i32
     lib.availscan_select.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     lib.availscan_select.restype = i32
+    lib.availscan_mr_max_words.argtypes = []
+    lib.availscan_mr_max_words.restype = i32
+    lib.availscan_rects_mr.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.availscan_rects_mr.restype = i32
+    lib.availscan_select_mr.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.availscan_select_mr.restype = i32
     return lib

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.api import ReservationService, ServiceConfig
 from repro_torch.core import batch, scheduler, timeline
+from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy
 from repro_torch.kernels import availscan, ops
 from repro_torch.sim import run_policies, simulate, simulate_batched
@@ -62,6 +64,22 @@ def test_no_source_imports_jax_or_the_reference(path):
             assert root not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def test_importing_the_service_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.api\n"
+        "from repro_torch.api import ReservationService, ServiceConfig\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_entry_points_without_a_device_raise_when_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None means cuda there")
@@ -76,6 +94,10 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: simulate([job], 8, Policy.FF),
         lambda: run_policies([job], 8, [Policy.FF]),
         lambda: timeline.init_state(16, 8, device="cuda"),
+        lambda: ReservationService(ServiceConfig(n_pe=8)).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, resources=(8, 2))).session(),
+        lambda: scheduler.DeviceEngine(8, rspec=ResourceSpec((8, 2))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -99,7 +121,30 @@ def test_kernel_wrappers_never_fall_back():
         ops.availability_rectangles(meta, starts.to("meta"), 4, 0, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.search_select(meta, starts.to("meta"), 4, 0, 1, 0, 64)
-    assert availscan.LAUNCHES == {"availscan": 0, "availscan_select": 0}
+    # the multi-resource wrappers alike
+    spec = ResourceSpec((64, 8))
+    lay = device_layout(spec, torch.device("cpu"))
+    mr = timeline.empty(16, 64, "cpu", words=spec.total_words)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        availscan.availscan_mr(mr.times, mr.occ, starts, lay.valid_mask,
+                               lay.plane_of_word, 2, 4, 0, n_pe=64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        availscan.availscan_select_mr(
+            mr.times, mr.occ, starts, lay.valid_mask, lay.plane_of_word,
+            lay.zero_tail, 4, 0, 1, 0, n_pe=64)
+    meta_mr = timeline.Timeline(mr.times.to("meta"), mr.occ.to("meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.availability_rectangles(meta_mr, starts.to("meta"), 4, 0, 64,
+                                    rspec=spec)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.search_select(meta_mr, starts.to("meta"), 4, 0, 1, 0, 64,
+                          rspec=spec)
+    assert set(availscan.LAUNCHES.values()) == {0}
+    assert set(availscan.LAUNCHES) == {"availscan", "availscan_select",
+                                       "availscan_mr", "availscan_select_mr"}
     # the CPU takes the plain version
     row = ops.search_select(tl, starts, 4, 0, 1, 0, 64)
+    assert bool(row["found"]) and int(row["best"]) == 0
+    row = ops.search_select(mr, starts, 4, 0, 1, 0, 64, rspec=spec,
+                            demand_tail=torch.tensor([8], dtype=torch.int32))
     assert bool(row["found"]) and int(row["best"]) == 0

@@ -5,7 +5,6 @@ the reference's ``simulate_batched`` makes; the workload generator must
 give the same jobs; the int32 word helpers must match numpy's uint32
 arithmetic on edge words.  Exact equality.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -30,8 +29,10 @@ EDGE = np.array([0, 1, 2, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x55555555,
 def test_generate_matches_reference():
     for kw in (dict(n_jobs=200, seed=3), dict(n_jobs=150, seed=9, **SMALL,
                                              arrival_factor=1.5)):
-        ours = [dataclasses.astuple(j) for j in generate(WorkloadParams(**kw))]
-        theirs = [(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe)
+        fields = ("t_a", "t_r", "t_du", "t_dl", "n_pe", "demand")
+        ours = [tuple(getattr(j, f) for f in fields)
+                for j in generate(WorkloadParams(**kw))]
+        theirs = [tuple(getattr(j, f) for f in fields)
                   for j in ref_generate(RefParams(**kw))]
         assert ours == theirs
 
