@@ -7,13 +7,18 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions and the kernel build time;
+   CUDA versions, the kernel build time and each kernel's ``-Xptxas
+   -v`` report (registers, shared memory, spills);
 2. kernel phase: holds ``availscan`` and ``availscan_select`` against
    their plain PyTorch versions on the card, exact equality on every
    output, over random timelines (n_pe in {1024, 1000, 2048, 64},
    capacity in {128, 1024, 4096}, all seven policies) and the edge
    cases (empty timeline, dead candidates, an infeasible request, a
-   window at the horizon); times both at the paper's shape;
+   window at the horizon), on both of the select kernel's branches
+   (live records in shared memory, and over its budget in global
+   memory); times both at the paper's shape, fails unless each call is
+   one kernel on the card (profiler), and times an empty kernel of the
+   same library at the select kernel's launch shape (the launch floor);
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
    ``WorkloadParams(n_jobs=5000, seed=0)``, PE_W; the paper's 10,000
    jobs with ``--n-jobs 10000``, cut by default to keep the run short
@@ -33,7 +38,17 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    (1024, 128, 64, 256) and (2048, 14336) (512 words) at capacities
    128, 1024 and 4096, all seven policies, demand tails of zero, half
    and full, and the edge cases (plus a request only a secondary plane
-   refuses); times both at the session's shape;
+   refuses), on both select branches; times both at the session's
+   shape, one kernel a call, and the launch floor;
+5b. select seams (after phase 5): both select kernels against their
+   plain versions on the inputs of ``repro_torch.kernels.cases`` (ties
+   across blocks with the winner in the last block or an earlier one,
+   nothing feasible with the first live candidate in the last block,
+   random starts with holes) at candidate counts k x 8 - 1, k x 8 and
+   k x 8 + 1 for k in {1, 2, 33, 264, 265} (8 candidates a block, at
+   most 264 blocks), on 32, 64, 46 and 512 words; then 1,000 calls of
+   each with random P in [1, 3000) queued back to back and checked
+   after one sync;
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
    chunk_size=64, ring_capacity=256))`` on the 10,000-job paper stream
@@ -56,6 +71,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +96,8 @@ MR_UNITS = (1024, 128, 64, 256)
 MR_LAYOUTS = (((1024,), None), ((1024,), (1000,)), ((64, 8, 4, 16), None),
               (MR_UNITS, None), ((2048, 14336), None))
 MR_CAPACITIES = (128, 1024, 4096)
+# back-to-back calls of each select kernel, each with another P
+N_REPEAT = 1000
 
 
 def fail(msg: str) -> None:
@@ -100,15 +118,16 @@ def card_line() -> str:
 
 
 def random_timeline(rng, n_pe: int, capacity: int, fill: float):
-    """Sorted, merged records of random reservations, padded to capacity.
-
-    Returns ``times int32[S]`` and ``occ uint32[S, W]`` satisfying the
-    timeline invariants (distinct consecutive rows, empty padding, no
-    bits past ``n_pe``), with about ``fill * capacity`` records.
-    """
+    """:func:`repro_torch.kernels.cases.random_timeline` on one plane of
+    ``n_pe`` units."""
     from repro_torch.core.resources import ResourceSpec
     return random_timeline_mr(rng, ResourceSpec((n_pe,)), None, capacity,
                               fill)
+
+
+def random_timeline_mr(rng, spec, live, capacity: int, fill: float):
+    from repro_torch.kernels import cases
+    return cases.random_timeline(rng, spec, live, capacity, fill)
 
 
 def scan_work(times, occ, starts, t_du) -> tuple:
@@ -141,41 +160,6 @@ def scan_work(times, occ, starts, t_du) -> tuple:
     n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
                    + starts.size)
     return n_bytes, ops
-
-
-def random_timeline_mr(rng, spec, live, capacity: int, fill: float):
-    """:func:`random_timeline` on a multi-resource layout: each random
-    reservation takes random live units of every plane (at least one of
-    plane 0), so occupancy stays on live units."""
-    valid = spec.valid_bits_np(live)
-    planes = []
-    for r in range(spec.R):
-        o = spec.bit_offset(r)
-        planes.append(o + np.nonzero(valid[o:o + 32 * spec.words_per[r]])[0])
-    W = spec.total_words
-    n_iv = max(1, int(fill * capacity) // 2)
-    starts = np.cumsum(rng.integers(0, 40, n_iv))
-    ends = starts + rng.integers(1, 400, n_iv)
-    bounds = np.unique(np.concatenate([starts, ends]))
-    rows = np.zeros((bounds.shape[0], W), np.uint32)
-    for s, e in zip(starts, ends):
-        bits = np.zeros(W * 32, np.uint8)
-        for r, ids in enumerate(planes):
-            k = int(rng.integers(1 if r == 0 else 0,
-                                 max(2, ids.size // (6 if r == 0 else 3))))
-            bits[rng.choice(ids, size=min(k, ids.size), replace=False)] = 1
-        mask = np.packbits(bits, bitorder="little").view("<u4")
-        rows[np.searchsorted(bounds, s):np.searchsorted(bounds, e)] |= mask
-    prev = np.vstack([np.zeros((1, W), np.uint32), rows[:-1]])
-    keep = (rows != prev).any(axis=1)
-    t, o = bounds[keep], rows[keep]
-    if t.shape[0] > capacity:
-        fail(f"random timeline has {t.shape[0]} records > {capacity}")
-    times = np.full(capacity, T_INF, np.int32)
-    times[:t.shape[0]] = t
-    occ = np.zeros((capacity, W), np.uint32)
-    occ[:t.shape[0]] = o
-    return times, occ
 
 
 def scan_work_mr(times, occ, starts, t_du, valid, n_planes) -> tuple:
@@ -250,28 +234,138 @@ def cuda_time_ms(fn, reps: int, rounds: int = 7) -> float:
     return float(np.median(per_call))
 
 
-def device_ms(fn, reps: int = 50):
-    """Kernel time on the card per call, from the profiler's trace (the
-    sum of every kernel's self device time); None if it saw none."""
+def device_profile(fn, reps: int = 50):
+    """``(ms, kernels, names)``: kernel time on the card per call (the
+    sum of every kernel's self device time, None if the profiler saw
+    none), the kernels the card ran per call, and their names.  The
+    profiler can miss the first kernel of its window, so the window
+    opens with three launches of the library's empty kernel, which are
+    not counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    lib = build.load()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lib.availscan_empty(1, 32, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) > 0
+              and "empty_kernel" not in e.key]
     total_us = sum(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0))
-                   for e in prof.key_averages())
-    return total_us / reps / 1e3 if total_us > 0 else None
+                   for e in events)
+    return (total_us / reps / 1e3 if total_us > 0 else None,
+            sum(e.count for e in events) / reps, sorted(e.key for e in events))
+
+
+def device_ms(fn, reps: int = 50):
+    return device_profile(fn, reps)[0]
+
+
+def one_kernel_per_call(name: str, fn, reps: int = 200):
+    """Fail unless every call of ``fn`` ran exactly one kernel on the
+    card; ``(device ms, kernel name)``."""
+    ms, per_call, names = device_profile(fn, reps)
+    if per_call != 1.0 or len(names) != 1:
+        fail(f"{name}: {per_call} kernels per call on the card ({names})")
+    return ms, names[0]
 
 
 def _us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
-def kernel_phase(rng, dev) -> dict:
+def smem_branch(times_np, W: int) -> str:
+    """Which branch the select kernels take on this timeline: "shared"
+    if the live records fit the shared-memory budget, else "global"."""
+    from repro_torch.kernels import build
+    n_live = int((times_np < T_INF).sum())
+    cap = build.load().availscan_smem_rows(times_np.shape[0], W)
+    return "shared" if n_live <= cap else "global"
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel's ``-Xptxas -v`` report: mangled name -> registers,
+    static shared-memory bytes, spill bytes and the report's lines."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(lines=[line.strip()])
+            continue
+        if name is None:
+            continue
+        out[name]["lines"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_static"] = int(m.group(1)) if m else 0
+    return out
+
+
+# the select kernels' variants at the paper's shapes: R = 1 on 32 words
+# (one word a lane), the session's multi-resource layout on 46 (two)
+SELECT_VARIANTS = {"availscan_select": "availscan_select_kernelILi1ELb0E",
+                   "availscan_select_mr": "availscan_select_kernelILi2ELb1E"}
+
+
+def select_resources(report: dict, name: str, S: int, W: int) -> dict:
+    """Registers, shared memory and spills of a select kernel's variant
+    at S x W, from the ptxas report."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    hit = [v for k, v in report.items() if SELECT_VARIANTS[name] in k]
+    if not hit:
+        fail(f"no ptxas report for {SELECT_VARIANTS[name]}")
+    rows = lib.availscan_smem_rows(S, W)
+    return dict(registers=hit[0].get("registers"),
+                smem_static_bytes=hit[0].get("smem_static"),
+                smem_dynamic_bytes=(rows * (W + 1) + 1) * 4,
+                spill_bytes=hit[0].get("spill_bytes"))
+
+
+def launch_floor(P: int) -> dict:
+    """An empty kernel of the same library at the select kernels' launch
+    shape for ``P`` candidates: per call (CUDA events) and on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    lib = build.load()
+    per_block = lib.availscan_candidates_per_block()
+    blocks = min(-(-P // per_block), lib.availscan_select_max_blocks())
+    threads = 32 * per_block
+
+    def call():
+        lib.availscan_empty(blocks, threads,
+                            torch.cuda.current_stream().cuda_stream)
+
+    ms = cuda_time_ms(call, reps=200)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(203):
+            call()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "empty_kernel" in e.key]
+    # the mean over the launches the profiler saw
+    dev_ms = (sum(e.self_device_time_total for e in ev)
+              / max(1, sum(e.count for e in ev)) / 1e3) if ev else None
+    return dict(launch_floor_ms=ms, launch_floor_device_ms=dev_ms,
+                grid=blocks, block_threads=threads)
+
+
+def kernel_phase(rng, dev, report: dict) -> dict:
     import torch
     from repro_torch.core import search as search_lib
     from repro_torch.core.timeline import Timeline
@@ -280,10 +374,12 @@ def kernel_phase(rng, dev) -> dict:
     from repro_torch.kernels import ref as R
 
     n_checked = 0
+    branches = {"shared": 0, "global": 0}
 
     def check_case(times_np, occ_np, starts, t_du, t_now, n_pe, n_req,
                    policies, label):
         nonlocal n_checked
+        branches[smem_branch(times_np, occ_np.shape[1])] += 1
         times = torch.from_numpy(times_np).to(dev)
         occ = torch.from_numpy(to_int32(occ_np)).to(dev)
         if not isinstance(starts, torch.Tensor):
@@ -344,8 +440,12 @@ def kernel_phase(rng, dev) -> dict:
         check_case(times_np, occ_np,
                    [int(live[-1]), T_INF - 10, T_INF - 1, T_INF - 3000],
                    5000, 0, n_pe, 1, all_pol, "window at the horizon")
+    if not all(branches.values()):
+        fail(f"the R = 1 cases missed a select branch: {branches}")
     print(f"kernel phase: {n_checked} cases exact (each: availscan + "
-          f"availscan_select x policies)")
+          f"availscan_select x policies); select branches: "
+          f"{branches['shared']} shared-memory, {branches['global']} "
+          f"global-memory (live records over the budget)")
 
     # ---- times at the paper's shape: S = 128, P = 258, n_pe = 1024
     n_pe, cap = PAPER_SHAPE["n_pe"], PAPER_SHAPE["capacity"]
@@ -365,7 +465,8 @@ def kernel_phase(rng, dev) -> dict:
              (n_req, pid, n_pe), 8 * 4)):
         ms = cuda_time_ms(lambda: kern(*args, *extra), reps=200)
         plain_ms = cuda_time_ms(lambda: plain(*args, *extra), reps=20)
-        dev_ms = device_ms(lambda: kern(*args, *extra))
+        dev_ms, kname = one_kernel_per_call(
+            name, lambda: kern(*args, *extra))
         plain_dev_ms = device_ms(lambda: plain(*args, *extra), reps=10)
         g, w = kern(*args, *extra), plain(*args, *extra)
         g = torch.stack(g) if isinstance(g, tuple) else g
@@ -392,16 +493,31 @@ def kernel_phase(rng, dev) -> dict:
             plain_device_ms=plain_dev_ms,
             shape=dict(S=cap, P=int(starts.numel()),
                        live=int((starts < T_INF).sum()), n_pe=n_pe),
-            bytes=n_bytes, word_ops=ops)
+            bytes=n_bytes, word_ops=ops, kernels_per_call=1,
+            device_kernel=kname)
+        if name == "availscan_select":
+            rows[name].update(design="one launch, shared-memory staging",
+                              **launch_floor(int(starts.numel())),
+                              **select_resources(report, name, cap,
+                                                 occ_np.shape[1]))
         print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
               f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
               f"{_us(plain_dev_ms)}), bound "
               f"{rows[name]['bound_ms'] * 1e6:.2f} ns "
-              f"({rows[name]['bound_by']}; {n_bytes} B, {ops} word ops)")
+              f"({rows[name]['bound_by']}; {n_bytes} B, {ops} word ops), "
+              f"one kernel per call")
+    r = rows["availscan_select"]
+    print(f"launch floor: an empty kernel of {r['grid']} x "
+          f"{r['block_threads']} threads: per call "
+          f"{r['launch_floor_ms'] * 1e3:.2f} us, on the card "
+          f"{_us(r['launch_floor_device_ms'])}; availscan_select "
+          f"{r['registers']} registers, {r['smem_static_bytes']} B static + "
+          f"{r['smem_dynamic_bytes']} B dynamic shared memory, "
+          f"{r['spill_bytes']} B spilled")
     return rows
 
 
-def kernel_phase_mr(rng, dev, rows: dict) -> None:
+def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
     """Both multi-resource kernels against their plain versions, exact."""
     import torch
     from repro_torch.core import search as search_lib
@@ -412,10 +528,13 @@ def kernel_phase_mr(rng, dev, rows: dict) -> None:
     from repro_torch.kernels import ref as R
 
     n_checked = 0
+    branches = {"shared": 0, "global": 0}
 
     def check_case(spec, live, times_np, occ_np, starts, t_du, t_now,
                    n_req, label, infeasible=False):
         nonlocal n_checked
+        if spec.R > 1:
+            branches[smem_branch(times_np, occ_np.shape[1])] += 1
         times = torch.from_numpy(times_np).to(dev)
         occ = torch.from_numpy(to_int32(occ_np)).to(dev)
         if not isinstance(starts, torch.Tensor):
@@ -504,8 +623,12 @@ def kernel_phase_mr(rng, dev, rows: dict) -> None:
             check_case(spec, lu, times_np, hold, np.sort(live_t[:100]), 30,
                        0, 1, f"{units} only a secondary plane refuses",
                        infeasible=True)
+    if not all(branches.values()):
+        fail(f"the R > 1 cases missed a select branch: {branches}")
     print(f"multi-resource kernel phase: {n_checked} cases exact (each: "
-          f"availscan_mr + availscan_select_mr x 7 policies x demand tails)")
+          f"availscan_mr + availscan_select_mr x 7 policies x demand tails);"
+          f" R > 1 select branches: {branches['shared']} shared-memory, "
+          f"{branches['global']} global-memory")
 
     # ---- times at the session's shape: S = 128, P = 258, (1024, 128, 64,
     # 256) = 46 words
@@ -538,7 +661,7 @@ def kernel_phase_mr(rng, dev, rows: dict) -> None:
     for name, (kern, plain, out_bytes, replaces) in calls.items():
         ms = cuda_time_ms(kern, reps=200)
         plain_ms = cuda_time_ms(plain, reps=20)
-        dev_ms = device_ms(kern)
+        dev_ms, kname = one_kernel_per_call(name, kern)
         plain_dev_ms = device_ms(plain, reps=10)
         g, w = kern(), plain()
         if isinstance(g, tuple):
@@ -558,12 +681,153 @@ def kernel_phase_mr(rng, dev, rows: dict) -> None:
             shape=dict(S=128, P=int(starts.numel()),
                        live=int((starts < T_INF).sum()), units=MR_UNITS,
                        words=spec.total_words),
+            kernels_per_call=1, device_kernel=kname,
             **bound_row(n_bytes + out_bytes, ops))
         r = rows[name]
+        if name == "availscan_select_mr":
+            r.update(design="one launch, shared-memory staging",
+                     **launch_floor(int(starts.numel())),
+                     **select_resources(report, name, 128,
+                                        spec.total_words))
         print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
               f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
               f"{_us(plain_dev_ms)}), bound {r['bound_ms'] * 1e6:.2f} ns "
-              f"({r['bound_by']}; {r['bytes']} B, {ops} word ops)")
+              f"({r['bound_by']}; {r['bytes']} B, {ops} word ops), "
+              f"one kernel per call")
+    r = rows["availscan_select_mr"]
+    print(f"launch floor: an empty kernel of {r['grid']} x "
+          f"{r['block_threads']} threads: per call "
+          f"{r['launch_floor_ms'] * 1e3:.2f} us, on the card "
+          f"{_us(r['launch_floor_device_ms'])}; availscan_select_mr "
+          f"{r['registers']} registers, {r['smem_static_bytes']} B static + "
+          f"{r['smem_dynamic_bytes']} B dynamic shared memory, "
+          f"{r['spill_bytes']} B spilled")
+
+
+def select_seams(rng, dev, n_repeat: int) -> None:
+    """Both select kernels against their plain versions, exact, where a
+    one-launch kernel that combines one row per block can break: ties
+    across blocks, all-infeasible rows with the live candidates spread
+    over several blocks, candidate counts at a multiple of a block's
+    candidates and one either side (up to the largest grid and past it),
+    and ``n_repeat`` calls of varying P queued back to back, each after
+    a call whose ticket counter must have reset."""
+    import torch
+    from repro_torch.core.resources import ResourceSpec, device_layout
+    from repro_torch.core.words import to_int32
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import build, cases
+    from repro_torch.kernels import ref as R
+
+    lib = build.load()
+    per_block = lib.availscan_candidates_per_block()
+    max_blocks = lib.availscan_select_max_blocks()
+    sizes = cases.seam_sizes(per_block, (1, 2, 33, max_blocks,
+                                         max_blocks + 1))
+
+    def on_card(case, spec, live):
+        lay = device_layout(spec, dev)
+        valid = torch.from_numpy(spec.valid_mask_np(live)).to(dev)
+        return (torch.from_numpy(case.times).to(dev),
+                torch.from_numpy(to_int32(case.occ)).to(dev),
+                torch.from_numpy(case.starts).to(dev), valid,
+                lay.plane_of_word,
+                torch.tensor(case.demand_tail, dtype=torch.int32).to(dev))
+
+    def pinned(case, row, label):
+        """What the case's kind pins down about the winner."""
+        P = case.starts.shape[0]
+        last = (P - 1) // per_block * per_block
+        best, feasible = int(row[3]), int(row[7])
+        if case.label.startswith("tie spread") and last > 0:
+            ok = feasible and best < last
+        elif case.label.startswith("tie"):
+            ok = feasible and best >= last
+        elif case.label.startswith("infeasible"):
+            ok = not feasible and best == last
+        else:
+            ok = True
+        if not ok:
+            fail(f"{label}: winner {best} (feasible {feasible}) breaks the "
+                 f"case's seam")
+
+    n_cases = 0
+    for units, live in (((1024,), None), ((2048,), None),
+                        (MR_UNITS, None), ((2048, 14336), None)):
+        spec = ResourceSpec(units)
+        for case in cases.seam_cases(rng, spec, live, 128, sizes,
+                                     per_block):
+            times, occ, starts, valid, plane, tail = on_card(case, spec, live)
+            label = f"{units} {case.label}"
+            for pid in range(7):
+                if spec.R == 1:
+                    g = K.availscan_select(times, occ, starts, case.t_du,
+                                           case.t_now, case.n_req, pid,
+                                           spec.n_pe)
+                    w = R.availscan_select_ref(times, occ, starts, case.t_du,
+                                               case.t_now, case.n_req, pid,
+                                               spec.n_pe)
+                else:
+                    g = K.availscan_select_mr(times, occ, starts, valid,
+                                              plane, tail, case.t_du,
+                                              case.t_now, case.n_req, pid,
+                                              n_pe=spec.n_pe)
+                    w = R.availscan_select_mr_ref(times, occ, starts, valid,
+                                                  plane, tail, case.t_du,
+                                                  case.t_now, case.n_req,
+                                                  pid)
+                if not torch.equal(g, w):
+                    fail(f"select differs on {label}, policy {pid}: "
+                         f"{g.tolist()} vs {w.tolist()}")
+                pinned(case, w, label)
+            n_cases += 1
+    print(f"select seams: {n_cases} cases exact x 7 policies (ties across "
+          f"blocks, all infeasible, many tiles; P in {sizes})")
+
+    # back to back: every call's grid differs from the last one's
+    for units in ((1024,), MR_UNITS):
+        spec = ResourceSpec(units)
+        times_np, occ_np = random_timeline_mr(rng, spec, None, 1024, 0.5)
+        span = int(times_np[times_np < T_INF][-1])
+        lay = device_layout(spec, dev)
+        times = torch.from_numpy(times_np).to(dev)
+        occ = torch.from_numpy(to_int32(occ_np)).to(dev)
+        calls = []
+        for _ in range(n_repeat):
+            P = int(rng.integers(1, 3000))
+            st = rng.integers(0, span + 1, P).astype(np.int32)
+            st[rng.random(P) < 0.3] = T_INF
+            st_t = torch.from_numpy(st).to(dev)
+            pid = int(rng.integers(0, 7))
+            n_req = int(rng.integers(1, spec.n_pe + 1))
+            tail = torch.tensor([int(rng.integers(0, u + 1))
+                                 for u in units[1:]],
+                                dtype=torch.int32).to(dev)
+            t_du = int(rng.integers(1, 400))
+            args = (st_t, tail, t_du, n_req, pid)
+            if spec.R == 1:
+                out = K.availscan_select(times, occ, st_t, t_du, 0, n_req,
+                                         pid, spec.n_pe)
+            else:
+                out = K.availscan_select_mr(times, occ, st_t, lay.valid_mask,
+                                            lay.plane_of_word, tail, t_du, 0,
+                                            n_req, pid, n_pe=spec.n_pe)
+            calls.append((args, out))
+        torch.cuda.synchronize()
+        for (st_t, tail, t_du, n_req, pid), g in calls:
+            if spec.R == 1:
+                w = R.availscan_select_ref(times, occ, st_t, t_du, 0, n_req,
+                                           pid, spec.n_pe)
+            else:
+                w = R.availscan_select_mr_ref(times, occ, st_t,
+                                              lay.valid_mask,
+                                              lay.plane_of_word, tail, t_du,
+                                              0, n_req, pid)
+            if not torch.equal(g, w):
+                fail(f"back-to-back select on {units} differs at P="
+                     f"{st_t.numel()}: {g.tolist()} vs {w.tolist()}")
+        print(f"back to back: {n_repeat} calls on {units}, P from 1 to 2999,"
+              f" queued without a sync, exact")
 
 
 def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
@@ -954,18 +1218,25 @@ def main(argv=None) -> int:
     build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
     log = lib_path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
+    if not log.exists():
+        fail(f"no ptxas report beside {lib_path}")
+    report = ptxas_report(log.read_text())
+    for kname, rep in report.items():
+        tag = "ptxas (select)" if "select_kernel" in kname else "ptxas"
+        for line in rep["lines"]:
             if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  {tag}: {line}")
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    rows = kernel_phase(rng, dev)
+    rows = kernel_phase(rng, dev, report)
     print(f"kernel phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernel_phase_mr(rng, dev, rows)
+    kernel_phase_mr(rng, dev, rows, report)
     print(f"multi-resource kernel phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    select_seams(rng, dev, N_REPEAT)
+    print(f"select seams took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     jobs = generate(WorkloadParams(n_jobs=args.n_jobs, seed=args.seed))

@@ -1,16 +1,26 @@
 """Launch wrappers of the CUDA availability-scan kernels.
 
-Each wrapper checks its operands, allocates outputs and scratch with
+Each wrapper checks its operands, allocates its outputs with
 ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to its
 entry in :data:`LAUNCHES`.  Anything the kernels do not take (a tensor
 off the card, another dtype, a non-contiguous tensor, ``n_pe`` outside
 ``[1, 2048]``, a multi-resource layout wider than 512 words) raises; no
 wrapper falls back to the plain version.
+
+The select wrappers replace the TPU kernels ``availscan_select`` and
+``availscan_select_mr`` (``src/repro/kernels/availscan.py`` l.373 and
+l.494).  A call costs launch latency, not bytes, so each is one launch
+with nothing allocated but its int32[8] result: the blocks combine their
+rows through a ticket counter in a scratch buffer allocated once per
+device and stream (:func:`_select_scratch`), which the kernel leaves at
+0 for the next call.  The wrappers enter ``torch.cuda.device`` only when
+the tensors are not on the current device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,9 +40,34 @@ N_POLICIES = 7
 MAX_WORDS_MR = 512
 
 
+# the select kernels' scratch (ticket counter + block rows), one per
+# (device index, stream handle): two streams never share a counter
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _on(device: torch.device):
+    """``torch.cuda.device(device)`` unless it is the current device."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _select_scratch(lib, device: torch.device, stream: int) -> torch.Tensor:
+    """The select kernels' scratch for this device and stream, zeroed
+    once and sized for the largest grid they launch; the kernel resets
+    its counter to 0 at the end of every call."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros(lib.availscan_select_scratch_ints(),
+                          dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def _check_tensors(times: torch.Tensor, **named: torch.Tensor) -> None:
@@ -96,7 +131,7 @@ def availscan(times: torch.Tensor, occ: torch.Tensor, starts: torch.Tensor,
     S, W, P = _check(times, occ, starts, n_pe, t_du, t_now)
     out = torch.empty((3, P), dtype=torch.int32, device=times.device)
     lib = build.load()
-    with torch.cuda.device(times.device):
+    with _on(times.device):
         stream = torch.cuda.current_stream(times.device).cuda_stream
         rc = lib.availscan_rects(
             times.data_ptr(), occ.data_ptr(), starts.data_ptr(),
@@ -120,17 +155,14 @@ def availscan_select(times: torch.Tensor, occ: torch.Tensor,
     if not -T_INF <= n_req <= T_INF:
         raise ValueError(f"n_req={n_req} out of int32 range")
     lib = build.load()
-    per_block = lib.availscan_candidates_per_block()
-    n_blocks = -(-P // per_block)
-    partial = torch.empty((n_blocks, 8), dtype=torch.int32,
-                          device=times.device)
     out = torch.empty((8,), dtype=torch.int32, device=times.device)
-    with torch.cuda.device(times.device):
+    with _on(times.device):
         stream = torch.cuda.current_stream(times.device).cuda_stream
         rc = lib.availscan_select(
             times.data_ptr(), occ.data_ptr(), starts.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), S, W, P, int(t_du),
-            int(t_now), int(n_req), int(policy_id), int(n_pe), stream)
+            _select_scratch(lib, times.device, stream).data_ptr(),
+            out.data_ptr(), S, W, P, int(t_du), int(t_now), int(n_req),
+            int(policy_id), int(n_pe), stream)
     _raise_on(rc, lib, "availscan_select")
     LAUNCHES["availscan_select"] += 1
     return out
@@ -174,7 +206,7 @@ def availscan_mr(times: torch.Tensor, occ: torch.Tensor,
     tail = torch.empty((P, n_planes - 1), dtype=torch.int32,
                        device=times.device)
     lib = build.load()
-    with torch.cuda.device(times.device):
+    with _on(times.device):
         stream = torch.cuda.current_stream(times.device).cuda_stream
         rc = lib.availscan_rects_mr(
             times.data_ptr(), occ.data_ptr(), valid_mask.data_ptr(),
@@ -207,18 +239,16 @@ def availscan_select_mr(times: torch.Tensor, occ: torch.Tensor,
     if not -T_INF <= n_req <= T_INF:
         raise ValueError(f"n_req={n_req} out of int32 range")
     lib = build.load()
-    n_blocks = -(-P // lib.availscan_candidates_per_block())
-    partial = torch.empty((n_blocks, 8), dtype=torch.int32,
-                          device=times.device)
     out = torch.empty((8,), dtype=torch.int32, device=times.device)
-    with torch.cuda.device(times.device):
+    with _on(times.device):
         stream = torch.cuda.current_stream(times.device).cuda_stream
         rc = lib.availscan_select_mr(
             times.data_ptr(), occ.data_ptr(), valid_mask.data_ptr(),
             plane_of_word.data_ptr(), demand_tail.data_ptr(),
-            starts.data_ptr(), partial.data_ptr(), out.data_ptr(), S, W,
-            n_planes, P, int(t_du), int(t_now), int(n_req), int(policy_id),
-            stream)
+            starts.data_ptr(),
+            _select_scratch(lib, times.device, stream).data_ptr(),
+            out.data_ptr(), S, W, n_planes, P, int(t_du), int(t_now),
+            int(n_req), int(policy_id), stream)
     _raise_on(rc, lib, "availscan_select_mr")
     LAUNCHES["availscan_select_mr"] += 1
     return out

@@ -67,16 +67,21 @@ def load() -> ctypes.CDLL:
     """The built library with every entry point's C signature set."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.availscan_candidates_per_block.argtypes = []
-    lib.availscan_candidates_per_block.restype = i32
+    for name in ("availscan_candidates_per_block",
+                 "availscan_select_max_blocks",
+                 "availscan_select_scratch_ints", "availscan_mr_max_words"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.availscan_smem_rows.argtypes = [i32, i32]
+    lib.availscan_smem_rows.restype = i32
+    lib.availscan_empty.argtypes = [i32, i32, ptr]
+    lib.availscan_empty.restype = i32
     lib.availscan_error_string.argtypes = [i32]
     lib.availscan_error_string.restype = ctypes.c_char_p
     lib.availscan_rects.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.availscan_rects.restype = i32
     lib.availscan_select.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     lib.availscan_select.restype = i32
-    lib.availscan_mr_max_words.argtypes = []
-    lib.availscan_mr_max_words.restype = i32
     lib.availscan_rects_mr.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.availscan_rects_mr.restype = i32
     lib.availscan_select_mr.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]

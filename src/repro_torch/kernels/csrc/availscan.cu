@@ -22,7 +22,10 @@
 // live candidate with the policies' exact integer keys and returns the
 // lexicographic minimum of (key1, key2, start_key, index) as one row of
 // eight int32: key1, key2, start_key, best_index, n_free, t_begin,
-// t_end, feasible.  The plain PyTorch versions are in ../ref.py.
+// t_end, feasible.  An infeasible live candidate carries INT32_MAX in
+// its three keys, so with nothing feasible the lowest live index wins;
+// with no live candidate the row is INT32_MAX in the four keys and 0
+// elsewhere.  The plain PyTorch versions are in ../ref.py.
 //
 // Multi-resource (the _mr kernels).  The occupancy word axis holds one
 // bitplane per resource; plane[w] names word w's plane and valid[w] its
@@ -35,49 +38,92 @@
 // 128 lanes (R <= 128) under an 8 MiB budget; here each warp adds its
 // words' popcounts into R shared counters, lane w holds words w + 32 j
 // for j < NW (NW in {1, 2, 4, 8, 16}, a template argument), so any
-// layout of up to 512 words (R <= W) at any capacity runs.
+// layout of up to 512 words (R <= W) at any capacity runs.  R = 1 and
+// the multi-resource select differ only in how free units are counted
+// and how feasibility is tested, so both are one templated device body
+// (kMr).
 //
-// Design.  The TPU kernels bit-expand occupancy to f32 and contract it
-// on the matrix unit.  Here the words stay packed (int32 with uint32
-// bits): one warp takes one candidate, lane w holds words w and w + 32
-// (n_pe <= 2048, so W <= 64), and the record axis is walked, not
-// multiplied:
-//   * two warp-uniform binary searches over the sorted times find the
-//     overlapping record range [lo, hi);
-//   * one loop ORs those rows (coalesced 128-byte row reads) and a
-//     __popc + shuffle sum gives n_free;
+// Packed words, no tensor cores.  The TPU kernels bit-expand occupancy
+// to f32 and contract it on the matrix unit.  The work is bitwise OR,
+// AND and popcount over a few KB: wgmma has no 1-bit type, and the
+// bit-expanded f32 form would multiply the bytes by 32 for nothing.
+// So the words stay packed (int32 with uint32 bits): one warp takes one
+// candidate, lane w holds words w + 32 j, and the record axis is
+// walked, not multiplied:
+//   * two warp-uniform 32-ary searches over the sorted times (the lanes
+//     probe 32 times at once, a ballot keeps one chunk: one round up to
+//     32 records, two up to 1024) find the overlapping records [lo, hi);
+//   * one loop ORs those rows, eight rows' reads in flight, and a __popc
+//     + warp sum gives n_free;
 //   * the blocking test runs outward from the window, left from lo - 1
-//     and right from hi, with __any_sync, and stops at the first
-//     blocking record; since times are sorted that record holds the
-//     max end / min start the definitions ask for.
-// The work therefore follows the live records near each window, not
-// the capacity S, and occupancy is read from global memory / L1 / L2
-// with no shared-memory staging, so any S works.
+//     and right from hi, four records a step with __any_sync, and stops
+//     at the first blocking record; since times are sorted that record
+//     holds the max end / min start the definitions ask for.
 //
 // Bound.  At the paper's size (S = 128 records, P = 258 candidates,
 // W = 32 words, ~25 live records; 46 words for the four-resource
 // machine) a call reads the live records' rows, the times and the
-// starts, ~5-10 KB, and does ~10^4 word operations: the card could
-// finish it in a few nanoseconds, so a call costs its launch latency.
-// The design keeps it to two launches (scan + select, then a one-block
-// reduction) and one int32[8] result; fewer launches per admit step is
-// the next lever, not this kernel's speed.
+// starts, ~5-10 KB, and does ~10^4 word operations: the card could do
+// that in a few nanoseconds.  What bounds a call on this card is
+// latency: the launch, the first reads from global memory (hundreds of
+// cycles), the chain of dependent reads and votes a warp walks per
+// candidate, and the cross-block reduction's round trips to L2 (a
+// release-acquire atomic, then the rows).  The design below keeps each
+// of those to once per call; tools/select_stamps.py shows where a
+// call's cycles go on the card.
 //
-// Cross-block reduction.  TPU grid steps run in order and fold into one
-// accumulator; CUDA blocks do not.  Each block writes its best row to
-// partial[block] (a block with no live candidate writes the sentinel
-// row: INT32_MAX in all four keys, zeros elsewhere) and a second launch
-// of one block reduces them.  The index key is unique, so the order of
-// the reduction never matters.
+// Design of the select kernels: one launch per call.
+//   * Staging.  At the start each block issues every read that needs no
+//     earlier one, before it uses any of them: times[0 : min(S,
+//     rows_cap + 1)] (stored to shared memory and counted), the block's
+//     starts, occ's first rows (up to kFirstBytes, by 16-byte
+//     cp.async), the demand tail and the lane's layout words.  After
+//     one barrier the warps' counts give the live count n_live (times
+//     are sorted, T_INF padding last); the host never reads it.  If the live rows fit the budget (rows_cap, from
+//     S, W and kSmemBudget) but not the first copy, the rest follow by
+//     cp.async.  The searches, the OR and the outward scans then read
+//     shared memory.  When the live rows exceed the budget, the same
+//     body walks global memory; the branch is chosen on the card from
+//     n_live.  At the paper's shape the live rows fit the first copy,
+//     so a block pays one round trip before it computes.  The copies
+//     are cp.async rather than a TMA bulk copy: on the card the bulk
+//     copy's mbarrier set-up delayed the issuing warp's own loads by
+//     more than the whole 6 KB copy takes by cp.async.
+//   * Grid.  kWarps warps a block, one candidate a warp at a time, a
+//     grid-stride loop over candidates; at most kMaxBlocks blocks (two
+//     per SM of an H100, one wave).  A block whose candidates are all
+//     dead (the T_INF tail candidate_starts leaves) computes nothing.
+//   * Cross-block reduction.  TPU grid steps run in order and fold into
+//     one accumulator; CUDA blocks do not.  Each block folds its warps'
+//     rows in warp 0 (hardware min reductions over the keys), writes its
+//     best row to scratch and draws a ticket from a counter in the same
+//     scratch with one device-scope acquire-release atomic add; the
+//     block that draws the last ticket reduces the rows in one warp,
+//     writes out[8] and resets the counter to 0, so back-to-back calls
+//     (and a captured CUDA graph) find it at 0.  The index key is
+//     unique, so the order of the reduction never matters.  A grid of
+//     one block writes out[8] directly.  A thread-block cluster of 8
+//     blocks meeting in one block's shared memory (at up to 5
+//     candidates a warp) was tried in place of the ticket at the
+//     paper's shape and gained less than two calls of the same code
+//     differ, so the one path stays.
+// The rectangle kernels (availscan_rects, availscan_rects_mr) keep the
+// first design's launch: global memory, one candidate a warp, with the
+// searches, the OR and the scans shared with the select body.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kTInf = 2147483647;
 constexpr int kBig = 2147483647;
-constexpr int kWarpsPerBlock = 8;    // candidates per block
-constexpr int kReduceThreads = 256;
-constexpr int kMaxWordsMr = 512;     // multi-resource: 16 words per lane
+constexpr int kWarps = 8;                 // candidates per block at a time
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxBlocks = 264;           // select grid: 2 per SM, 132 SMs
+constexpr int kScratchHead = 16;          // ints before the rows (counter)
+constexpr int kSmemBudget = 96 * 1024;    // dynamic shared memory, bytes
+constexpr int kFirstBytes = 6 * 1024;     // occ staged before n_live is known
+constexpr int kMaxWordsMr = 512;          // multi-resource: 16 words per lane
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Rect {
@@ -86,156 +132,230 @@ struct Rect {
   int t_end;
 };
 
-// first index k in [0, S) with times[k] > v (S if none)
-__device__ __forceinline__ int upper_bound(const int* times, int S, int v) {
-  int lo = 0, hi = S;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (times[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The warp's count of sorted times[0, L) below v: #{k : times[k] < v},
+// or #{k : times[k] <= v} (or_equal).  A 32-ary search: the lanes
+// probe the last time of 32 equal chunks of the open range and a ballot
+// keeps the chunk that holds the boundary, so ceil(log32 L) rounds of
+// independent reads (one round up to 32 records, two up to 1024) where
+// a binary search chains log2 L.  All lanes get the count.
+struct Narrow {
+  int lo, hi;           // the count lies in [lo, hi]; times [lo, hi) open
+  int step;
+};
+
+__device__ __forceinline__ bool narrow_probe(Narrow& n, const int* times,
+                                             int L, int v, bool or_equal,
+                                             int lane) {
+  n.step = (n.hi - n.lo + 31) >> 5;
+  const int i = n.lo + (lane + 1) * n.step - 1;
+  // an unconditional read of a valid index (L >= 1 while any search is
+  // open), so no branch guards the load
+  const int t = times[min(i, L - 1)];
+  return n.lo < n.hi && i < n.hi && (or_equal ? t <= v : t < v);
 }
 
-// first index k in [0, S) with times[k] >= v (S if none)
-__device__ __forceinline__ int lower_bound(const int* times, int S, int v) {
-  int lo = 0, hi = S;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (times[mid] < v) lo = mid + 1; else hi = mid;
+__device__ __forceinline__ void narrow_apply(Narrow& n, bool ok) {
+  const int c = __popc(__ballot_sync(kFull, ok));
+  if (n.lo < n.hi) {
+    const int lo = n.lo + c * n.step;
+    n.hi = min(lo + n.step - 1, n.hi);
+    n.lo = lo;
   }
-  return lo;
 }
 
 // record k overlaps [a, b) iff times[k] < b and next(k) > a, where
 // next(k) = times[k + 1] (T_INF past the end).  Both are monotone in
-// k, so the overlapping records are [lo, hi).
-__device__ __forceinline__ void overlap_range(const int* times, int S, int a,
-                                              int b, int* lo, int* hi) {
-  *lo = max(upper_bound(times, S, a) - 1, 0);
-  *hi = lower_bound(times, S, b);
+// k, so the overlapping records are [lo, hi): lo = #{times <= a} - 1
+// (at least 0), hi = #{times < b}; the two searches run interleaved.
+// L is S, or the live count n_live (every record past it is T_INF
+// padding, which changes neither count since a < T_INF and b <= T_INF).
+__device__ __forceinline__ void overlap_range(const int* times, int L, int a,
+                                              int b, int lane, int* lo,
+                                              int* hi) {
+  if (L <= 32) {                                    // one read a lane
+    const int t = times[min(lane, max(L - 1, 0))];
+    const bool in = lane < L;
+    *lo = max(__popc(__ballot_sync(kFull, in && t <= a)) - 1, 0);
+    *hi = __popc(__ballot_sync(kFull, in && t < b));
+    return;
+  }
+  Narrow na = {0, L, 0}, nb = {0, L, 0};
+  while (na.lo < na.hi || nb.lo < nb.hi) {          // warp-uniform
+    const bool oka = narrow_probe(na, times, L, a, true, lane);
+    const bool okb = narrow_probe(nb, times, L, b, false, lane);
+    narrow_apply(na, oka);
+    narrow_apply(nb, okb);
+  }
+  *lo = max(na.lo - 1, 0);
+  *hi = nb.lo;
 }
 
 // A warp's share of one occupancy row: lane holds words lane + 32 j,
-// j < NW, so a row read is coalesced.  busy = OR of rows [lo, hi).
+// j < NW, so a row read is coalesced.  busy = OR of rows [lo, hi), up
+// to eight rows' reads in flight at a time.
 template <int NW>
 __device__ __forceinline__ void window_busy(const unsigned* __restrict__ occ,
                                             int W, int lo, int hi, int lane,
                                             unsigned (&busy)[NW]) {
+  bool in[NW];
 #pragma unroll
-  for (int j = 0; j < NW; ++j) busy[j] = 0u;
-  for (int k = lo; k < hi; ++k) {
-    const unsigned* row = occ + (size_t)k * W;
+  for (int j = 0; j < NW; ++j) {
+    busy[j] = 0u;
+    in[j] = lane + 32 * j < W;
+  }
+  // rows in flight: eight while that keeps registers low, fewer with
+  // many words a lane
+  constexpr int kRows = NW <= 2 ? 8 : NW <= 4 ? 4 : 2;
+  const unsigned* row = occ + (size_t)lo * W + lane;
+  int k = lo;
+  for (; k + kRows <= hi; k += kRows, row += kRows * W) {
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const int w = lane + 32 * j;
-      if (w < W) busy[j] |= row[w];
+    for (int u = 0; u < kRows; ++u) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        if (in[j]) busy[j] |= row[u * W + 32 * j];
     }
+  }
+  for (; k < hi; ++k, row += W) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (in[j]) busy[j] |= row[32 * j];
   }
 }
 
-// whether a row occupies any of the warp's free units (all lanes agree)
+// the lane's share of whether a row occupies one of the free units
 template <int NW>
-__device__ __forceinline__ bool row_blocks(const unsigned* __restrict__ row,
-                                           int W, int lane,
-                                           const unsigned (&fr)[NW]) {
+__device__ __forceinline__ unsigned lane_hit(const unsigned* __restrict__ row,
+                                             int W, int lane,
+                                             const unsigned (&fr)[NW]) {
   unsigned hit = 0u;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
     const int w = lane + 32 * j;
     if (w < W) hit |= row[w] & fr[j];
   }
-  return __any_sync(kFull, hit != 0u);
+  return hit;
 }
 
 // The outward scans, from the window to the first blocking record on
-// each side; since times are sorted that record holds the max end /
-// min start the definitions ask for.
+// each side (four records' reads in flight at a time); since times are
+// sorted that record holds the max end / min start the definitions ask
+// for.
 template <int NW>
 __device__ __forceinline__ void outward_scans(const int* __restrict__ times,
                                               const unsigned* __restrict__ occ,
-                                              int S, int W, int lo, int hi,
+                                              int L, int W, int lo, int hi,
                                               int a, int t_now, int lane,
                                               const unsigned (&fr)[NW],
                                               Rect* r) {
   // left: records [0, lo) end at or before a
   int tb = -kTInf;
-  for (int k = lo - 1; k >= 0; --k) {
-    if (row_blocks<NW>(occ + (size_t)k * W, W, lane, fr)) {
-      tb = times[k + 1];
+  for (int k = lo - 1; k >= 0; k -= 4) {
+    unsigned hit[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned h =
+          lane_hit<NW>(occ + (size_t)max(k - u, 0) * W, W, lane, fr);
+      hit[u] = k - u >= 0 ? h : 0u;
+    }
+    int found = -1;                       // the blocking record nearest a
+#pragma unroll
+    for (int u = 3; u >= 0; --u)
+      if (__any_sync(kFull, hit[u] != 0u)) found = k - u;
+    if (found >= 0) {
+      tb = times[found + 1];
       break;
     }
   }
-  // right: records [hi, S) start at or after b; padding never blocks
+  // right: records [hi, L) start at or after b; padding never blocks
   int te = kTInf;
-  for (int k = hi; k < S; ++k) {
-    const int t = times[k];
-    if (t == kTInf) break;
-    if (row_blocks<NW>(occ + (size_t)k * W, W, lane, fr)) {
-      te = t;
-      break;
+  for (int k = hi; k < L; k += 4) {
+    int t[4];
+    unsigned hit[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int kk = min(k + u, L - 1);
+      const int tk = times[kk];
+      const unsigned h = lane_hit<NW>(occ + (size_t)kk * W, W, lane, fr);
+      t[u] = k + u < L ? tk : kTInf;
+      hit[u] = t[u] != kTInf ? h : 0u;
     }
+    bool found = false;                   // the blocking record nearest b
+#pragma unroll
+    for (int u = 3; u >= 0; --u) {
+      if (__any_sync(kFull, hit[u] != 0u)) {
+        found = true;
+        te = t[u];
+      }
+    }
+    if (found || t[3] == kTInf) break;
   }
   r->t_begin = min(max(tb, t_now), a);
   r->t_end = te;
 }
 
-// One warp: the rectangle of window [a, b).  All lanes get the result.
-__device__ Rect scan_window(const int* __restrict__ times,
-                            const unsigned* __restrict__ occ, int S, int W,
-                            int a, int b, int t_now, int n_pe, int lane) {
-  int lo, hi;
-  overlap_range(times, S, a, b, &lo, &hi);
-  unsigned busy[2];
-  window_busy<2>(occ, W, lo, hi, lane, busy);
-  int cnt = __popc(busy[0]) + __popc(busy[1]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(kFull, cnt, off);
-  unsigned fr[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) fr[j] = lane + 32 * j < W ? ~busy[j] : 0u;
-  Rect r;
-  r.n_free = n_pe - cnt;
-  outward_scans<2>(times, occ, S, W, lo, hi, a, t_now, lane, fr, &r);
-  return r;
-}
-
-// One warp, multi-resource: free = ~busy & valid, so padding and dead
-// units are never free; plane q's free units are counted into cnt[q]
-// (the warp's own shared counters: a plane's words may sit in several
-// lanes, and a lane's words in several planes).  n_free is plane 0's
-// count.  All lanes get the result; cnt holds every plane's count.
-template <int NW>
-__device__ Rect scan_window_mr(const int* __restrict__ times,
-                               const unsigned* __restrict__ occ,
-                               const unsigned* __restrict__ valid,
-                               const int* __restrict__ plane, int* cnt,
-                               int S, int W, int R, int a, int b, int t_now,
-                               int lane) {
-  int lo, hi;
-  overlap_range(times, S, a, b, &lo, &hi);
-  unsigned busy[NW];
-  window_busy<NW>(occ, W, lo, hi, lane, busy);
-  for (int q = lane; q < R; q += 32) cnt[q] = 0;
-  __syncwarp();
-  unsigned fr[NW];
+// A lane's words of the layout: the valid mask (all ones on R = 1) and
+// the plane ids, zero past W.
+template <int NW, bool kMr>
+__device__ __forceinline__ void lane_layout(const unsigned* __restrict__ valid,
+                                            const int* __restrict__ plane,
+                                            int W, int lane,
+                                            unsigned (&vm)[NW],
+                                            int (&pl)[NW]) {
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
     const int w = lane + 32 * j;
-    fr[j] = 0u;
-    if (w < W) {
-      fr[j] = ~busy[j] & valid[w];
-      const int c = __popc(fr[j]);
-      if (c) atomicAdd(&cnt[plane[w]], c);
-    }
+    vm[j] = w < W ? (kMr ? valid[w] : kFull) : 0u;
+    pl[j] = kMr && w < W ? plane[w] : 0;
   }
-  __syncwarp();
+}
+
+// One warp: the rectangle of window [a, b) over records [0, L) of
+// times / occ (global or shared memory).  R = 1 (kMr false): n_free =
+// n_pe - popcount(busy), the free words ~busy.  Multi-resource: free =
+// ~busy & valid, so padding and dead units are never free; plane q's
+// free units are counted into cnt[q] (the warp's own shared counters: a
+// plane's words may sit in several lanes, and a lane's words in several
+// planes) and n_free is plane 0's count.  All lanes get the result.
+template <int NW, bool kMr>
+__device__ __forceinline__ Rect scan_window(const int* __restrict__ times,
+                                            const unsigned* __restrict__ occ,
+                                            int L, int W, int a, int b,
+                                            int t_now, int n_pe, int lane,
+                                            const unsigned (&vm)[NW],
+                                            const int (&pl)[NW], int* cnt,
+                                            int R) {
+  int lo, hi;
+  overlap_range(times, L, a, b, lane, &lo, &hi);
+  unsigned busy[NW];
+  window_busy<NW>(occ, W, lo, hi, lane, busy);
+  unsigned fr[NW];
   Rect r;
-  r.n_free = cnt[0];
-  outward_scans<NW>(times, occ, S, W, lo, hi, a, t_now, lane, fr, &r);
+  if (!kMr) {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      c += __popc(busy[j]);
+      fr[j] = ~busy[j] & vm[j];
+    }
+    r.n_free = n_pe - __reduce_add_sync(kFull, c);
+  } else {
+    for (int q = lane; q < R; q += 32) cnt[q] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      fr[j] = ~busy[j] & vm[j];
+      const int c = __popc(fr[j]);
+      if (c) atomicAdd(&cnt[pl[j]], c);
+    }
+    __syncwarp();
+    r.n_free = cnt[0];
+  }
+  outward_scans<NW>(times, occ, L, W, lo, hi, a, t_now, lane, fr, &r);
   return r;
 }
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(kThreads)
 availscan_rects_kernel(const int* __restrict__ times,
                        const unsigned* __restrict__ occ,
                        const int* __restrict__ starts,
@@ -243,13 +363,17 @@ availscan_rects_kernel(const int* __restrict__ times,
                        int* __restrict__ t_end, int S, int W, int P,
                        int t_du, int t_now, int n_pe) {
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= P) return;                     // warp-uniform
   const int s = starts[p];
   Rect r = {0, 0, 0};
   if (s < kTInf) {                        // warp-uniform
+    unsigned vm[2];
+    int pl[2];
+    lane_layout<2, false>(nullptr, nullptr, W, lane, vm, pl);
     const int a = min(s, kTInf - t_du);
-    r = scan_window(times, occ, S, W, a, a + t_du, t_now, n_pe, lane);
+    r = scan_window<2, false>(times, occ, S, W, a, a + t_du, t_now, n_pe,
+                              lane, vm, pl, nullptr, 1);
   }
   if (lane == 0) {
     n_free[p] = r.n_free;
@@ -258,17 +382,94 @@ availscan_rects_kernel(const int* __restrict__ times,
   }
 }
 
-// lexicographic (key1, key2, start_key, index) less-than
-__device__ __forceinline__ bool row_less(const int* x, const int* y) {
-  if (x[0] != y[0]) return x[0] < y[0];
-  if (x[1] != y[1]) return x[1] < y[1];
-  if (x[2] != y[2]) return x[2] < y[2];
-  return x[3] < y[3];
+// Multi-resource rectangles.  NW = occupancy words per lane (W <= 32
+// NW); every warp owns kMaxWordsMr plane counters in shared memory,
+// since R <= W.
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+availscan_rects_mr_kernel(const int* __restrict__ times,
+                          const unsigned* __restrict__ occ,
+                          const unsigned* __restrict__ valid,
+                          const int* __restrict__ plane,
+                          const int* __restrict__ starts,
+                          int* __restrict__ n_free, int* __restrict__ t_begin,
+                          int* __restrict__ t_end, int* __restrict__ tail,
+                          int S, int W, int R, int P, int t_du, int t_now) {
+  __shared__ int counts[kWarps][kMaxWordsMr];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kWarps + warp;
+  if (p >= P) return;                     // warp-uniform
+  const int s = starts[p];
+  int* cnt = counts[warp];
+  int* my_tail = tail + (size_t)p * (R - 1);
+  Rect r = {0, 0, 0};
+  if (s < kTInf) {                        // warp-uniform
+    unsigned vm[NW];
+    int pl[NW];
+    lane_layout<NW, true>(valid, plane, W, lane, vm, pl);
+    const int a = min(s, kTInf - t_du);
+    r = scan_window<NW, true>(times, occ, S, W, a, a + t_du, t_now, 0, lane,
+                              vm, pl, cnt, R);
+    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = cnt[q];
+  } else {
+    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = 0;
+  }
+  if (lane == 0) {
+    n_free[p] = r.n_free;
+    t_begin[p] = r.t_begin;
+    t_end[p] = r.t_end;
+  }
 }
 
-__device__ __forceinline__ void sentinel_row(int* row) {
+// ---------------------------------------------------------------------------
+// the select kernels
+// ---------------------------------------------------------------------------
+
+// lexicographic (key1, key2, start_key, index) less-than, without
+// branches
+__device__ __forceinline__ bool row_less(const int (&x)[8],
+                                         const int (&y)[8]) {
+  return (x[0] < y[0]) |
+         ((x[0] == y[0]) &
+          ((x[1] < y[1]) |
+           ((x[1] == y[1]) &
+            ((x[2] < y[2]) | ((x[2] == y[2]) & (x[3] < y[3]))))));
+}
+
+__device__ __forceinline__ void sentinel_row(int (&row)[8]) {
   row[0] = row[1] = row[2] = row[3] = kBig;
   row[4] = row[5] = row[6] = row[7] = 0;
+}
+
+__device__ __forceinline__ void take_if_less(int (&best)[8],
+                                             const int (&row)[8]) {
+  const bool less = row_less(row, best);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) best[j] = less ? row[j] : best[j];
+}
+
+__device__ __forceinline__ void write_row(int* __restrict__ out,
+                                          const int (&row)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = row[j];
+}
+
+// The warp's minimum row, in every lane: one hardware min reduction
+// (redux.sync) a key over the lanes still tied, then the winner's row
+// by shuffle.  Some lane always stays tied, and the index key is unique
+// among live rows (sentinel rows are equal), so the winner's row is the
+// lexicographic minimum.
+__device__ __forceinline__ void warp_min_row(int (&row)[8]) {
+  bool tied = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int m = __reduce_min_sync(kFull, tied ? row[j] : kBig);
+    tied = tied && row[j] == m;
+  }
+  const int src = __ffs(__ballot_sync(kFull, tied)) - 1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) row[j] = __shfl_sync(kFull, row[j], src);
 }
 
 // exact policy keys of repro.core.policies.integer_keys: the product
@@ -280,24 +481,19 @@ __device__ __forceinline__ void policy_keys(int policy, int nf, int du,
   const int p_lo_raw = nf * du_lo;
   const int p_hi = nf * du_hi + (p_lo_raw >> 16);
   const int p_lo = p_lo_raw & 0xFFFF;
-  int k1 = 0, k2 = 0;
-  switch (policy) {
-    case 1: k1 = nf; break;
-    case 2: k1 = -nf; break;
-    case 3: k1 = du; break;
-    case 4: k1 = -du; break;
-    case 5: k1 = p_hi; k2 = p_lo; break;
-    case 6: k1 = -p_hi; k2 = -p_lo; break;
-    default: break;
-  }
+  // a select chain, not a switch: no branch on the policy
+  const int k1 = policy == 1 ? nf : policy == 2 ? -nf : policy == 3 ? du
+               : policy == 4 ? -du : policy == 5 ? p_hi
+               : policy == 6 ? -p_hi : 0;
+  const int k2 = policy == 5 ? p_lo : policy == 6 ? -p_lo : 0;
   *key1 = k1;
   *key2 = k2;
 }
 
 // a live candidate's row: the policy keys of (n_free, t_end - t_begin)
 // when feasible, INT32_MAX keys otherwise
-__device__ __forceinline__ void candidate_row(int* row, int policy, int s,
-                                              int p, const Rect& r,
+__device__ __forceinline__ void candidate_row(int (&row)[8], int policy,
+                                              int s, int p, const Rect& r,
                                               bool feasible) {
   // duration wraps like the reference's int32 subtraction
   const int du = (int)((unsigned)r.t_end - (unsigned)r.t_begin);
@@ -313,139 +509,276 @@ __device__ __forceinline__ void candidate_row(int* row, int policy, int s,
   row[7] = feasible ? 1 : 0;
 }
 
-// thread 0 writes the block's best candidate row to partial[block]
-__device__ __forceinline__ void block_best(int (*rows)[8],
-                                           int* __restrict__ partial) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int best = 0;
-    for (int w = 1; w < kWarpsPerBlock; ++w)
-      if (row_less(rows[w], rows[best])) best = w;
-    int* out = partial + (size_t)blockIdx.x * 8;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous global -> shared copies: cp.async, 16 or 4 bytes a thread.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Words [begin, end) of src into the same offsets of dst (16-byte
+// aligned), by the block's threads with cp.async: 16 bytes a copy where
+// src is 16-byte aligned, 4 bytes at the edges and otherwise.
+__device__ __forceinline__ void stage_words(unsigned* dst,
+                                            const unsigned* src,
+                                            unsigned begin, unsigned end,
+                                            int tid) {
+  unsigned b16 = begin, e16 = begin;      // the 16-byte body [b16, e16)
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    b16 = min((begin + 3u) & ~3u, end);
+    e16 = max(b16, end & ~3u);
+  }
+  for (unsigned i = begin + tid; i < b16; i += kThreads)
+    cp_async4(dst + i, src + i);
+  for (unsigned i = b16 + 4u * tid; i < e16; i += 4u * kThreads)
+    cp_async16(dst + i, src + i);
+  for (unsigned i = e16 + tid; i < end; i += kThreads)
+    cp_async4(dst + i, src + i);
+}
+
+// ticket counter: add with release (the block's row is written) and
+// acquire (so is every earlier block's) semantics at device scope
+__device__ __forceinline__ unsigned ticket_add(int* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+struct SelectArgs {
+  const int* times;
+  const unsigned* occ;
+  const unsigned* valid;      // multi-resource only
+  const int* plane;           // multi-resource only
+  const int* demand;          // multi-resource only, int32[R - 1]
+  const int* starts;
+  int S, W, R, P, t_du, t_now, n_req, policy, n_pe;
+  int rows_cap;               // live rows the shared-memory branch takes
+  int rows_first;             // rows staged before n_live is known
+};
+
+// One warp: its candidates p = blockIdx.x * kWarps + warp + k * gridDim.x
+// * kWarps, over records [0, L) of times / occ; best holds the lowest
+// row, in every lane.  The first kThreads / kWarps starts of each warp
+// come from s_starts.
+template <int NW, bool kMr>
+__device__ __forceinline__ void warp_candidates(
+    const SelectArgs& g, const int* __restrict__ times,
+    const unsigned* __restrict__ occ, int L, const int* s_starts,
+    const unsigned (&vm)[NW], const int (&pl)[NW], int* cnt, const int* dem,
+    int lane, int warp, int (&best)[8]) {
+  int j = 0;
+  for (int p = blockIdx.x * kWarps + warp; p < g.P;
+       p += gridDim.x * kWarps, ++j) {
+    const int s = j < kThreads / kWarps ? s_starts[j * kWarps + warp]
+                                        : g.starts[p];
+    if (s >= kTInf) continue;             // warp-uniform
+    const int a = min(s, kTInf - g.t_du);
+    const Rect r = scan_window<NW, kMr>(times, occ, L, g.W, a, a + g.t_du,
+                                        g.t_now, g.n_pe, lane, vm, pl, cnt,
+                                        g.R);
+    bool feasible;
+    if (kMr) {
+      // vector fit: plane 0 covers n_req, plane q >= 1 its demand (no
+      // demand is read when R == 1)
+      bool short_of = r.n_free < g.n_req;
+      for (int q = 1 + lane; q < g.R; q += 32) short_of |= cnt[q] < dem[q - 1];
+      feasible = !__any_sync(kFull, short_of);
+      __syncwarp();                       // cnt is rezeroed next
+    } else {
+      feasible = r.n_free >= g.n_req;
+    }
+    int row[8];
+    candidate_row(row, g.policy, s, p, r, feasible);
+    take_if_less(best, row);
+  }
+}
+
+// The fused scan + select: one launch, one int32[8] row in out.
+// scratch: int32[kScratchHead + 8 * kMaxBlocks], scratch[0] the ticket
+// counter (0 between calls), the block rows from kScratchHead on.
+// Dynamic shared memory: occ rows [0, rows_cap), then times
+// [0, rows_cap + 1).
+template <int NW, bool kMr>
+__global__ void __launch_bounds__(kThreads)
+availscan_select_kernel(const SelectArgs g, int* __restrict__ scratch,
+                        int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ int s_starts[kThreads];      // one start a thread
+  __shared__ int warp_live[kWarps];
+  __shared__ int warp_rows[kWarps][8];
+  __shared__ int counts[kMr ? kWarps : 1][kMr ? kMaxWordsMr : 1];
+  __shared__ int dem[kMr ? kMaxWordsMr : 1];
+  unsigned* s_occ = reinterpret_cast<unsigned*>(dyn_smem);
+  int* s_times = reinterpret_cast<int*>(s_occ + (size_t)g.rows_cap * g.W);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // Everything that needs no earlier read, issued before any of it is
+  // used: the thread's first time and first start (a thread's start is
+  // its slot of the block's first kThreads candidates), occ's first
+  // rows_first rows (cp.async), the demand tail and the lane's layout
+  // words; then the rest of times[0 : rows_cap + 1] and of the starts.
+  const int n_times = min(g.S, g.rows_cap + 1);
+  const int p0 = ((tid / kWarps) * gridDim.x + blockIdx.x) * kWarps +
+                 tid % kWarps;
+  const int t0 = tid < n_times ? g.times[tid] : kTInf;
+  const int s0 = p0 < g.P ? g.starts[p0] : kTInf;
+  const unsigned first = (unsigned)g.rows_first * (unsigned)g.W;
+  stage_words(s_occ, g.occ, 0u, first, tid);
+  if (kMr)
+    for (int q = tid; q < g.R - 1; q += kThreads) dem[q] = g.demand[q];
+  unsigned vm[NW];
+  int pl[NW];
+  lane_layout<NW, kMr>(g.valid, g.plane, g.W, lane, vm, pl);
+  // the times staged and counted (sorted, T_INF padding last), whether
+  // any of the block's candidates is live
+  if (tid < n_times) s_times[tid] = t0;
+  int n_below = t0 < kTInf;
+  for (int i = tid + kThreads; i < n_times; i += kThreads) {
+    const int t = g.times[i];
+    s_times[i] = t;
+    n_below += t < kTInf;
+  }
+  s_starts[tid] = s0;
+  bool mine = s0 < kTInf;
+  for (int i = tid + kThreads;; i += kThreads) {
+    const int p = ((i / kWarps) * gridDim.x + blockIdx.x) * kWarps +
+                  i % kWarps;
+    if (p >= g.P) break;
+    mine |= g.starts[p] < kTInf;
+  }
+  n_below = __reduce_add_sync(kFull, n_below);
+  if (lane == 0) warp_live[warp] = n_below;
+  cp_async_wait_all();
+  const bool any_live = __syncthreads_or(mine);
+
+  int best[8];
+  sentinel_row(best);
+  if (any_live) {                         // block-uniform
+    // the live count: times are sorted, T_INF padding last
+    int n_live = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = rows[best][j];
+    for (int w = 0; w < kWarps; ++w) n_live += warp_live[w];
+    int* cnt = kMr ? counts[warp] : nullptr;
+    if (n_live <= g.rows_cap) {           // block-uniform
+      if (n_live > g.rows_first) {
+        stage_words(s_occ, g.occ, first, (unsigned)n_live * g.W, tid);
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      warp_candidates<NW, kMr>(g, s_times, s_occ, n_live, s_starts, vm, pl,
+                               cnt, dem, lane, warp, best);
+    } else {
+      warp_candidates<NW, kMr>(g, g.times, g.occ, g.S, s_starts, vm, pl,
+                               cnt, dem, lane, warp, best);
+    }
   }
-}
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-availscan_select_kernel(const int* __restrict__ times,
-                        const unsigned* __restrict__ occ,
-                        const int* __restrict__ starts,
-                        int* __restrict__ partial, int S, int W, int P,
-                        int t_du, int t_now, int n_req, int policy,
-                        int n_pe) {
-  __shared__ int rows[kWarpsPerBlock][8];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  const int s = p < P ? starts[p] : kTInf;
-  if (s < kTInf) {                        // warp-uniform
-    const int a = min(s, kTInf - t_du);
-    const Rect r = scan_window(times, occ, S, W, a, a + t_du, t_now, n_pe,
-                               lane);
-    if (lane == 0) candidate_row(rows[warp], policy, s, p, r, r.n_free >= n_req);
-  } else if (lane == 0) {
-    sentinel_row(rows[warp]);
-  }
-  block_best(rows, partial);
-}
-
-// Multi-resource twins.  NW = occupancy words per lane (W <= 32 NW);
-// every warp owns kMaxWordsMr plane counters in shared memory, since
-// R <= W.
-template <int NW>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-availscan_rects_mr_kernel(const int* __restrict__ times,
-                          const unsigned* __restrict__ occ,
-                          const unsigned* __restrict__ valid,
-                          const int* __restrict__ plane,
-                          const int* __restrict__ starts,
-                          int* __restrict__ n_free, int* __restrict__ t_begin,
-                          int* __restrict__ t_end, int* __restrict__ tail,
-                          int S, int W, int R, int P, int t_du, int t_now) {
-  __shared__ int counts[kWarpsPerBlock][kMaxWordsMr];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= P) return;                     // warp-uniform
-  const int s = starts[p];
-  int* cnt = counts[warp];
-  int* my_tail = tail + (size_t)p * (R - 1);
-  Rect r = {0, 0, 0};
-  if (s < kTInf) {                        // warp-uniform
-    const int a = min(s, kTInf - t_du);
-    r = scan_window_mr<NW>(times, occ, valid, plane, cnt, S, W, R, a,
-                           a + t_du, t_now, lane);
-    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = cnt[q];
-  } else {
-    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = 0;
-  }
+  // the block's row: fold the warps' rows in warp 0
   if (lane == 0) {
-    n_free[p] = r.n_free;
-    t_begin[p] = r.t_begin;
-    t_end[p] = r.t_end;
-  }
-}
-
-template <int NW>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-availscan_select_mr_kernel(const int* __restrict__ times,
-                           const unsigned* __restrict__ occ,
-                           const unsigned* __restrict__ valid,
-                           const int* __restrict__ plane,
-                           const int* __restrict__ demand,
-                           const int* __restrict__ starts,
-                           int* __restrict__ partial, int S, int W, int R,
-                           int P, int t_du, int t_now, int n_req,
-                           int policy) {
-  __shared__ int rows[kWarpsPerBlock][8];
-  __shared__ int counts[kWarpsPerBlock][kMaxWordsMr];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  const int s = p < P ? starts[p] : kTInf;
-  if (s < kTInf) {                        // warp-uniform
-    const int a = min(s, kTInf - t_du);
-    int* cnt = counts[warp];
-    const Rect r = scan_window_mr<NW>(times, occ, valid, plane, cnt, S, W,
-                                      R, a, a + t_du, t_now, lane);
-    // vector fit: plane 0 covers n_req, plane q >= 1 its demand (the
-    // demand tail is never read when R == 1)
-    bool short_of = r.n_free < n_req;
-    for (int q = 1 + lane; q < R; q += 32) short_of |= cnt[q] < demand[q - 1];
-    const bool feasible = !__any_sync(kFull, short_of);
-    if (lane == 0) candidate_row(rows[warp], policy, s, p, r, feasible);
-  } else if (lane == 0) {
-    sentinel_row(rows[warp]);
-  }
-  block_best(rows, partial);
-}
-
-__global__ void __launch_bounds__(kReduceThreads)
-select_reduce_kernel(const int* __restrict__ partial, int n_rows,
-                     int* __restrict__ out) {
-  __shared__ int rows[kReduceThreads][8];
-  int* mine = rows[threadIdx.x];
-  sentinel_row(mine);
-  for (int i = threadIdx.x; i < n_rows; i += kReduceThreads) {
-    const int* r = partial + (size_t)i * 8;
-    if (row_less(r, mine)) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mine[j] = r[j];
-    }
+    for (int j = 0; j < 8; ++j) warp_rows[warp][j] = best[j];
   }
   __syncthreads();
-  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride && row_less(rows[threadIdx.x + stride], mine)) {
+  if (warp != 0) return;
+  int row[8];
+  if (lane < kWarps) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mine[j] = rows[threadIdx.x + stride][j];
-    }
-    __syncthreads();
+    for (int j = 0; j < 8; ++j) row[j] = warp_rows[lane][j];
+  } else {
+    sentinel_row(row);
   }
-  if (threadIdx.x < 8) out[threadIdx.x] = rows[0][threadIdx.x];
+  warp_min_row(row);
+  if (gridDim.x == 1) {
+    if (lane == 0) write_row(out, row);
+    return;
+  }
+  int* counter = scratch;
+  int4* rows = reinterpret_cast<int4*>(scratch + kScratchHead);
+  unsigned ticket = 0;
+  if (lane == 0) {
+    __stcg(rows + 2 * blockIdx.x, make_int4(row[0], row[1], row[2], row[3]));
+    __stcg(rows + 2 * blockIdx.x + 1,
+           make_int4(row[4], row[5], row[6], row[7]));
+    ticket = ticket_add(counter);
+  }
+  ticket = __shfl_sync(kFull, ticket, 0);
+  if (ticket != gridDim.x - 1) return;    // warp-uniform
+  __syncwarp();
+  // the last block's warp 0: every block's row is written
+  sentinel_row(row);
+  for (int i = lane; i < (int)gridDim.x; i += 32) {
+    const int4 lo = __ldcg(rows + 2 * i);
+    const int4 hi = __ldcg(rows + 2 * i + 1);
+    const int other[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    take_if_less(row, other);
+  }
+  warp_min_row(row);
+  if (lane == 0) {
+    write_row(out, row);
+    *reinterpret_cast<volatile int*>(counter) = 0;   // for the next call
+  }
 }
 
-int n_blocks(int P) { return (P + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+__global__ void empty_kernel() {}
+
+int n_blocks(int P) { return (P + kWarps - 1) / kWarps; }
+
+int select_blocks(int P) {
+  const int nb = n_blocks(P);
+  return nb < kMaxBlocks ? nb : kMaxBlocks;
+}
+
+// live rows the shared-memory branch can stage at S x W (each row with
+// its time, plus one time)
+int smem_rows(int S, int W) {
+  const int fit = (kSmemBudget / 4 - 1) / (W + 1);
+  return S < fit ? S : fit;
+}
+
+// rows staged before the live count is known: up to kFirstBytes
+int first_rows(int rows_cap, int W) {
+  const int fit = kFirstBytes / (4 * W);
+  return rows_cap < fit ? rows_cap : (fit > 0 ? fit : 1);
+}
+
+template <int NW, bool kMr>
+int launch_select(SelectArgs g, int* scratch, int* out, cudaStream_t stream) {
+  auto kernel = availscan_select_kernel<NW, kMr>;
+  // the dynamic shared-memory limit, once per device for this variant
+  static unsigned long long attr_set = 0ull;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(attr_set & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBudget);
+    if (err != cudaSuccess) return (int)err;
+    attr_set |= bit;
+  }
+  g.rows_cap = smem_rows(g.S, g.W);
+  g.rows_first = first_rows(g.rows_cap, g.W);
+  const size_t bytes = ((size_t)g.rows_cap * (g.W + 1) + 1) * 4;
+  kernel<<<select_blocks(g.P), kThreads, bytes, stream>>>(g, scratch, out);
+  return (int)cudaGetLastError();
+}
 
 struct MrArgs {
   const int* times;
@@ -459,19 +792,9 @@ struct MrArgs {
 template <int NW>
 void launch_rects_mr(const MrArgs& m, int* n_free, int* t_begin, int* t_end,
                      int* tail, cudaStream_t stream) {
-  availscan_rects_mr_kernel<NW><<<n_blocks(m.P), 32 * kWarpsPerBlock, 0,
-                                  stream>>>(
+  availscan_rects_mr_kernel<NW><<<n_blocks(m.P), kThreads, 0, stream>>>(
       m.times, m.occ, m.valid, m.plane, m.starts, n_free, t_begin, t_end,
       tail, m.S, m.W, m.R, m.P, m.t_du, m.t_now);
-}
-
-template <int NW>
-void launch_select_mr(const MrArgs& m, const int* demand, int* partial,
-                      int n_req, int policy, cudaStream_t stream) {
-  availscan_select_mr_kernel<NW><<<n_blocks(m.P), 32 * kWarpsPerBlock, 0,
-                                   stream>>>(
-      m.times, m.occ, m.valid, m.plane, demand, m.starts, partial, m.S, m.W,
-      m.R, m.P, m.t_du, m.t_now, n_req, policy);
 }
 
 // the smallest instantiated words-per-lane count covering W
@@ -483,39 +806,57 @@ int words_per_lane(int W) {
 
 extern "C" {
 
-int availscan_candidates_per_block(void) { return kWarpsPerBlock; }
+int availscan_candidates_per_block(void) { return kWarps; }
+
+int availscan_select_max_blocks(void) { return kMaxBlocks; }
+
+// int32 elements of the select kernels' scratch (zeroed once)
+int availscan_select_scratch_ints(void) {
+  return kScratchHead + 8 * kMaxBlocks;
+}
+
+// live records the select kernels stage in shared memory at S x W; more
+// live records than this take the global-memory branch
+int availscan_smem_rows(int S, int W) { return smem_rows(S, W); }
 
 const char* availscan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// An empty kernel of this library at the given launch shape: the
+// launch floor.  Returns cudaGetLastError().
+int availscan_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 // n_free / t_begin / t_end: int32[P] outputs.  Returns cudaGetLastError().
 int availscan_rects(const void* times, const void* occ, const void* starts,
                     void* n_free, void* t_begin, void* t_end, int S, int W,
                     int P, int t_du, int t_now, int n_pe, void* stream) {
-  availscan_rects_kernel<<<n_blocks(P), 32 * kWarpsPerBlock, 0,
+  availscan_rects_kernel<<<n_blocks(P), kThreads, 0,
                            (cudaStream_t)stream>>>(
       (const int*)times, (const unsigned*)occ, (const int*)starts,
       (int*)n_free, (int*)t_begin, (int*)t_end, S, W, P, t_du, t_now, n_pe);
   return (int)cudaGetLastError();
 }
 
-// partial: int32[ceil(P / candidates_per_block), 8] scratch; out:
-// int32[8].  Returns cudaGetLastError() after both launches.
+// Fused scan + select, R = 1 (W <= 64).  scratch:
+// int32[availscan_select_scratch_ints()], zeroed once, one per stream;
+// out: int32[8].  Returns cudaGetLastError() after the one launch.
 int availscan_select(const void* times, const void* occ, const void* starts,
-                     void* partial, void* out, int S, int W, int P, int t_du,
+                     void* scratch, void* out, int S, int W, int P, int t_du,
                      int t_now, int n_req, int policy, int n_pe,
                      void* stream) {
-  const int nb = n_blocks(P);
-  availscan_select_kernel<<<nb, 32 * kWarpsPerBlock, 0,
-                            (cudaStream_t)stream>>>(
-      (const int*)times, (const unsigned*)occ, (const int*)starts,
-      (int*)partial, S, W, P, t_du, t_now, n_req, policy, n_pe);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  select_reduce_kernel<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)partial, nb, (int*)out);
-  return (int)cudaGetLastError();
+  if (W < 1 || W > 64) return (int)cudaErrorInvalidValue;
+  const SelectArgs g = {(const int*)times, (const unsigned*)occ, nullptr,
+                        nullptr, nullptr, (const int*)starts, S, W, 1, P,
+                        t_du, t_now, n_req, policy, n_pe, 0, 0};
+  int* sc = (int*)scratch;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  return W <= 32 ? launch_select<1, false>(g, sc, o, st)
+                 : launch_select<2, false>(g, sc, o, st);
 }
 
 int availscan_mr_max_words(void) { return kMaxWordsMr; }
@@ -548,33 +889,29 @@ int availscan_rects_mr(const void* times, const void* occ, const void* valid,
 }
 
 // Multi-resource fused select.  demand: int32[R - 1] (unread when
-// R == 1); partial, out as for availscan_select.  Returns
-// cudaGetLastError() after both launches.
+// R == 1); scratch, out as for availscan_select.  Returns
+// cudaGetLastError() after the one launch.
 int availscan_select_mr(const void* times, const void* occ, const void* valid,
                         const void* plane, const void* demand,
-                        const void* starts, void* partial, void* out, int S,
+                        const void* starts, void* scratch, void* out, int S,
                         int W, int R, int P, int t_du, int t_now, int n_req,
                         int policy, void* stream) {
   if (W < 1 || W > kMaxWordsMr || R < 1 || R > W)
     return (int)cudaErrorInvalidValue;
-  const MrArgs m = {(const int*)times, (const unsigned*)occ,
-                    (const unsigned*)valid, (const int*)plane,
-                    (const int*)starts, S, W, R, P, t_du, t_now};
-  const int* d = (const int*)demand;
-  int* part = (int*)partial;
+  const SelectArgs g = {(const int*)times, (const unsigned*)occ,
+                        (const unsigned*)valid, (const int*)plane,
+                        (const int*)demand, (const int*)starts, S, W, R, P,
+                        t_du, t_now, n_req, policy, 0, 0, 0};
+  int* sc = (int*)scratch;
+  int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (words_per_lane(W)) {
-    case 1: launch_select_mr<1>(m, d, part, n_req, policy, st); break;
-    case 2: launch_select_mr<2>(m, d, part, n_req, policy, st); break;
-    case 4: launch_select_mr<4>(m, d, part, n_req, policy, st); break;
-    case 8: launch_select_mr<8>(m, d, part, n_req, policy, st); break;
-    default: launch_select_mr<16>(m, d, part, n_req, policy, st); break;
+    case 1: return launch_select<1, true>(g, sc, o, st);
+    case 2: return launch_select<2, true>(g, sc, o, st);
+    case 4: return launch_select<4, true>(g, sc, o, st);
+    case 8: return launch_select<8, true>(g, sc, o, st);
+    default: return launch_select<16, true>(g, sc, o, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  select_reduce_kernel<<<1, kReduceThreads, 0, st>>>(part, n_blocks(P),
-                                                      (int*)out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -29,6 +29,7 @@ from repro_torch.core import timeline as pt_tl
 from repro_torch.core import words as pt_words
 from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy, T_INF
+from repro_torch.kernels import cases as pt_cases
 from repro_torch.kernels import ops as pt_ops
 from repro_torch.kernels import ref as pt_ref
 
@@ -271,6 +272,59 @@ def test_mr_plain_versions_match_pallas(units, live):
             int(want["t_begin"]), int(want["t_end"])), (i, tail)
         if i == N_POLICIES:
             assert not bool(want["found"])
+
+
+# the CUDA select kernels' candidates per block
+PER_BLOCK = 8
+
+
+@pytest.mark.parametrize("kind,P", [("tie", 300), ("tie spread", 300),
+                                    ("infeasible", 384), ("many tiles", 513)])
+@pytest.mark.parametrize("units,live", [((64, 6, 3, 40), None),
+                                        ((40,), (33,))])
+def test_mr_select_matches_pallas_across_blocks(units, live, kind, P):
+    """Ties, all-infeasible rows (a secondary plane short on R > 1) and
+    many tiles: the plain multi-resource select names the Pallas
+    kernel's winner and rectangle under every policy."""
+    lu = None if live is None else live + units[1:]
+    spec, ref_spec, valid, ref_valid = _layout(units, lu)
+    rng = np.random.default_rng(P + len(kind) + len(units))
+    if kind.startswith("tie"):
+        case = pt_cases.tie_case(rng, spec, lu, 64, P, PER_BLOCK,
+                                 spread=kind == "tie spread")
+    elif kind == "infeasible":
+        case = pt_cases.infeasible_case(rng, spec, lu, 64, P, first_live=256)
+    else:
+        case = pt_cases.many_tiles_case(rng, spec, lu, 64, P)
+    ref = ref_tl.Timeline(times=jnp.asarray(case.times),
+                          occ=jnp.asarray(case.occ))
+    times = torch.from_numpy(case.times)
+    occ = torch.from_numpy(pt_words.to_int32(case.occ))
+    starts = torch.from_numpy(case.starts)
+    plane = device_layout(spec, CPU).plane_of_word
+    tail = torch.tensor(case.demand_tail, dtype=torch.int32)
+    last_block = (P - 1) // PER_BLOCK * PER_BLOCK
+    for pid in range(N_POLICIES):
+        want = ref_ops.search_select(
+            ref, jnp.asarray(case.starts), jnp.int32(case.t_du),
+            jnp.int32(case.t_now), jnp.int32(case.n_req), jnp.int32(pid),
+            spec.n_pe, rspec=ref_spec,
+            demand_tail=jnp.asarray(case.demand_tail, jnp.int32),
+            valid_mask=ref_valid)
+        row = pt_ref.availscan_select_mr_ref(
+            times, occ, starts, valid, plane, tail, case.t_du, case.t_now,
+            case.n_req, pid)
+        assert (bool(row[7]), int(row[3]), int(row[4]), int(row[5]),
+                int(row[6])) == (
+            bool(want["found"]), int(want["best"]), int(want["n_free"]),
+            int(want["t_begin"]), int(want["t_end"])), (case.label, pid)
+        best = int(row[3])
+        if kind == "tie":
+            assert bool(row[7]) and best >= last_block
+        elif kind == "tie spread":
+            assert bool(row[7]) and best < last_block
+        elif kind == "infeasible":
+            assert (int(row[7]), best) == (0, 256)
 
 
 def test_mr_plain_versions_on_dead_candidates_and_empty_timeline():

@@ -21,6 +21,8 @@ from repro_torch.core import policies as pt_pol
 from repro_torch.core import search as pt_search
 from repro_torch.core import timeline as pt_tl
 from repro_torch.core import words as pt_words
+from repro_torch.core.resources import ResourceSpec
+from repro_torch.kernels import cases as pt_cases
 from repro_torch.kernels import ops as pt_ops
 
 N_POLICIES = 7
@@ -119,6 +121,63 @@ def test_select_row_matches_pallas_all_policies(n_pe, capacity):
         np.testing.assert_array_equal(row.numpy(), want, err_msg=str(pid))
         assert (bool(got["found"]), int(got["best"])) == (
             bool(want[7]), int(want[3]))
+
+
+# the CUDA select kernels' candidates per block
+PER_BLOCK = 8
+# (kind, P): P spans several 128-candidate Pallas tiles and many blocks
+SEAM_CASES = [("tie", 300), ("tie spread", 300), ("infeasible", 384),
+              ("many tiles", 513)]
+
+
+def seam_case(kind, rng, spec, live, capacity, P):
+    """One :mod:`repro_torch.kernels.cases` input of ``kind``; the first
+    live candidate of an infeasible case sits on a Pallas tile boundary,
+    where the Pallas kernel also names the lowest live index."""
+    if kind.startswith("tie"):
+        return pt_cases.tie_case(rng, spec, live, capacity, P, PER_BLOCK,
+                                 spread=kind == "tie spread")
+    if kind == "infeasible":
+        return pt_cases.infeasible_case(rng, spec, live, capacity, P,
+                                        first_live=256)
+    return pt_cases.many_tiles_case(rng, spec, live, capacity, P)
+
+
+def check_seam_row(kind, case, row):
+    """What each kind of case pins down about the winning row."""
+    best, feasible = int(row[3]), int(row[7])
+    last_block = (case.starts.shape[0] - 1) // PER_BLOCK * PER_BLOCK
+    if kind == "tie":
+        assert feasible and best >= last_block
+    elif kind == "tie spread":
+        assert feasible and best < last_block
+    elif kind == "infeasible":
+        assert (feasible, best) == (0, 256)
+    if feasible:
+        assert int(row[2]) == int(case.starts[best])
+
+
+@pytest.mark.parametrize("kind,P", SEAM_CASES)
+def test_select_row_matches_pallas_across_blocks(kind, P):
+    """Ties, all-infeasible rows and many tiles: the plain select equals
+    the Pallas kernel's row under every policy."""
+    n_pe = 100
+    rng = np.random.default_rng(P + len(kind))
+    case = seam_case(kind, rng, ResourceSpec((n_pe,)), None, 64, P)
+    ref = ref_tl.Timeline(times=jnp.asarray(case.times),
+                          occ=jnp.asarray(case.occ))
+    times = torch.from_numpy(case.times)
+    occ = torch.from_numpy(pt_words.to_int32(case.occ))
+    starts = torch.from_numpy(case.starts)
+    for pid in range(N_POLICIES):
+        want = _pallas_select_row(ref, jnp.asarray(case.starts), case.t_du,
+                                  case.t_now, case.n_req, pid, n_pe)
+        row = pt_ops._ref.availscan_select_ref(
+            times, occ, starts, case.t_du, case.t_now, case.n_req, pid,
+            n_pe)
+        np.testing.assert_array_equal(row.numpy(), want,
+                                      err_msg=f"{case.label} policy {pid}")
+        check_seam_row(kind, case, row)
 
 
 def test_integer_keys_and_select_match_reference():
