@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--n-jobs 5000] [--n-event-loop 500]
+    python3 chip_smoke.py [--seed 0] [--n-jobs 2000] [--n-event-loop 300]
                           [--n-session 10000]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
@@ -20,7 +20,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    one kernel on the card (profiler), and times an empty kernel of the
    same library at the select kernel's launch shape (the launch floor);
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
-   ``WorkloadParams(n_jobs=5000, seed=0)``, PE_W; the paper's 10,000
+   ``WorkloadParams(n_jobs=2000, seed=0)``, PE_W; the paper's 10,000
    jobs with ``--n-jobs 10000``, cut by default to keep the run short
    now that phase 6 drives a 10,000-job session) on the card, its
    decisions, slowdowns and busy area held against the host event loop;
@@ -29,9 +29,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernel-backed rectangle query ``ops.availability_rectangles`` over
    probe requests on the admitted timeline.  Launch counts are reset
    before each path and read after it;
-4. paper claims: all seven policies on ``WorkloadParams(n_jobs=1500,
-   seed=11)``: PE_W's acceptance within 0.01 of the best, FF the lowest
-   slowdown;
+4. paper claims: all seven policies on ``WorkloadParams(n_jobs=1000,
+   seed=11)`` (the reference's test uses 1500; cut for time): PE_W's
+   acceptance within 0.01 of the best, FF the lowest slowdown;
 5. multi-resource kernel phase (after phase 2): holds ``availscan_mr``
    and ``availscan_select_mr`` against their plain versions, exact, on
    the layouts (1024,), (1024,) with 1000 live PEs, (64, 8, 4, 16),
@@ -49,6 +49,23 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    most 264 blocks), on 32, 64, 46 and 512 words; then 1,000 calls of
    each with random P in [1, 3000) queued back to back and checked
    after one sync;
+5c. pruned starts (after phase 5b): all four kernels against their plain
+   versions on the candidate arrays of ``cases.pruned_cases`` (dead
+   holes mid-array, index 0 live then dead to past the first
+   128-candidate tile, only index 0 live, P = 1) at 1024 PEs and the
+   R = 4 layout; with nothing feasible every select must name index 0;
+3b. the availability index (after phase 3): ``simulate_batched(...,
+   index_tile=16, cross_check=True)`` on the main path's jobs, decisions
+   held against the host loop and the main path's index-free run, one
+   ``availscan`` launch per early reject and one ``availscan_select``
+   per full search, the early-reject and pruned shares printed; then
+   the reference's saturated stream (``benchmarks/bench_index.py``)
+   scaled to 1024 PEs at capacity 256 with tile 32 and without the
+   index: every Decision field equal, at least 90 % of the 480 probes
+   early-rejected, each one ``availscan`` kernel on the card
+   (profiler); then the same stream stamped with the R = 4 demands
+   against ``MultiResourceOracle``, one ``availscan_mr`` launch per
+   early reject;
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
    chunk_size=64, ring_capacity=256))`` on the 10,000-job paper stream
@@ -56,9 +73,20 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    100 and flushed; decisions and records held against the port's
    ``MultiResourceOracle``; one ``availscan_select_mr`` launch per admit
    step; then a profiled window of the session, one-shot sessions for
-   all seven policies, a heterogeneous lane (``machine_sizes=(1000,)``),
-   the per-operation event loop and the kernel-backed rectangle query,
-   each held against the oracle or the plain version.
+   all seven policies (150 jobs each), a heterogeneous lane
+   (``machine_sizes=(1000,)``, 1,000 jobs), the per-operation event loop
+   and the kernel-backed rectangle query,
+   each held against the oracle or the plain version.  The session runs
+   the pipelined offer (``donate=True``, the default);
+7. service (after phase 6): the eager offer (``donate=False``) and the
+   pipelined one on the first 2,000 stamped jobs against the oracle
+   (host syncs per request side by side); a session from
+   capacity 16 that grows mid-stream on both offers, against the
+   oracle, each other, and the same session's counters on the CPU;
+   ``cancel``, ``cancel_many`` with a repeat, ``snapshot``/``restore``
+   and ``tick`` on 300 paper jobs against ``BackfillOracle`` (mode
+   none); ``engine="host"`` (500 jobs) and ``engine="list"`` (200 jobs)
+   sessions against the device session.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -98,6 +126,11 @@ MR_LAYOUTS = (((1024,), None), ((1024,), (1000,)), ((64, 8, 4, 16), None),
 MR_CAPACITIES = (128, 1024, 4096)
 # back-to-back calls of each select kernel, each with another P
 N_REPEAT = 1000
+
+
+def _nullcontext():
+    import contextlib
+    return contextlib.nullcontext()
 
 
 def fail(msg: str) -> None:
@@ -704,6 +737,20 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
           f"{r['spill_bytes']} B spilled")
 
 
+def case_on_card(case, spec, live, dev):
+    """A :class:`repro_torch.kernels.cases.SelectCase` as card tensors:
+    ``(times, occ, starts, valid, plane_of_word, demand_tail)``."""
+    import torch
+    from repro_torch.core.resources import device_layout
+    from repro_torch.core.words import to_int32
+    valid = torch.from_numpy(spec.valid_mask_np(live)).to(dev)
+    return (torch.from_numpy(case.times).to(dev),
+            torch.from_numpy(to_int32(case.occ)).to(dev),
+            torch.from_numpy(case.starts).to(dev), valid,
+            device_layout(spec, dev).plane_of_word,
+            torch.tensor(case.demand_tail, dtype=torch.int32).to(dev))
+
+
 def select_seams(rng, dev, n_repeat: int) -> None:
     """Both select kernels against their plain versions, exact, where a
     one-launch kernel that combines one row per block can break: ties
@@ -724,15 +771,6 @@ def select_seams(rng, dev, n_repeat: int) -> None:
     max_blocks = lib.availscan_select_max_blocks()
     sizes = cases.seam_sizes(per_block, (1, 2, 33, max_blocks,
                                          max_blocks + 1))
-
-    def on_card(case, spec, live):
-        lay = device_layout(spec, dev)
-        valid = torch.from_numpy(spec.valid_mask_np(live)).to(dev)
-        return (torch.from_numpy(case.times).to(dev),
-                torch.from_numpy(to_int32(case.occ)).to(dev),
-                torch.from_numpy(case.starts).to(dev), valid,
-                lay.plane_of_word,
-                torch.tensor(case.demand_tail, dtype=torch.int32).to(dev))
 
     def pinned(case, row, label):
         """What the case's kind pins down about the winner."""
@@ -757,7 +795,8 @@ def select_seams(rng, dev, n_repeat: int) -> None:
         spec = ResourceSpec(units)
         for case in cases.seam_cases(rng, spec, live, 128, sizes,
                                      per_block):
-            times, occ, starts, valid, plane, tail = on_card(case, spec, live)
+            times, occ, starts, valid, plane, tail = case_on_card(
+                case, spec, live, dev)
             label = f"{units} {case.label}"
             for pid in range(7):
                 if spec.R == 1:
@@ -830,7 +869,7 @@ def select_seams(rng, dev, n_repeat: int) -> None:
               f" queued without a sync, exact")
 
 
-def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
+def main_path(jobs, dev, rows: dict, n_event_loop: int):
     import torch
     from repro_torch.core import search as search_lib
     from repro_torch.core.batch import StreamStats
@@ -902,7 +941,7 @@ def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
 
     # rectangle query path: the kernel-backed availability_rectangles
     # over probe requests on a timeline the engine admitted
-    n_admit = min(2000, n - 64)
+    n_admit = min(500, n - 64)
     eng = DeviceEngine(1024, capacity=128, device=dev)
     eng.admit_stream(jobs[:n_admit], Policy.PE_W)
     print(f"main path: engine after {n_admit} jobs: capacity "
@@ -929,6 +968,7 @@ def main_path(jobs, dev, rows: dict, n_event_loop: int) -> None:
             fail("rectangle query validity mask wrong")
     print(f"rectangle query: {len(probes)} probes, availscan launches "
           f"{launches['availscan']}, exact")
+    return res
 
 
 def profile_steps(jobs, dev, n_steps: int = 300) -> None:
@@ -962,13 +1002,14 @@ def profile_steps(jobs, dev, n_steps: int = 300) -> None:
               f"{e.count / n_steps:5.2f} x/step  {e.key[:90]}")
 
 
-def paper_claims(dev) -> None:
+def paper_claims(dev, n_jobs: int = 1000) -> None:
     from repro_torch.core.types import ALL_POLICIES, Policy
     from repro_torch.sim import WorkloadParams, generate, simulate_batched
 
-    jobs = generate(WorkloadParams(n_jobs=1500, seed=11))
+    jobs = generate(WorkloadParams(n_jobs=n_jobs, seed=11))
     acc, sd = {}, {}
-    print("paper claims (1500 jobs, seed 11, 1024 PEs, card, cross-checked):")
+    print(f"paper claims ({n_jobs} jobs, seed 11, 1024 PEs, card, "
+          f"cross-checked):")
     for pol in ALL_POLICIES:
         r = simulate_batched(jobs, 1024, pol, device=dev, cross_check=True)
         acc[pol.value], sd[pol.value] = r.acceptance_rate, r.avg_slowdown
@@ -1130,7 +1171,7 @@ def session_variants(jobs_mr, jobs, dev, n_event_loop: int) -> None:
     from repro_torch.sim import simulate
 
     spec = ResourceSpec(MR_UNITS)
-    few = jobs_mr[:500]
+    few = jobs_mr[:150]
     K.reset_launches()
     for pol in ALL_POLICIES:
         sess = ReservationService(ServiceConfig(
@@ -1147,7 +1188,7 @@ def session_variants(jobs_mr, jobs, dev, n_event_loop: int) -> None:
           f"identical to the oracle (availscan_select_mr launches "
           f"{K.LAUNCHES['availscan_select_mr']})")
 
-    lane_jobs = jobs[:2000]
+    lane_jobs = jobs[:1000]
     K.reset_launches()
     t0 = time.perf_counter()
     sess = ReservationService(ServiceConfig(
@@ -1189,12 +1230,399 @@ def session_variants(jobs_mr, jobs, dev, n_event_loop: int) -> None:
           f"availscan_select_mr launches {n_launch}; identical to the oracle")
 
 
+def pruned_phase(rng, dev, rows: dict) -> None:
+    """All four kernels against their plain versions, exact, on the
+    candidate arrays the availability index hands them: dead holes in
+    the middle, index 0 live and the rest dead to past the first
+    128-candidate tile, only index 0 live, and P = 1 (the early reject's
+    rectangle), at the paper's shapes; with nothing feasible every
+    select names index 0, as the reference's do."""
+    import torch
+    from repro_torch.core.resources import ResourceSpec
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import cases
+    from repro_torch.kernels import ref as R
+
+    n_cases = 0
+    for units in ((1024,), MR_UNITS):
+        spec = ResourceSpec(units)
+        for case in cases.pruned_cases(rng, spec, None, 128):
+            times, occ, starts, valid, plane, tail = case_on_card(
+                case, spec, None, dev)
+            label = f"{units} {case.label}"
+            args = (case.t_du, case.t_now)
+            if spec.R == 1:
+                g = K.availscan(times, occ, starts, *args, spec.n_pe)
+                w = R.availscan_ref(times, occ, starts, *args, spec.n_pe)
+            else:
+                g = K.availscan_mr(times, occ, starts, valid, plane, spec.R,
+                                   *args, n_pe=spec.n_pe)
+                w = R.availscan_mr_ref(times, occ, starts, valid, plane,
+                                       spec.R, *args)
+            if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                fail(f"rectangles differ on {label}")
+            for pid in range(7):
+                if spec.R == 1:
+                    g = K.availscan_select(times, occ, starts, *args,
+                                           case.n_req, pid, spec.n_pe)
+                    w = R.availscan_select_ref(times, occ, starts, *args,
+                                               case.n_req, pid, spec.n_pe)
+                else:
+                    g = K.availscan_select_mr(times, occ, starts, valid,
+                                              plane, tail, *args, case.n_req,
+                                              pid, n_pe=spec.n_pe)
+                    w = R.availscan_select_mr_ref(times, occ, starts, valid,
+                                                  plane, tail, *args,
+                                                  case.n_req, pid)
+                if not torch.equal(g, w):
+                    fail(f"select differs on {label}, policy {pid}: "
+                         f"{g.tolist()} vs {w.tolist()}")
+                if not int(w[7]) and int(w[3]) != 0:
+                    fail(f"{label}: nothing feasible names index {int(w[3])}")
+            n_cases += 1
+    print(f"pruned starts: {n_cases} cases, all four kernels exact x 7 "
+          f"policies (holes, a live candidate past the 128 seam, only "
+          f"index 0 live, P = 1)")
+
+
+def indexed_stream(jobs, off, dev, rows: dict) -> None:
+    """The paper stream with the availability index (tile 16): the host
+    loop's decisions and those of ``off`` (the main path's index-free
+    run of the same jobs), the early-reject and pruned shares, and one
+    ``availscan`` launch per early reject."""
+    from repro_torch.core.batch import StreamStats
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.sim import simulate_batched
+
+    n = len(jobs)
+    stats = StreamStats(count_candidates=True)
+    K.reset_launches()
+    on = simulate_batched(jobs, 1024, Policy.PE_W, capacity=128,
+                          index_tile=16, cross_check=True, device=dev,
+                          stats=stats)
+    launches = dict(K.LAUNCHES)
+    if on.decisions != off.decisions:
+        fail("the indexed paper stream decides unlike the index-free run")
+    live, pruned = (int(x) for x in stats.candidates.cpu())
+    searched = stats.steps - stats.early_rejects
+    if launches["availscan"] != stats.early_rejects:
+        fail(f"indexed stream: {launches['availscan']} availscan launches "
+             f"for {stats.early_rejects} early rejects")
+    if launches["availscan_select"] != searched or searched < 1:
+        fail(f"indexed stream: {launches['availscan_select']} select "
+             f"launches for {searched} full searches")
+    rows["availscan"]["launches_indexed_stream"] = launches["availscan"]
+    rows["availscan_select"]["launches_indexed_stream"] = \
+        launches["availscan_select"]
+    print(f"indexed paper stream: {n} jobs, PE_W, tile 16: identical to the "
+          f"host loop and the index-free run; early rejects "
+          f"{stats.early_rejects}/{stats.steps} steps = "
+          f"{stats.early_rejects / stats.steps:.4f}; pruned {pruned}/{live} "
+          f"live candidates = {pruned / max(live, 1):.4f}; launches: "
+          f"availscan {launches['availscan']}, availscan_select "
+          f"{launches['availscan_select']}; {n / on.wall_seconds:.1f} "
+          f"requests/s on, {n / off.wall_seconds:.1f} off; host syncs "
+          f"{stats.host_syncs / n:.3f} per request")
+
+
+def saturated_jobs(n_fill: int = 240, n_probe: int = 480,
+                   n_pe: int = 1024):
+    """The reference's fill-then-reject stream
+    (``benchmarks/bench_index.py::saturated_jobs``, 64 PEs) scaled to
+    ``n_pe``: fills of (20 + k mod 12) x n_pe/64 PEs over
+    ``[1000 + 2k, 1004 + 2k)``, all admitted, then zero-slack probes of
+    48 x n_pe/64 PEs inside the filled horizon, none of which fits."""
+    from repro_torch.core.types import ARRequest
+    u = n_pe // 64
+    jobs, t = [], 0
+    for k in range(n_fill):
+        t_r = 1000 + 2 * k
+        jobs.append(ARRequest(t_a=t, t_r=t_r, t_du=4, t_dl=t_r + 4,
+                              n_pe=(20 + k % 12) * u))
+        t += 1
+    span = max(2 * n_fill - 200, 100)
+    for k in range(n_probe):
+        t_r = 1100 + (k * 7) % span
+        jobs.append(ARRequest(t_a=t, t_r=t_r, t_du=8, t_dl=t_r + 8,
+                              n_pe=48 * u))
+        t += 1
+    return jobs
+
+
+def saturated_stream(dev, rows: dict) -> None:
+    """The saturated stream at capacity 256, index tile 32 and no index:
+    every Decision field equal, at least 90 % of the probes rejected by
+    the index, each of those one ``availscan`` kernel on the card.
+
+    The fills and the probes go as one-shot offers of one session (the
+    same stream), and only the indexed probes run under the profiler,
+    120 to a window: a window of all 720 steps holds some 200,000
+    kernels, and the profiler has been seen to lose a few of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.batch import Decision
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import build
+
+    jobs = saturated_jobs()
+    n_fill, n_probe = 240, 480
+    lib = build.load()
+    out = {}
+    for tile in (32, None):
+        sess = ReservationService(ServiceConfig(
+            n_pe=1024, policy=Policy.PE_W, capacity=256, chunk_size=None,
+            index_tile=tile, device=dev)).session()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fills = sess.offer(jobs[:n_fill]).decision
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parts, rect_kernels = [fills], 0
+        for lo in range(n_fill, len(jobs), 120):
+            with profile(activities=[ProfilerActivity.CUDA]) if tile \
+                    else _nullcontext() as prof:
+                # each window opens with three empty kernels, as in
+                # device_profile: the profiler can miss its first ones
+                for _ in range(3):
+                    lib.availscan_empty(
+                        1, 32, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                parts.append(sess.offer(jobs[lo:lo + 120]).decision)
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+            if tile:
+                rect_kernels += sum(e.count for e in prof.key_averages()
+                                    if "availscan_rects_kernel" in e.key)
+        dec = Decision(*(torch.cat(f) for f in zip(*parts)))
+        out[tile] = (dec, wall, dict(K.LAUNCHES), rect_kernels,
+                     sess.metrics())
+    (dec_on, wall_on, l_on, k_on, m_on), (dec_off, wall_off, l_off, _, _) = \
+        out[32], out[None]
+    for f, a, b in zip(dec_on._fields, dec_on, dec_off):
+        if not torch.equal(a, b):
+            fail(f"saturated stream: Decision.{f} differs with the index")
+    n_acc = int(dec_on.accepted.sum())
+    rejects = m_on["early_rejects"]
+    if n_acc != n_fill or rejects < 0.9 * n_probe:
+        fail(f"saturated stream: {n_acc} accepted, {rejects} early rejects "
+             f"of {n_probe} probes")
+    if l_on["availscan"] != rejects or k_on != rejects:
+        fail(f"saturated stream: {l_on['availscan']} availscan launches, "
+             f"{k_on} availscan kernels on the card for {rejects} early "
+             f"rejects")
+    rows["availscan"]["launches_saturated"] = l_on["availscan"]
+    n = len(jobs)
+    print(f"saturated stream: {n} jobs (240 fills, 480 probes of 768 PEs), "
+          f"capacity 256: every Decision field equal with tile 32 and "
+          f"without; early rejects {rejects}/{n_probe} probes; availscan "
+          f"launches {l_on['availscan']} = kernels on the card {k_on}; "
+          f"availscan_select launches {l_on['availscan_select']} on, "
+          f"{l_off['availscan_select']} off; "
+          f"{n / wall_on:.1f} requests/s on (profiler on for the probes), "
+          f"{n / wall_off:.1f} off (a record, not a claim)")
+
+    # the same stream stamped with the R = 4 demands: the early reject's
+    # rectangle is the multi-resource kernel
+    from repro_torch.core.hostsched import MultiResourceOracle
+    from repro_torch.core.resources import ResourceSpec
+    jobs_mr = stamp(jobs, MR_UNITS)
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, resources=MR_UNITS, policy=Policy.PE_W, capacity=256,
+        chunk_size=None, index_tile=32, device=dev)).session()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    allocs, got = _decisions([sess.offer(jobs_mr)])
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    oracle = MultiResourceOracle(ResourceSpec(MR_UNITS), Policy.PE_W, "none")
+    want = oracle.run(jobs_mr)
+    if got != want or sess.records() != oracle.records():
+        fail(f"indexed multi-resource saturated stream differs from the "
+             f"oracle {_first_diff(got, want)}")
+    rejects = sess.metrics()["early_rejects"]
+    if launches["availscan_mr"] != rejects or rejects < 0.9 * n_probe:
+        fail(f"indexed multi-resource stream: {launches['availscan_mr']} "
+             f"availscan_mr launches for {rejects} early rejects")
+    rows["availscan_mr"]["launches_saturated"] = launches["availscan_mr"]
+    print(f"saturated stream, R = 4 {MR_UNITS}, tile 32: identical to "
+          f"MultiResourceOracle; early rejects {rejects}/{n_probe} probes, "
+          f"availscan_mr launches {launches['availscan_mr']}, "
+          f"availscan_select_mr {launches['availscan_select_mr']}; "
+          f"{n / wall:.1f} requests/s")
+
+
+def pipelined_paths(jobs_mr, dev, rows: dict) -> None:
+    """The eager chunk loop on a cut of the session stream, and a
+    session that grows mid-stream on both loops: decisions and records
+    equal to the oracle's and to each other, and each loop's counters
+    equal to the same session's on the CPU (which the tests hold to the
+    reference's loop of the same kind)."""
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import MultiResourceOracle
+    from repro_torch.core.resources import ResourceSpec
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    spec = ResourceSpec(MR_UNITS)
+
+    def run(jobs, donate, device, capacity=128, pending=256):
+        sess = ReservationService(ServiceConfig(
+            n_pe=1024, resources=MR_UNITS, policy=Policy.PE_W,
+            capacity=capacity, pending_capacity=pending, chunk_size=64,
+            ring_capacity=256, donate=donate, device=device)).session()
+        t0 = time.perf_counter()
+        results = [sess.offer(jobs[i:i + 100], flush=False)
+                   for i in range(0, len(jobs), 100)]
+        results.append(sess.flush())
+        allocs, got = _decisions(results)
+        return got, sess.records(), sess.metrics(), \
+            time.perf_counter() - t0
+
+    cut = jobs_mr[:2000]
+    K.reset_launches()
+    got, recs, m, wall = run(cut, False, dev)
+    launches = K.LAUNCHES["availscan_select_mr"]
+    oracle = MultiResourceOracle(spec, Policy.PE_W, "none")
+    want = oracle.run(cut)
+    if got != want or recs != oracle.records():
+        fail(f"eager session differs from the oracle {_first_diff(got, want)}")
+    if launches != m["steps"]:
+        fail(f"eager session: {launches} select launches, {m['steps']} steps")
+    rows["availscan_select_mr"]["launches_eager"] = launches
+    K.reset_launches()
+    got_p, recs_p, m_p, wall_p = run(cut, True, dev)
+    if got_p != got or recs_p != recs:
+        fail("pipelined and eager sessions differ on the 2,000-job cut")
+    if K.LAUNCHES["availscan_select_mr"] != m_p["steps"]:
+        fail("pipelined session: select launches differ from the steps")
+    n = len(cut)
+    print(f"eager (donate=False) and pipelined sessions: {n} stamped jobs, "
+          f"both identical to the oracle; {n / wall:.1f} and "
+          f"{n / wall_p:.1f} requests/s; host syncs {m['host_syncs']} = "
+          f"{m['host_syncs'] / n:.3f} and {m_p['host_syncs']} = "
+          f"{m_p['host_syncs'] / n:.3f} per request; availscan_select_mr "
+          f"launches {launches} and {K.LAUNCHES['availscan_select_mr']}")
+
+    # the stamped paper stream never needs more than 32 records or 32
+    # pending slots, so the growing session starts at 16 of each
+    grow = jobs_mr[:600]
+    oracle = MultiResourceOracle(spec, Policy.PE_W, "none")
+    want = oracle.run(grow)
+    counters = {}
+    for donate in (True, False):
+        K.reset_launches()
+        got, recs, m, wall = run(grow, donate, dev, 16, 16)
+        if got != want or recs != oracle.records():
+            fail(f"growing session (donate={donate}) differs from the "
+                 f"oracle {_first_diff(got, want)}")
+        if K.LAUNCHES["availscan_select_mr"] != m["steps"]:
+            fail("growing session: select launches differ from the steps")
+        _, _, m_cpu, _ = run(grow, donate, "cpu", 16, 16)
+        keys = ("chunks", "growths", "capacity", "pending_capacity",
+                "steps", "host_syncs", "accepted", "n_pending")
+        if any(m[k] != m_cpu[k] for k in keys):
+            fail(f"growing session (donate={donate}): counters on the card "
+                 f"{[m[k] for k in keys]} vs the CPU "
+                 f"{[m_cpu[k] for k in keys]}")
+        counters[donate] = m
+    if counters[True]["growths"] < 1 or counters[False]["growths"] < 1:
+        fail("the growing session did not grow")
+    print(f"growing session: {len(grow)} stamped jobs from capacity 16 "
+          f"(16 pending slots), "
+          f"pipelined and eager identical to the oracle and to each other; "
+          f"growths {counters[True]['growths']} pipelined / "
+          f"{counters[False]['growths']} eager, capacity "
+          f"{counters[True]['capacity']}; counters equal to the CPU run's")
+
+
+def session_verbs(jobs, dev) -> None:
+    """cancel, cancel_many (with a repeat), snapshot/restore and tick on
+    a short paper stream against the port's BackfillOracle (mode
+    none)."""
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import BackfillOracle
+    from repro_torch.core.types import Policy
+
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, policy=Policy.PE_W, device=dev)).session()
+    oracle = BackfillOracle(1024, Policy.PE_W, "none")
+    first, rest = jobs[:150], jobs[150:300]
+    allocs, got = _decisions([sess.offer(first)])
+    if got != oracle.run(first):
+        fail("session verbs: decisions differ from the oracle")
+    last = first[-1].t_a
+    live = [a for a in allocs if a is not None and a.t_e > last]
+    if len(live) < 4:
+        fail(f"session verbs: only {len(live)} pending reservations")
+
+    def both(a):
+        return sess.cancel(a), oracle.cancel(a.t_s, a.t_e, a.pe_ids)
+
+    for a in (live[0], live[0]):
+        ours, want = both(a)
+        if ours != want:
+            fail(f"cancel: {ours} vs the oracle's {want}")
+    many = [live[1], live[2], live[1], live[0]]
+    ours = sess.cancel_many(many)
+    want = [oracle.cancel(a.t_s, a.t_e, a.pe_ids) for a in many]
+    if ours != want or ours != [True, True, False, False]:
+        fail(f"cancel_many: {ours} vs the oracle's {want}")
+    if sess.records() != oracle.records():
+        fail("records differ from the oracle after the cancels")
+    snap = sess.snapshot()
+    _, once = _decisions([sess.offer(rest)])
+    sess.restore(snap)
+    _, again = _decisions([sess.offer(rest)])
+    want = oracle.run(rest)
+    if once != again or again != want:
+        fail("snapshot/restore: the replayed offer decides differently")
+    t = rest[-1].t_a + 500
+    sess.tick(t)
+    oracle.tick(t)
+    if sess.records() != oracle.records():
+        fail("records differ from the oracle after tick")
+    m = sess.metrics()
+    print(f"session verbs: cancel x2, cancel_many {ours}, snapshot/restore "
+          f"and tick on {len(first) + len(rest)} paper jobs identical to "
+          f"BackfillOracle (cancelled {m['cancelled']}, released "
+          f"{m['released']})")
+
+
+def host_engines(jobs, dev) -> None:
+    """Sessions on the host (numpy) and list engines make the device
+    session's decisions and records."""
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.types import Policy
+
+    for engine, n in (("host", 500), ("list", 200)):
+        few = jobs[:n]
+        t0 = time.perf_counter()
+        host = ReservationService(ServiceConfig(
+            n_pe=1024, policy=Policy.PE_W, engine=engine)).session()
+        _, got = _decisions([host.offer(few)])
+        host_s = time.perf_counter() - t0
+        card = ReservationService(ServiceConfig(
+            n_pe=1024, policy=Policy.PE_W, device=dev)).session()
+        _, want = _decisions([card.offer(few)])
+        if got != want or host.records() != card.records():
+            fail(f"engine={engine!r} session differs from the device "
+                 f"session {_first_diff(got, want)}")
+        print(f"{engine} session: {n} paper jobs identical to the device "
+              f"session ({n / host_s:.1f} requests/s on the host)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n-jobs", type=int, default=5_000,
-                    help="jobs of the single-resource paper stream")
-    ap.add_argument("--n-event-loop", type=int, default=500,
+    ap.add_argument("--n-jobs", type=int, default=2_000,
+                    help="jobs of the single-resource paper stream (also "
+                    "the indexed stream's)")
+    ap.add_argument("--n-event-loop", type=int, default=300,
                     help="jobs for the per-operation event loops")
     ap.add_argument("--n-session", type=int, default=10_000,
                     help="jobs for the multi-resource session")
@@ -1237,12 +1665,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     select_seams(rng, dev, N_REPEAT)
     print(f"select seams took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pruned_phase(rng, dev, rows)
+    print(f"pruned starts took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     jobs = generate(WorkloadParams(n_jobs=args.n_jobs, seed=args.seed))
-    main_path(jobs, dev, rows, args.n_event_loop)
+    plain = main_path(jobs, dev, rows, args.n_event_loop)
     profile_steps(jobs, dev)
     print(f"main path took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    indexed_stream(jobs, plain, dev, rows)
+    saturated_stream(dev, rows)
+    print(f"index phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     paper_claims(dev)
@@ -1257,6 +1693,12 @@ def main(argv=None) -> int:
     session_variants(jobs_mr, paper, dev, args.n_event_loop)
     print(f"multi-resource session phases took "
           f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    pipelined_paths(jobs_mr, dev, rows)
+    session_verbs(paper, dev)
+    host_engines(paper, dev)
+    print(f"service phases took {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -1,14 +1,15 @@
 """`ServiceConfig`: one declarative knob set for the reservation service.
 
 The port's copy of ``repro/api/config.py``.  It keeps every field the
-reference has except ``donate`` and ``placement`` (JAX buffer donation
-and device meshes) and ``bucketing`` (the port always searches the
-smallest power-of-two prefix of the timeline that holds its records),
-validates each one as the reference does, and adds ``device``.  The
-port runs one device timeline per session; fields that ask for more
-(ensemble lanes, partitions, backfilling, tenants, the availability
-index, the host engines) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+reference has except ``placement`` (device meshes) and ``bucketing``
+(the port always searches the smallest power-of-two prefix of the
+timeline that holds its records), validates each one as the reference
+does, and adds ``device``.  ``donate`` keeps its name and default but
+not its mechanism: PyTorch has no buffer donation, so the field only
+selects the reference's pipelined offer (see ``ServiceConfig``).  A
+session runs one device timeline, or one of the host engines; fields
+that ask for more (ensemble lanes, partitions, backfilling, tenants)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -36,11 +37,15 @@ class ServiceConfig:
     """Complete configuration of a :class:`~repro_torch.api.ReservationService`.
 
     ``engine`` / ``policy`` / ``use_kernel``
-        The port runs ``engine="device"``; ``policy`` is the default
-        Section-5 policy (overridable per ``offer``); ``use_kernel``
-        runs the search through the hand-written CUDA kernels (on the
-        CPU it takes their plain versions), ``False`` through plain
-        tensor code.  Both make the same decisions.
+        ``engine="device"`` keeps the state on ``device``;
+        ``"host"`` (numpy) and ``"list"`` (the literal record list)
+        are the reference's CPU engines, run only when named here, and
+        ``engine_kwargs`` forwards their constructor knobs.  ``policy``
+        is the default Section-5 policy (overridable per ``offer``);
+        ``use_kernel`` runs the device search through the hand-written
+        CUDA kernels (on the CPU it takes their plain versions),
+        ``False`` through plain tensor code.  All make the same
+        decisions.
     ``capacity`` / ``pending_capacity`` / ``auto_grow`` / ``max_growths``
         Starting sizes of the timeline and the pending-release buffer.
         An overflowing dispatch grows to the high-water mark it
@@ -57,6 +62,20 @@ class ServiceConfig:
         each, and requests may carry a full ``demand`` vector.
         ``machine_sizes`` (one entry per lane) gives the lane fewer
         live PEs than ``n_pe``.
+    ``donate``
+        With ``auto_grow``, chunked offers pipeline as the reference's
+        donated sessions do: no chunk's overflow latch is read before
+        the next chunk runs; the offer returns a deferred result, and
+        the first access to it (or the next verb that reads the state)
+        reads every outstanding latch in one host read and replays from
+        the first latched chunk on a grown state.  ``False`` reads each
+        chunk's latch before the next one starts.  Decisions are the
+        same.  A snapshot or restore sends later offers down the eager
+        path until the next admission, as in the reference.
+    ``index_tile``
+        Attaches the availability index (tiles of ``index_tile``
+        records, a power of two dividing ``capacity``): early rejects
+        and candidate pruning, with identical decisions.
     ``device``
         Where the session's state lives; ``None`` means cuda (raising
         without a card).
@@ -82,6 +101,7 @@ class ServiceConfig:
     resources: Optional[Tuple[int, ...]] = None
     machine_sizes: Optional[Tuple[int, ...]] = None
     index_tile: Optional[int] = None
+    donate: bool = True
     engine_kwargs: Optional[Mapping[str, Any]] = None
     device: DeviceLike = None
 
@@ -236,12 +256,10 @@ class ServiceConfig:
     def _check_ported(self) -> None:
         """Valid settings the port does not run yet."""
         for on, what, item in (
-                (self.engine != "device", f"engine={self.engine!r}", "A9"),
                 (self.lanes > 1, "lanes > 1", "A12"),
                 (self.n_partitions > 1, "n_partitions > 1", "A15"),
                 (self.backfilling, f"backfill={self.backfill!r}", "A11"),
-                (self.tenants is not None, "tenants", "A14"),
-                (self.index_tile is not None, "index_tile", "A10")):
+                (self.tenants is not None, "tenants", "A14")):
             if on:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP {item}); the "
@@ -282,6 +300,28 @@ class ServiceConfig:
 
     def replace(self, **changes) -> "ServiceConfig":
         return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def from_engine_kwargs(cls, n_pe: int, engine: str = "device",
+                           **kwargs) -> "ServiceConfig":
+        """Translate ``make_scheduler`` kwargs to a config.
+
+        Device kwargs map onto the config's fields (with the engine's
+        own ``capacity=256`` default); host/list kwargs pass through
+        ``engine_kwargs`` to the engine's constructor, which rejects
+        unknown names.
+        """
+        if engine != "device":
+            return cls(n_pe=n_pe, engine=engine,
+                       engine_kwargs=dict(kwargs) or None)
+        known = {"capacity", "pending_capacity", "use_kernel", "device"}
+        unknown = set(kwargs) - known
+        if unknown:
+            raise TypeError(
+                f"unknown device engine kwargs {sorted(unknown)}; "
+                f"supported: {sorted(known)}")
+        return cls(n_pe=n_pe, engine=engine,
+                   **{"capacity": 256, **kwargs})
 
 
 PolicyLike = Union[Policy, int, str]

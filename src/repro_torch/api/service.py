@@ -1,10 +1,9 @@
-"""`ReservationService`: the streaming session API over one device timeline.
+"""`ReservationService`: the streaming session API over one timeline.
 
-The port's copy of ``repro/api/service.py`` for single-lane device
-sessions.  A :class:`ReservationService` is configured once by a
+The port's copy of ``repro/api/service.py`` for one-lane sessions.  A
+:class:`ReservationService` is configured once by a
 :class:`~repro_torch.api.config.ServiceConfig` and opens
-:class:`Session` s, each carrying its scheduler state on the card
-across calls:
+:class:`Session` s, each carrying its scheduler state across calls:
 
 ``offer(requests)``
     Streaming admission.  Arrivals stage in a fixed-capacity
@@ -14,20 +13,34 @@ across calls:
     offer as one batch.
 ``tick(t)``
     Release every pending reservation ending by ``t``.
+``cancel(...)`` / ``cancel_many(...)``
+    Withdraw committed reservations (on auto-release sessions an
+    unknown or already released one returns ``False``).
+``snapshot()`` / ``restore(...)``
+    Capture and rewind the whole session.  States are never written in
+    place, so a snapshot holds references, not copies.
 ``metrics()``
     Admission counters, growths, capacities, ring geometry and the host
     syncs the session paid.
 
 Capacity overflow grows once to the high-water mark the failed
 dispatch recorded and re-runs that chunk, so chunked decisions equal a
-one-shot run that started with enough capacity.  The chunks run
-eagerly: each chunk's overflow latch is read before the next chunk
-starts (the reference also pipelines them; the decisions are the
-same).  The paper's three operations stay available on every session.
+one-shot run that started with enough capacity.  With ``donate`` and
+``auto_grow`` (the defaults) chunked offers pipeline as the
+reference's do: no chunk's overflow latch is read while the offer
+runs; the offer returns a deferred :class:`OfferResult`, and the first
+access to a result, or the next verb that reads the state, reads every
+outstanding latch in one host read (:meth:`_StreamBackend._drain_inflight`).
+``engine="host"`` and ``engine="list"`` run the reference's CPU engines
+behind the same verbs.  The paper's three operations stay available on
+every session.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import heapq
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,8 +48,10 @@ import torch
 
 from repro_torch.api.config import ServiceConfig, policy_id_of
 from repro_torch.core import batch as batch_lib
+from repro_torch.core import timeline as tl_lib
+from repro_torch.core import words as words_lib
 from repro_torch.core.batch import Decision, RequestBatch, RequestRing
-from repro_torch.core.scheduler import DeviceEngine
+from repro_torch.core.scheduler import DeviceEngine, _make_engine
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
 
 
@@ -47,39 +62,69 @@ class OfferResult:
     tensors actually admitted (``[M]``); ``valid`` masks out ring
     filler.  :meth:`allocations` unpacks host
     :class:`~repro_torch.core.types.Allocation` objects (``None`` per
-    rejection) in the order the requests were offered.
+    rejection) in the order the requests were offered.  Host and list
+    sessions build ``decision`` on the CPU and leave ``batch`` unset.
+
+    A pipelined offer returns a deferred result: its chunks' overflow
+    latches are unread, and the first access to any field settles
+    every in-flight offer of the session in one host read.
     """
 
     def __init__(self, decision: Optional[Decision] = None,
                  batch: Optional[RequestBatch] = None,
                  valid: Optional[np.ndarray] = None,
-                 _allocations: Optional[List[Optional[Allocation]]] = None):
-        self.decision = decision
-        self.batch = batch
-        self.valid = valid
+                 _allocations: Optional[List[Optional[Allocation]]] = None,
+                 _finalize=None):
+        self._decision = decision
+        self._batch = batch
+        self._valid = valid
         self._allocations = _allocations
+        self._finalize = _finalize
+
+    def _materialize(self) -> None:
+        if self._finalize is not None:
+            fin, self._finalize = self._finalize, None
+            fin()
+
+    @property
+    def decision(self) -> Optional[Decision]:
+        self._materialize()
+        return self._decision
+
+    @property
+    def batch(self) -> Optional[RequestBatch]:
+        self._materialize()
+        return self._batch
+
+    @property
+    def valid(self) -> Optional[np.ndarray]:
+        self._materialize()
+        return self._valid
 
     @property
     def n_offered(self) -> int:
-        if self.valid is not None:
-            return int(np.asarray(self.valid).sum())
+        self._materialize()
+        if self._valid is not None:
+            return int(np.asarray(self._valid).sum())
         return len(self._allocations or [])
 
     @property
     def n_accepted(self) -> int:
-        if self.decision is not None:
-            acc = self.decision.accepted.cpu().numpy()
-            return int((acc & np.asarray(self.valid)).sum())
+        self._materialize()
+        if self._decision is not None:
+            acc = self._decision.accepted.cpu().numpy()
+            return int((acc & np.asarray(self._valid)).sum())
         return sum(a is not None for a in (self._allocations or []))
 
     def allocations(self) -> List[Optional[Allocation]]:
         """Host allocations for the valid offered requests, in order."""
+        self._materialize()
         if self._allocations is not None:
             return self._allocations
-        if self.decision is None:
+        if self._decision is None:
             return []
-        allocs = batch_lib.decisions_to_allocations(self.decision)
-        self._allocations = [a for a, v in zip(allocs, self.valid) if v]
+        allocs = batch_lib.decisions_to_allocations(self._decision)
+        self._allocations = [a for a, v in zip(allocs, self._valid) if v]
         return self._allocations
 
 
@@ -117,8 +162,26 @@ def _concat_tree(chunks: List[Any], axis: int):
         for xs in zip(*chunks)))
 
 
+def _push_front(ring: RequestRing, rows: List[dict], lta: int) -> int:
+    """Reinsert popped requests at the front of their ring, in order.
+
+    ``lta`` rewinds the filler stamp (``last_popped_t_a``) to the
+    newest arrival actually decided.  Returns how many rows did not fit
+    (dropped).
+    """
+    kept = rows[:ring.free]
+    for row in reversed(kept):
+        ring._head = (ring._head - 1) % ring.capacity
+        for f in ring._fields:
+            ring._buf[f][ring._head] = row[f]
+        ring.count += 1
+        ring.popped -= 1
+    ring.last_popped_t_a = lta
+    return len(rows) - len(kept)
+
+
 class Session:
-    """One long-lived scheduler conversation (state lives on the card).
+    """One long-lived scheduler conversation.
 
     Create via :meth:`ReservationService.session`.  Admission verbs take
     arrival-ordered traffic (``t_a`` non-decreasing across calls), like
@@ -128,12 +191,13 @@ class Session:
     def __init__(self, service: "ReservationService"):
         self.service = service
         self.config = service.config
-        self._counters = dict(offered=0, accepted=0, released=0, chunks=0,
-                              growths=0, one_shot_scans=0)
-        self._backend = _StreamBackend(self.config, self._counters)
+        self._counters = dict(offered=0, accepted=0, released=0,
+                              cancelled=0, chunks=0, growths=0,
+                              one_shot_scans=0)
+        self._backend = _make_backend(self.config, self._counters)
 
     @property
-    def engine(self) -> DeviceEngine:
+    def engine(self):
         """The underlying engine object (three-operation surface)."""
         return self._backend.engine
 
@@ -163,16 +227,68 @@ class Session:
         """Release reservations ending by ``t``; returns how many.
 
         A session with ``auto_release=False`` leaves release to the
-        caller (``delete_allocation``) and releases nothing here.
+        caller (``cancel`` / ``delete_allocation``) and releases
+        nothing here.
         """
         return self._backend.tick(t)
 
+    def cancel(self, alloc: Optional[Allocation] = None, *,
+               t_s: Optional[int] = None, t_e: Optional[int] = None,
+               pe_ids: Optional[Sequence[int]] = None,
+               lane: int = 0) -> bool:
+        """Withdraw one committed reservation; ``True`` if it was held.
+
+        Pass the :class:`~repro_torch.core.types.Allocation` returned at
+        admission (or its ``t_s``/``t_e``/``pe_ids``).  ``lane`` belongs
+        to ensemble sessions and must stay 0.  On auto-release sessions
+        cancelling an unknown or already released reservation is a
+        no-op returning ``False``.
+        """
+        if alloc is not None:
+            t_s, t_e, pe_ids = alloc.t_s, alloc.t_e, alloc.pe_ids
+        if t_s is None or t_e is None or pe_ids is None:
+            raise ValueError("cancel needs an Allocation or t_s/t_e/pe_ids")
+        return self._backend.cancel(int(t_s), int(t_e), list(pe_ids),
+                                    lane=lane)
+
+    def cancel_many(self, allocs: Sequence[Allocation],
+                    lane: int = 0) -> List[bool]:
+        """Withdraw several committed reservations at once.
+
+        On device sessions all of them go in one pass
+        (``timeline.update_many``); host sessions cancel one by one.
+        One bool per allocation, as sequential :meth:`cancel` calls
+        would return: on auto-release sessions a repeated allocation
+        reports ``False`` after its first occurrence; with
+        ``auto_release=False`` cancels are blind deletes and every
+        entry reports ``True``.
+        """
+        triples = [(int(a.t_s), int(a.t_e), list(a.pe_ids)) for a in allocs]
+        return self._backend.cancel_many(triples, lane=lane)
+
+    def snapshot(self):
+        """Opaque capture of the whole session state."""
+        return (self._backend.snapshot(), dict(self._counters))
+
+    def restore(self, snap) -> None:
+        """Rewind the session to a :meth:`snapshot`."""
+        payload, counters = snap
+        self._backend.restore(payload)
+        self._counters.clear()
+        self._counters.update(counters)
+
     def records(self) -> list:
         """Host view of the availability timeline (merged records)."""
-        return self._backend.engine.records()
+        return self._backend.records()
+
+    def pending(self, lane: int = 0) -> list:
+        """The backfilling deferral queue: always empty, since the port
+        does not run backfilling yet (ROADMAP A11)."""
+        return self._backend.pending(lane)
 
     def metrics(self) -> Dict[str, Any]:
         """Admission counters plus capacity, ring and host-sync figures."""
+        # backend first: it folds the deferred accepted count in
         backend = self._backend.metrics()
         out = dict(self._counters)
         out.update(backend)
@@ -188,15 +304,15 @@ class Session:
                         t_now: Optional[int] = None
                         ) -> Optional[Allocation]:
         pol = self._backend.resolve_policy(policy)
-        return self.engine.find_allocation(req, pol, t_now=t_now)
+        return self._backend.find_allocation(req, pol, t_now=t_now)
 
     def add_allocation(self, t_s: int, t_e: int,
                        pes: Sequence[int]) -> None:
-        self.engine.add_allocation(t_s, t_e, list(pes))
+        self._backend.add_allocation(t_s, t_e, pes)
 
     def delete_allocation(self, t_s: int, t_e: int,
                           pes: Sequence[int]) -> None:
-        self.engine.delete_allocation(t_s, t_e, list(pes))
+        self._backend.delete_allocation(t_s, t_e, pes)
 
 
 class ReservationService:
@@ -229,26 +345,27 @@ class ReservationService:
                 "sessions": [s.metrics() for s in self.sessions]}
 
 
-class _StreamBackend:
-    """One device timeline with ring-buffer chunked streaming."""
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+
+
+def _make_backend(cfg: ServiceConfig, counters: Dict[str, int]):
+    if cfg.engine == "device":
+        return _StreamBackend(cfg, counters)
+    return _HostBackend(cfg, counters)
+
+
+class _BackendBase:
+    """Policy resolution, growth budget and three-operation delegation."""
 
     def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
         self.cfg = cfg
         self.counters = counters
-        self._acc_dev: Optional[torch.Tensor] = None  # unsynced accepted
-        mu = cfg.machine_units
-        self.engine = DeviceEngine(
-            cfg.n_pe, capacity=cfg.capacity, use_kernel=cfg.use_kernel,
-            pending_capacity=cfg.pending_capacity, device=cfg.device,
-            rspec=cfg.rspec,
-            live_units=mu[0] if mu is not None else None)
-        self._rspec = cfg.rspec
-        self.device = self.engine.tl.device
-        self.ring = (RequestRing(cfg.ring_capacity,
-                                 extra_demand=cfg.extra_demand)
-                     if cfg.chunk_size else None)
-        # host syncs, admit steps and release passes of every dispatch
-        self.stats = batch_lib.StreamStats()
+        # an outstanding snapshot/restore holds the live state; the
+        # reference must not donate it, so later offers go eager until
+        # the next admission (the port keeps that routing)
+        self._retained = False
 
     def resolve_policy(self, policy) -> Policy:
         if policy is None:
@@ -267,6 +384,55 @@ class _StreamBackend:
                     after: Tuple[int, int]) -> None:
         if after != before:
             self.counters["growths"] += 1
+
+    def _donate_ok(self) -> bool:
+        return self.cfg.donate and not self._retained
+
+    def pending(self, lane: int = 0) -> list:
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
+        return []
+
+    def cancel_many(self, triples, lane: int = 0) -> List[bool]:
+        return [self.cancel(ts, te, list(pes), lane=lane)
+                for ts, te, pes in triples]
+
+    def find_allocation(self, req, policy, t_now=None):
+        return self.engine.find_allocation(req, policy, t_now=t_now)
+
+    def add_allocation(self, t_s, t_e, pes):
+        self.engine.add_allocation(t_s, t_e, list(pes))
+
+    def delete_allocation(self, t_s, t_e, pes):
+        self.engine.delete_allocation(t_s, t_e, list(pes))
+
+    def records(self):
+        return self.engine.records()
+
+
+class _StreamBackend(_BackendBase):
+    """One device timeline with ring-buffer chunked streaming."""
+
+    def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
+        super().__init__(cfg, counters)
+        self._acc_dev: Optional[torch.Tensor] = None  # unsynced accepted
+        # state-derived metrics, cached until the state changes
+        self._dev_metrics: Optional[Dict[str, int]] = None
+        mu = cfg.machine_units
+        self.engine = DeviceEngine(
+            cfg.n_pe, capacity=cfg.capacity, use_kernel=cfg.use_kernel,
+            pending_capacity=cfg.pending_capacity, device=cfg.device,
+            rspec=cfg.rspec, live_units=mu[0] if mu is not None else None,
+            index_tile=cfg.index_tile)
+        self._rspec = cfg.rspec
+        self.device = self.engine.tl.device
+        self.ring = (RequestRing(cfg.ring_capacity,
+                                 extra_demand=cfg.extra_demand)
+                     if cfg.chunk_size else None)
+        # host syncs, admit steps and release passes of every dispatch
+        self.stats = batch_lib.StreamStats()
+        # pipelined offers whose overflow latches are unread
+        self._inflight: List[dict] = []
 
     def _defer_accepted(self, decision: Decision, valid) -> None:
         """Accumulate the accepted count on the device, no host read;
@@ -289,6 +455,7 @@ class _StreamBackend:
     def _state(self, s):
         self.engine.state = s
         self.engine._n_valid = None      # recounted on the next search
+        self._dev_metrics = None         # state-derived metrics are stale
 
     def _capacities(self) -> Tuple[int, int]:
         s = self._state
@@ -296,15 +463,43 @@ class _StreamBackend:
 
     def _admit_batch(self, batch: RequestBatch, pid: int) -> Decision:
         before = self._capacities()
-        state, dec = batch_lib.admit_stream_grow(
-            self._state, batch, pid, n_pe=self.cfg.n_pe,
-            auto_release=self.cfg.auto_release,
-            use_kernel=self.cfg.use_kernel, max_growths=self.growth_budget,
-            stats=self.stats)
+        try:
+            state, dec = batch_lib.admit_stream_grow(
+                self._state, batch, pid, n_pe=self.cfg.n_pe,
+                auto_release=self.cfg.auto_release,
+                use_kernel=self.cfg.use_kernel,
+                max_growths=self.growth_budget, stats=self.stats,
+                donate=self._donate_ok())
+        except batch_lib.GrowthError as e:
+            if e.state is not None:
+                # the rolled-back state, latch cleared, as the
+                # reference reinstalls after its donated attempt
+                self._state = e.state._replace(
+                    overflow=torch.zeros_like(e.state.overflow))
+            raise
         self._grow_guard(before, (state.tl.capacity,
                                   state.pending_capacity))
         self._state = state
+        self._retained = False
         return dec
+
+    # the three operations and records read (or change) the live
+    # state: settle any in-flight offers first
+    def find_allocation(self, req, policy, t_now=None):
+        self._drain_inflight()
+        return self.engine.find_allocation(req, policy, t_now=t_now)
+
+    def add_allocation(self, t_s, t_e, pes):
+        self._drain_inflight()
+        self.engine.add_allocation(t_s, t_e, list(pes))
+
+    def delete_allocation(self, t_s, t_e, pes):
+        self._drain_inflight()
+        self.engine.delete_allocation(t_s, t_e, list(pes))
+
+    def records(self):
+        self._drain_inflight()
+        return self.engine.records()
 
     def offer(self, requests, *, policy, routing, flush) -> OfferResult:
         if routing is not None:
@@ -332,6 +527,9 @@ class _StreamBackend:
             return self._one_shot(batch, len(reqs), pid)
         batch_lib.check_arrival_order(reqs, self.ring.last_t_a)
         self.counters["offered"] += len(reqs)
+        if self._donate_ok() and self.growth_budget > 0:
+            return self._offer_pipelined(reqs, pid, flush)
+        self._drain_inflight()
         return self._offer_eager(reqs, pid, flush)
 
     def _one_shot(self, batch: RequestBatch, n: int, pid: int
@@ -382,9 +580,178 @@ class _StreamBackend:
         self._defer_accepted(res.decision, res.valid)
         return res
 
+    def _offer_pipelined(self, reqs, pid, flush) -> OfferResult:
+        """Chunked admission with no read of any chunk's overflow latch.
+
+        Every chunk runs through
+        :func:`~repro_torch.core.batch.admit_stream_donated`, whose
+        latched rollback makes every chunk after an overflowing one
+        leave the state as it found it.  The offer registers itself on
+        ``_inflight`` and returns a deferred :class:`OfferResult`;
+        :meth:`_drain_inflight` reads all outstanding latches at once
+        and replays from the first latched chunk on a grown state, so
+        the decisions equal the eager path's.
+        """
+        chunk = self.cfg.chunk_size
+        decs: List[Decision] = []
+        batches: List[RequestBatch] = []
+        valids: List[np.ndarray] = []
+        ovfs: List[torch.Tensor] = []
+        ltas: List[int] = [self.ring.last_popped_t_a]
+        staged = None
+
+        def stage():
+            popped = self.ring.pop_chunk(chunk, self.cfg.n_pe, self.device)
+            ltas.append(self.ring.last_popped_t_a)
+            return popped
+
+        def dispatch(cur) -> None:
+            batch, valid = cur
+            state, dec = batch_lib.admit_stream_donated(
+                self._state, batch, pid, n_pe=self.cfg.n_pe,
+                auto_release=self.cfg.auto_release,
+                use_kernel=self.cfg.use_kernel, stats=self.stats)
+            self._state = state
+            ovfs.append(state.overflow)
+            decs.append(dec)
+            batches.append(batch)
+            valids.append(valid)
+            self.counters["chunks"] += 1
+
+        def drain(more) -> None:
+            nonlocal staged
+            while staged is not None or more():
+                cur = staged if staged is not None else stage()
+                staged = None
+                dispatch(cur)          # admit chunk k ...
+                if more():
+                    staged = stage()   # ... then stage chunk k+1
+
+        i = 0
+        while i < len(reqs):
+            take = min(self.ring.free, len(reqs) - i)
+            self.ring.push(reqs[i:i + take])
+            i += take
+            drain(lambda: self.ring.count >= chunk)
+        if flush:
+            drain(lambda: self.ring.count > 0)
+        if not decs:
+            return _empty_result()
+        res = OfferResult(_finalize=self._drain_inflight)
+        self._inflight.append(dict(ovfs=ovfs, decs=decs, batches=batches,
+                                   valids=valids, ltas=ltas, pid=pid,
+                                   result=res))
+        return res
+
+    def _drain_inflight(self) -> None:
+        """Settle every in-flight pipelined offer with one host read.
+
+        All outstanding overflow latches cross in one transfer.  When
+        none is set every offer's decisions stand.  Otherwise the latched
+        rollback left ``_state`` at the first latched chunk, sized by
+        its high-water marks: grow once, replay that offer's tail, then
+        every chunk of the later offers (their decisions are garbage),
+        which decides what the eager path decides.
+        """
+        if not self._inflight:
+            return
+        inflight, self._inflight = self._inflight, []
+        all_ovfs = [o for ctx in inflight for o in ctx["ovfs"]]
+        latched = torch.stack(all_ovfs).cpu().numpy()
+        self.stats.sync()
+        err = None
+        if latched.any():
+            g = int(latched.argmax())     # first latched chunk
+            c = 0                          # -> (offer c, its chunk g)
+            while g >= len(inflight[c]["ovfs"]):
+                g -= len(inflight[c]["ovfs"])
+                c += 1
+            for ci in range(c, len(inflight)):
+                ctx = inflight[ci]
+                err = self._replay_chunks(g if ci == c else 0, ctx,
+                                          rollback=(ci == c))
+                if err is not None:
+                    # terminal overflow: restage the undecided requests
+                    # in arrival order, the newest offer first so the
+                    # oldest tail ends up at the ring's head
+                    for later in reversed(inflight[ci + 1:]):
+                        self.counters["chunks"] -= len(later["batches"])
+                        self._restage_tail(0, later["batches"],
+                                           later["valids"], later["ltas"])
+                        del later["decs"][:], later["batches"][:], \
+                            later["valids"][:]
+                    k = ctx["fail_k"]
+                    self._restage_tail(k, ctx["batches"], ctx["valids"],
+                                       ctx["ltas"])
+                    del ctx["decs"][k:], ctx["batches"][k:], \
+                        ctx["valids"][k:]
+                    break
+        for ctx in inflight:
+            res = ctx["result"]
+            res._finalize = None
+            if ctx["decs"]:
+                res._decision = _concat_tree(ctx["decs"], axis=0)
+                res._batch = _concat_tree(ctx["batches"], axis=0)
+                res._valid = np.concatenate(ctx["valids"])
+                self._defer_accepted(res._decision, res._valid)
+            else:
+                res._allocations = []
+        if err is not None:
+            raise err
+
+    def _replay_chunks(self, j: int, ctx: dict, *,
+                       rollback: bool) -> Optional[Exception]:
+        """Re-run one offer's chunks ``j..`` after a latched overflow.
+
+        ``rollback`` grows the rolled-back state first (only for the
+        offer owning the first latched chunk).  On terminal overflow the
+        offer is cut at the failing chunk (``ctx["fail_k"]``) and the
+        :class:`~repro_torch.core.batch.GrowthError` is returned.
+        """
+        if rollback:
+            before = self._capacities()
+            self._state = batch_lib.grow_rollback(self._state, self.stats)
+            self._grow_guard(before, self._capacities())
+        batches, decs = ctx["batches"], ctx["decs"]
+        for k in range(j, len(batches)):
+            try:
+                decs[k] = self._admit_batch(batches[k], ctx["pid"])
+            except batch_lib.GrowthError as e:
+                ctx["fail_k"] = k
+                self.counters["chunks"] -= len(batches) - k
+                return e
+        return None
+
+    def _restage_tail(self, k: int, batches, valids, ltas) -> None:
+        """Return undecided chunks ``k..`` to the front of the ring.
+
+        The eager path would have left these requests staged, so they go
+        back ahead of anything pushed later, in order.  Requests that no
+        longer fit are dropped with a warning; the session stays usable
+        on the rolled-back state.
+        """
+        rows = []
+        names = self.ring._fields
+        for batch, valid in zip(batches[k:], valids[k:]):
+            cols = {f: getattr(batch, f).cpu().numpy()
+                    for f in batch_lib.REQ_FIELDS}
+            if batch.demand is not None:
+                dem = batch.demand.cpu().numpy()
+                for r in range(dem.shape[1]):
+                    cols[f"demand{r + 1}"] = dem[:, r]
+            for i in np.flatnonzero(valid):
+                rows.append({f: int(cols[f][i]) for f in names})
+        dropped = _push_front(self.ring, rows, ltas[k])
+        if dropped:
+            warnings.warn(
+                f"ring full while restaging after terminal overflow: "
+                f"{dropped} undecided requests dropped",
+                RuntimeWarning, stacklevel=2)
+
     def tick(self, t: int) -> int:
         if not self.cfg.auto_release:
             return 0
+        self._drain_inflight()
         before_rel = int(self._state.n_released)
         before = self._capacities()
         state = batch_lib.release_until(self._state, t,
@@ -397,16 +764,203 @@ class _StreamBackend:
         self.counters["released"] += released
         return released
 
-    def metrics(self) -> Dict[str, Any]:
+    def _mask(self, pe_ids) -> torch.Tensor:
+        limit = None if self._rspec is not None else self.cfg.n_pe
+        return tl_lib.ids_to_mask32(sorted(pe_ids), self._state.tl.words,
+                                    n_pe=limit, device=self.device)
+
+    def cancel(self, t_s: int, t_e: int, pe_ids: List[int],
+               lane: int = 0) -> bool:
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
+        self._drain_inflight()
+        mask = self._mask(pe_ids)
+        before = self._capacities()
+        state, done = batch_lib.cancel_one(
+            self._state, t_s, t_e, mask,
+            require_pending=self.cfg.auto_release,
+            max_growths=self.growth_budget)
+        self._grow_guard(before, (state.tl.capacity,
+                                  state.pending_capacity))
+        self._state = state
+        self.counters["cancelled"] += int(done)
+        return done
+
+    def cancel_many(self, triples, lane: int = 0) -> List[bool]:
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
+        self._drain_inflight()
+        entries = [(ts, te, self._mask(pes)) for ts, te, pes in triples]
+        before = self._capacities()
+        state, done = batch_lib.cancel_many(
+            self._state, entries, require_pending=self.cfg.auto_release,
+            max_growths=self.growth_budget)
+        self._grow_guard(before, (state.tl.capacity,
+                                  state.pending_capacity))
+        self._state = state
+        self.counters["cancelled"] += sum(done)
+        return done
+
+    def snapshot(self):
+        self._drain_inflight()
         self._sync_counters()
+        self._retained = True
+        return (self._state, self.ring.snapshot() if self.ring else None)
+
+    def restore(self, payload):
+        self._drain_inflight()   # settle results against the old state
+        state, ring_snap = payload
+        self._state = state
+        self._retained = True
+        self._acc_dev = None     # accumulated after the snapshot
+        if self.ring and ring_snap is not None:
+            self.ring.restore(ring_snap)
+
+    def _refresh_dev_metrics(self) -> None:
+        """One host read of every state-derived counter."""
+        s = self._state
+        self._dev_metrics = dict(n_pending=int((s.pend_te != T_INF).sum()))
+
+    def metrics(self) -> Dict[str, Any]:
+        # an idle poll (nothing in flight, nothing deferred, the cache
+        # warm) reads nothing from the device
+        if self._inflight:
+            self._drain_inflight()
+        self._sync_counters()
+        if self._dev_metrics is None:
+            self._refresh_dev_metrics()
         cap, pend = self._capacities()
         out = dict(capacity=cap, pending_capacity=pend,
-                   n_pending=int((self._state.pend_te != T_INF).sum()),
                    steps=self.stats.steps,
                    host_syncs=self.stats.host_syncs,
-                   release_passes=self.stats.release_passes)
+                   release_passes=self.stats.release_passes,
+                   early_rejects=self.stats.early_rejects)
+        out.update(self._dev_metrics)
         if self.ring:
             out.update(ring_capacity=self.ring.capacity,
                        ring_staged=self.ring.count,
                        ring_wrapped=self.ring.wrapped)
         return out
+
+
+class _HostBackend(_BackendBase):
+    """The host (numpy) or list engine behind the same verbs.
+
+    Everything runs on the CPU: the engines are the reference's
+    host-side oracles, and a session runs them only when its config
+    names them.  Decisions come back as CPU tensors.
+    """
+
+    def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
+        super().__init__(cfg, counters)
+        self.engine = _make_engine(cfg.n_pe, cfg.engine,
+                                   **(cfg.engine_kwargs or {}))
+        self._completions: list = []     # heap of (t_e, seq, t_s, ids)
+        self._seq = 0
+        self._last_ta = 0                # arrival-order watermark
+
+    def _pes(self, ids):
+        return set(ids) if self.cfg.engine == "list" else list(ids)
+
+    def add_allocation(self, t_s, t_e, pes):
+        self.engine.add_allocation(t_s, t_e, self._pes(pes))
+
+    def delete_allocation(self, t_s, t_e, pes):
+        self.engine.delete_allocation(t_s, t_e, self._pes(pes))
+
+    def _release_due(self, t: int) -> int:
+        n = 0
+        while self._completions and self._completions[0][0] <= t:
+            t_e, _, t_s, ids = heapq.heappop(self._completions)
+            self.engine.delete_allocation(t_s, t_e, self._pes(ids))
+            n += 1
+        self.counters["released"] += n
+        return n
+
+    def offer(self, requests, *, policy, routing, flush) -> OfferResult:
+        if routing is not None:
+            raise ValueError("routing applies to partitioned sessions")
+        if not flush:
+            raise ValueError(
+                "flush=False staging is a ring-buffer (device session) "
+                "feature; host/list sessions decide every offer at once")
+        pol = self.resolve_policy(policy)
+        reqs = list(requests)
+        _check_demands(None, reqs)
+        batch_lib.check_arrival_order(reqs, self._last_ta)
+        self.counters["offered"] += len(reqs)
+        if not reqs:
+            return _empty_result()
+        W = words_lib.n_words(self.cfg.n_pe)
+        rows: List[Tuple] = []
+        allocs: List[Optional[Allocation]] = []
+        for req in reqs:
+            if self.cfg.auto_release:
+                self._release_due(req.t_a)
+            alloc = self.engine.find_allocation(req, pol, t_now=req.t_a)
+            allocs.append(alloc)
+            if alloc is None:
+                rows.append((False, -1, -1, np.zeros(W, np.uint32), 0, 0, 0))
+                continue
+            self.engine.add_allocation(alloc.t_s, alloc.t_e,
+                                       self._pes(alloc.pe_ids))
+            if self.cfg.auto_release:
+                heapq.heappush(self._completions,
+                               (alloc.t_e, self._seq, alloc.t_s,
+                                tuple(alloc.pe_ids)))
+                self._seq += 1
+            mask = np.zeros(W, np.uint32)
+            for i in alloc.pe_ids:
+                mask[i // 32] |= np.uint32(1 << (i % 32))
+            r = alloc.rectangle
+            rows.append((True, alloc.t_s, alloc.t_e, mask, r.n_free,
+                         r.t_begin, r.t_end))
+        self._last_ta = reqs[-1].t_a
+        self.counters["accepted"] += sum(a is not None for a in allocs)
+
+        def col(k):
+            return torch.tensor([r[k] for r in rows], dtype=torch.int32)
+
+        dec = Decision(
+            accepted=torch.tensor([r[0] for r in rows]),
+            t_s=col(1), t_e=col(2),
+            pe_mask=torch.from_numpy(words_lib.to_int32(
+                np.stack([r[3] for r in rows]))),
+            n_free=col(4), t_begin=col(5), t_end=col(6),
+            parked=torch.zeros(len(rows), dtype=torch.bool))
+        return OfferResult(decision=dec, valid=np.ones(len(reqs), bool),
+                           _allocations=allocs)
+
+    def tick(self, t: int) -> int:
+        if not self.cfg.auto_release:
+            return 0
+        return self._release_due(t)
+
+    def cancel(self, t_s, t_e, pe_ids, lane: int = 0) -> bool:
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
+        key = (t_s, t_e, tuple(pe_ids))
+        if self.cfg.auto_release:
+            match = [c for c in self._completions
+                     if (c[2], c[0], c[3]) == key]
+            if not match:
+                return False
+            self._completions.remove(match[0])
+            heapq.heapify(self._completions)
+        self.engine.delete_allocation(t_s, t_e, self._pes(pe_ids))
+        self.counters["cancelled"] += 1
+        return True
+
+    def snapshot(self):
+        return (copy.deepcopy(self.engine), list(self._completions),
+                self._seq, self._last_ta)
+
+    def restore(self, payload):
+        engine, completions, seq, last_ta = payload
+        self.engine = copy.deepcopy(engine)
+        self._completions = list(completions)
+        self._seq = seq
+        self._last_ta = last_ta
+
+    def metrics(self) -> Dict[str, Any]:
+        return dict(n_pending=len(self._completions))

@@ -16,7 +16,15 @@ state to the high-water marks and re-runs the batch from its start.
 Host syncs.  The release loop reads one flag per pass to learn whether
 another :data:`RELEASE_CHUNK` pass is due (the reference's
 ``while_loop``); a stream reads the batch to the host once and the
-overflow latch once per attempt.  :class:`StreamStats` counts them.
+overflow latch once per attempt.  On an indexed timeline the step also
+needs the early-reject predicate on the host (the reference's
+``lax.cond``); it is read in the same transfer as the release loop's
+last flag, so with ``auto_release`` it costs no read of its own.
+:class:`StreamStats` counts every read.
+
+No state tensor is ever written in place: every step builds new
+tensors, so a state that a caller keeps (the pre-chunk state of
+:func:`admit_stream_donated`, a session snapshot) stays valid.
 
 Multi-resource states (``state.rspec`` set) admit with the vector fit:
 each step hands its row of the batch's ``demand`` column (the
@@ -34,6 +42,7 @@ import torch
 
 from repro_torch.core import search as search_lib
 from repro_torch.core import timeline as tl_lib
+from repro_torch.core import words as words_lib
 from repro_torch.core.policies import first_true, policy_index
 from repro_torch.core.timeline import I32, SchedulerState
 from repro_torch.core.types import (
@@ -93,6 +102,12 @@ class StreamStats:
     host_syncs: int = 0      # reads of device values by the host
     release_passes: int = 0  # RELEASE_CHUNK passes (update_many calls)
     growths: int = 0         # overflow -> grow -> re-run cycles
+    early_rejects: int = 0   # steps the index proved infeasible
+    # with count_candidates, int64[2] on the device (never read here):
+    # live candidates the searches enumerated, and how many of them the
+    # index pruned
+    count_candidates: bool = False
+    candidates: Optional[torch.Tensor] = None
     capacity: int = 0        # timeline capacity of the last attempt
     pending_capacity: int = 0  # pending-buffer capacity of the last attempt
 
@@ -336,9 +351,47 @@ def _release_chunk(s: SchedulerState, t_now: int) -> SchedulerState:
 
 def _where_tl(pred, if_true: tl_lib.Timeline,
               if_false: tl_lib.Timeline) -> tl_lib.Timeline:
-    return tl_lib.Timeline(
-        times=torch.where(pred, if_true.times, if_false.times),
-        occ=torch.where(pred, if_true.occ, if_false.occ))
+    """Field-wise select of two timelines of one layout (index too)."""
+    return if_true._replace(**{
+        f: torch.where(pred, getattr(if_true, f), getattr(if_false, f))
+        for f in ("times", "occ", "idx_occ", "idx_minfree", "idx_maxfree")
+        if getattr(if_true, f) is not None})
+
+
+def _where_state(pred, if_true: SchedulerState,
+                 if_false: SchedulerState) -> SchedulerState:
+    """Field-wise select of two states of one layout."""
+    return if_true._replace(**{
+        f: (_where_tl if f == "tl" else torch.where)(
+            pred, getattr(if_true, f), getattr(if_false, f))
+        for f in _STEP_FIELDS})
+
+
+def _release_then(state: SchedulerState, t_now: int,
+                  stats: Optional[StreamStats], probe=None
+                  ) -> Tuple[SchedulerState, Optional[bool]]:
+    """:func:`release_due`, plus ``probe(state)`` read with its last flag.
+
+    ``probe`` maps the state to a 0-d bool on the device.  It is
+    computed with every "anything still due?" flag and read in the same
+    transfer; the reading that comes with the last flag (nothing due)
+    is of the released state, and is returned with it.
+    """
+    while True:
+        due = (state.pend_te <= t_now).any() & ~state.overflow
+        value = None
+        if probe is None:
+            due_h = bool(due)
+        else:
+            due_h, value = (bool(x) for x in
+                            torch.stack([due, probe(state)]).cpu())
+        if stats is not None:
+            stats.sync()
+        if not due_h:
+            return state, value
+        state = _release_chunk(state, t_now)
+        if stats is not None:
+            stats.release_passes += 1
 
 
 def release_due(state: SchedulerState, t_now: int,
@@ -349,15 +402,7 @@ def release_due(state: SchedulerState, t_now: int,
     them RELEASE_CHUNK at a time equals deleting them one by one.
     Each pass is preceded by one host read of "anything still due?".
     """
-    while True:
-        due = (state.pend_te <= t_now).any() & ~state.overflow
-        if stats is not None:
-            stats.sync()
-        if not bool(due):
-            return state
-        state = _release_chunk(state, t_now)
-        if stats is not None:
-            stats.release_passes += 1
+    return _release_then(state, t_now, stats)[0]
 
 
 # the fields an admit step may change (the layout fields stay)
@@ -371,51 +416,75 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
                 demand: Optional[torch.Tensor] = None
                 ) -> Tuple[SchedulerState, Decision]:
     t_a, t_r, t_du, t_dl, n_req = req
+    probe = None
+    if state.tl.ispec is not None:
+        def probe(s):
+            return search_lib.index_reject(
+                s.tl, t_r, t_du, t_dl, n_req, rspec=s.rspec,
+                demand_tail=demand, valid_mask=s.lane_valid)
+    reject = None
     if auto_release:
-        state = release_due(state, t_a, stats)
+        state, reject = _release_then(state, t_a, stats, probe)
+    elif probe is not None:
+        reject = bool(probe(state))
+        if stats is not None:
+            stats.sync()
     res = search_lib.search(state.tl, t_r, t_du, t_dl, n_req, policy_id,
                             t_a, n_pe=n_pe, use_kernel=use_kernel,
                             rspec=state.rspec, demand_tail=demand,
-                            valid_mask=state.lane_valid)
+                            valid_mask=state.lane_valid, reject=reject,
+                            stats=stats)
+    if reject:
+        # nothing is feasible: the commit below would select the old
+        # state in every field, so it is skipped
+        if stats is not None:
+            stats.early_rejects += 1
+        return state, _decision(res.found, res)
     # a win whose end reaches the horizon sentinel is rejected: the
     # update's T_INF guard would make its commit a silent no-op
     found = res.found & ~state.overflow & (res.t_e < T_INF)
     t_s, t_e, pe_mask = res.t_s, res.t_e, res.pe_mask
 
-    # ---- commit, computed unconditionally and selected by `found`
+    # ---- commit, computed unconditionally and selected by `found`;
+    # the pending-release slot only with auto_release, as in the
+    # reference (a caller that releases by hand keeps no ledger)
     s = state
     new_tl, ovf, n_keep = tl_lib.update(s.tl, t_s, t_e, pe_mask,
                                         is_add=True, with_count=True)
-    free = s.pend_te == T_INF
-    slot = first_true(free)
-    n_used = (~free).sum().to(I32) + 1
-    ovf = ovf | ~free.any()
-    wr = ~ovf
+    pend = {}
+    if auto_release:
+        free = s.pend_te == T_INF
+        slot = first_true(free)
+        ovf = ovf | ~free.any()
+        wr = ~ovf
 
-    def put(x, v):
-        y = x.index_put((slot.reshape(1),), v.reshape((1,) + x.shape[1:]))
-        return torch.where(wr, y, x)
+        def put(x, v):
+            y = x.index_put((slot.reshape(1),),
+                            v.reshape((1,) + x.shape[1:]))
+            return torch.where(wr, y, x)
 
+        pend = dict(pend_ts=put(s.pend_ts, t_s), pend_te=put(s.pend_te, t_e),
+                    pend_mask=put(s.pend_mask, pe_mask),
+                    hw_pending=torch.maximum(
+                        s.hw_pending, (~free).sum().to(I32) + 1))
     committed = s._replace(
         # an overflowing update returns a truncated timeline: keep the
         # pre-commit one so the re-run starts from consistent data
         tl=_where_tl(ovf, s.tl, new_tl),
-        pend_ts=put(s.pend_ts, t_s), pend_te=put(s.pend_te, t_e),
-        pend_mask=put(s.pend_mask, pe_mask),
         n_accepted=s.n_accepted + torch.where(ovf, 0, 1).to(I32),
         overflow=s.overflow | ovf,
-        hw_records=torch.maximum(s.hw_records, n_keep),
-        hw_pending=torch.maximum(s.hw_pending, n_used))
-    state = state._replace(**{
-        f: (_where_tl if f == "tl" else torch.where)(
-            found, getattr(committed, f), getattr(state, f))
-        for f in _STEP_FIELDS})
-    accepted = found & ~state.overflow
-    return state, Decision(
+        hw_records=torch.maximum(s.hw_records, n_keep), **pend)
+    state = _where_state(found, committed, state)
+    return state, _decision(found & ~state.overflow, res)
+
+
+def _decision(accepted: torch.Tensor,
+              res: search_lib.SearchResult) -> Decision:
+    return Decision(
         accepted=accepted,
-        t_s=torch.where(accepted, t_s, -1),
-        t_e=torch.where(accepted, t_e, -1),
-        pe_mask=torch.where(accepted, pe_mask, 0),
+        t_s=torch.where(accepted, res.t_s, -1),
+        t_e=torch.where(accepted, res.t_e, -1),
+        pe_mask=torch.where(accepted, res.pe_mask, 0),
         n_free=res.n_free, t_begin=res.t_begin, t_end=res.t_end,
         parked=torch.zeros_like(accepted))
 
@@ -481,8 +550,48 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
     return state, Decision(*(torch.stack(f) for f in zip(*decisions)))
 
 
+def admit_stream_donated(state: SchedulerState, batch: RequestBatch,
+                         policy, *, n_pe: int, auto_release: bool = True,
+                         use_kernel: bool = True,
+                         stats: Optional[StreamStats] = None
+                         ) -> Tuple[SchedulerState, Decision]:
+    """:func:`admit_stream` with the reference's latched rollback.
+
+    The reference donates the state's buffers to this call, so it
+    cannot re-run a batch from the caller's copy; PyTorch has no buffer
+    donation, and here every step builds new tensors instead, so the
+    input state stays valid.  What the function keeps is the protocol
+    the pipelined offer is built on, with no host read of the latch:
+
+    * a batch entered with ``overflow`` set returns its input state
+      unchanged (its decisions are garbage and must be discarded);
+    * a batch that overflows returns its input state, carrying the
+      latch and the run's high-water marks, so the caller can grow once
+      (:func:`grow_rollback`) and re-run it.
+    """
+    out, dec = admit_stream(state, batch, policy, n_pe=n_pe,
+                            auto_release=auto_release,
+                            use_kernel=use_kernel, stats=stats)
+    ovf = state.overflow | out.overflow
+    rolled = _where_state(ovf, state, out)
+    return rolled._replace(
+        overflow=ovf,
+        hw_records=torch.maximum(state.hw_records, out.hw_records),
+        hw_pending=torch.maximum(state.hw_pending, out.hw_pending)), dec
+
+
 class GrowthError(RuntimeError):
-    """Overflow with growth exhausted."""
+    """Overflow with growth exhausted or forbidden.
+
+    ``state``, when set, is the rolled-back pre-run state of an
+    :func:`admit_stream_donated` attempt (latched, with the failed
+    run's high-water marks); a caller that runs that protocol
+    reinstalls it, latch cleared, as the reference's service does.
+    """
+
+    def __init__(self, msg: str, state: Optional[SchedulerState] = None):
+        super().__init__(msg)
+        self.state = state
 
 
 def grown_capacities(state: SchedulerState, need_records: int,
@@ -515,23 +624,41 @@ def _grown(state: SchedulerState, run: SchedulerState,
                              new_pending_capacity=new_pend)
 
 
+def grow_rollback(state: SchedulerState,
+                  stats: Optional[StreamStats] = None) -> SchedulerState:
+    """Grow a rolled-back (latched) state and clear its latch.
+
+    An :func:`admit_stream_donated` overflow returns the pre-run state
+    carrying the failed run's high-water marks, so that state is its
+    own growth reference.
+    """
+    out = _grown(state, state, stats)
+    return out._replace(overflow=torch.zeros_like(out.overflow))
+
+
 def admit_stream_grow(state: SchedulerState, batch: RequestBatch, policy,
                       *, n_pe: int, auto_release: bool = True,
                       use_kernel: bool = True,
                       max_growths: int = MAX_DOUBLINGS,
-                      stats: Optional[StreamStats] = None
+                      stats: Optional[StreamStats] = None,
+                      donate: bool = False
                       ) -> Tuple[SchedulerState, Decision]:
     """:func:`admit_stream`, growing capacity on overflow.
 
     Each retry re-runs the whole batch from the (grown) pre-run state;
     padding never changes decisions, so the result equals a run that
     started with enough capacity.  ``max_growths=0`` forbids growth.
+    ``donate=True`` runs :func:`admit_stream_donated` (the reference's
+    donated path): retries grow the rolled-back state, and a terminal
+    overflow raises :class:`GrowthError` carrying it.  Decisions are
+    the same either way.
     """
+    fn = admit_stream_donated if donate else admit_stream
     start = state
     for attempt in range(max_growths + 1):
-        out, dec = admit_stream(start, batch, policy, n_pe=n_pe,
-                                auto_release=auto_release,
-                                use_kernel=use_kernel, stats=stats)
+        out, dec = fn(start, batch, policy, n_pe=n_pe,
+                      auto_release=auto_release, use_kernel=use_kernel,
+                      stats=stats)
         if stats is not None:
             stats.sync()
             stats.capacity = start.tl.capacity
@@ -539,12 +666,14 @@ def admit_stream_grow(state: SchedulerState, batch: RequestBatch, policy,
         if not bool(out.overflow):
             return out, dec
         if attempt < max_growths:
-            start = _grown(start, out, stats)
+            start = grow_rollback(out, stats) if donate \
+                else _grown(start, out, stats)
+    last = out if donate else start
     raise GrowthError(
         f"admit_stream still overflowing after {max_growths + 1} attempts "
-        f"(last tried capacity {start.tl.capacity}, pending "
-        f"{start.pending_capacity}; needed records {int(out.hw_records)}, "
-        f"pending {int(out.hw_pending)})")
+        f"(last tried capacity {last.tl.capacity}, pending "
+        f"{last.pending_capacity}; needed records {int(out.hw_records)}, "
+        f"pending {int(out.hw_pending)})", state=out if donate else None)
 
 
 def admit_one(state: SchedulerState, req: ARRequest, policy: Policy, *,
@@ -588,6 +717,151 @@ def release_until(state: SchedulerState, t_now: int, *,
     raise GrowthError(
         f"release_until still overflowing after {max_growths + 1} "
         f"attempts (last tried capacity {start.tl.capacity})")
+
+
+def cancel_step(state: SchedulerState, t_s: int, t_e: int,
+                mask: torch.Tensor, *, require_pending: bool = True
+                ) -> Tuple[SchedulerState, torch.Tensor]:
+    """Withdraw one committed reservation ``[t_s, t_e) x mask``.
+
+    Deletes it from the timeline and clears its pending-release slot.
+    With ``require_pending`` (auto-release sessions) a reservation that
+    is not pending (released, cancelled, never admitted) is a no-op
+    returning ``False``, so cancel is idempotent.  Overflow latches as
+    in :func:`admit`; :func:`cancel_one` grows and retries.  Returns the
+    new state and a 0-d bool on the device.
+    """
+    dev = state.pend_te.device
+    match = ((state.pend_ts == t_s) & (state.pend_te == t_e)
+             & (state.pend_mask == mask[None, :]).all(dim=1))
+    found = match.any()
+    ok = found if require_pending else torch.ones((), dtype=torch.bool,
+                                                  device=dev)
+    ok = ok & ~state.overflow
+    new_tl, ovf, n_keep = tl_lib.update(state.tl, t_s, t_e, mask,
+                                        is_add=False, with_count=True)
+    ovf = ovf & ok
+    do = ok & ~ovf
+    clear = match & (torch.cumsum(match, dim=0) == 1) & do  # first match
+    return state._replace(
+        tl=_where_tl(do, new_tl, state.tl),
+        pend_ts=torch.where(clear, T_INF, state.pend_ts),
+        pend_te=torch.where(clear, T_INF, state.pend_te),
+        pend_mask=torch.where(clear[:, None], 0, state.pend_mask),
+        overflow=state.overflow | ovf,
+        hw_records=torch.maximum(state.hw_records,
+                                 torch.where(ok, n_keep, 0))), do
+
+
+def cancel_one(state: SchedulerState, t_s: int, t_e: int,
+               mask: torch.Tensor, *, require_pending: bool = True,
+               max_growths: int = MAX_DOUBLINGS
+               ) -> Tuple[SchedulerState, bool]:
+    """:func:`cancel_step` with overflow growth; a host bool."""
+    start = state
+    for attempt in range(max_growths + 1):
+        out, done = cancel_step(start, t_s, t_e, mask,
+                                require_pending=require_pending)
+        if not bool(out.overflow):
+            return out, bool(done)
+        if attempt < max_growths:
+            start = _grown(start, out)
+    raise GrowthError(
+        f"cancel still overflowing after {max_growths + 1} attempts "
+        f"(last tried capacity {start.tl.capacity})")
+
+
+def cancel_many_step(state: SchedulerState, t_s: torch.Tensor,
+                     t_e: torch.Tensor, masks: torch.Tensor,
+                     active: torch.Tensor, *, require_pending: bool = True
+                     ) -> Tuple[SchedulerState, torch.Tensor]:
+    """Withdraw up to K committed reservations in one pass.
+
+    One ``timeline.update_many`` deletes every matched interval and
+    their pending slots clear together; cancellations of distinct
+    reservations commute, so this equals K sequential cancels (callers
+    must not repeat a reservation within one batch; :func:`cancel_many`
+    removes repeats).  Returns the new state and bool[K] outcomes.
+    """
+    K = t_s.shape[0]
+    P = state.pending_capacity
+    dev = state.pend_te.device
+    pmatch = ((state.pend_ts[None, :] == t_s[:, None])
+              & (state.pend_te[None, :] == t_e[:, None])
+              & (state.pend_mask[None, :, :] == masks[:, None, :]).all(
+                  dim=2))                                        # [K, P]
+    found = pmatch.any(dim=1)
+    ok = found if require_pending else torch.ones((K,), dtype=torch.bool,
+                                                  device=dev)
+    ok = ok & active & ~state.overflow
+    new_tl, ovf, n_keep = tl_lib.update_many(
+        state.tl, t_s, t_e, masks, ok, is_add=False, with_count=True)
+    do = ok & ~ovf
+    slot = pmatch.to(torch.int32).argmax(dim=1)                  # first
+    hit = torch.zeros((P + 1,), dtype=torch.bool, device=dev)
+    hit[torch.where(do & found, slot, P)] = True
+    clear = hit[:P]
+    return state._replace(
+        tl=_where_tl(ovf, state.tl, new_tl),
+        pend_ts=torch.where(clear, T_INF, state.pend_ts),
+        pend_te=torch.where(clear, T_INF, state.pend_te),
+        pend_mask=torch.where(clear[:, None], 0, state.pend_mask),
+        overflow=state.overflow | ovf,
+        hw_records=torch.maximum(state.hw_records, torch.where(
+            ok.any(), n_keep, 0))), do
+
+
+def cancel_many(state: SchedulerState, entries, *,
+                require_pending: bool = True,
+                max_growths: int = MAX_DOUBLINGS
+                ) -> Tuple[SchedulerState, List[bool]]:
+    """:func:`cancel_many_step` with overflow growth.
+
+    ``entries`` is a sequence of ``(t_s, t_e, mask)`` triples.  Under
+    ``require_pending`` a triple repeated within the batch is removed on
+    the host: its first occurrence cancels and the later ones report
+    ``False``, as sequential :func:`cancel_one` calls would.  With
+    ``require_pending=False`` cancels are blind deletes that report
+    ``True`` every time, so repeats stay (the batched AND-NOT union is
+    idempotent).  The batch pads to a power of two of inactive rows.
+    """
+    entries = list(entries)
+    if not entries:
+        return state, []
+    dev = state.pend_te.device
+    W = state.tl.words
+    masks_np = [words_lib.to_int32(np.asarray(
+        e[2].cpu().numpy() if isinstance(e[2], torch.Tensor) else e[2]
+    ).reshape(W)) for e in entries]
+    act = np.ones(len(entries), bool)
+    if require_pending:
+        seen = set()
+        for i, (ts, te, _) in enumerate(entries):
+            key = (int(ts), int(te), masks_np[i].tobytes())
+            act[i] = key not in seen
+            seen.add(key)
+    K = tl_lib.next_pow2(len(entries)) if len(entries) > 1 else 1
+    cols = np.zeros((3, K), np.int32)
+    cols[0, :len(entries)] = [int(e[0]) for e in entries]
+    cols[1, :len(entries)] = [int(e[1]) for e in entries]
+    cols[2, :len(entries)] = act
+    masks = np.zeros((K, W), np.int32)
+    masks[:len(entries)] = np.stack(masks_np)
+    c = torch.from_numpy(cols).to(dev)
+    t_s, t_e, active = c[0], c[1], c[2] > 0
+    masks_t = torch.from_numpy(masks).to(dev)
+    start = state
+    for attempt in range(max_growths + 1):
+        out, done = cancel_many_step(start, t_s, t_e, masks_t, active,
+                                     require_pending=require_pending)
+        if not bool(out.overflow):
+            return out, [bool(d) for d in
+                         done[:len(entries)].cpu().numpy()]
+        if attempt < max_growths:
+            start = _grown(start, out)
+    raise GrowthError(
+        f"cancel_many still overflowing after {max_growths + 1} attempts "
+        f"(last tried capacity {start.tl.capacity})")
 
 
 def mask32_to_ids(mask32) -> Tuple[int, ...]:

@@ -109,8 +109,11 @@ def _policy_primary(policy: Policy, n_free: np.ndarray,
 class HostScheduler:
     """Vectorised availability timeline + the three paper operations."""
 
-    def __init__(self, n_pe: int):
+    def __init__(self, n_pe: int, candidate_chunk: int = 128):
         self.n_pe = n_pe
+        # the reference's constructor knob (``engine_kwargs``); kept for
+        # its interface, the scan is vectorised over all candidates
+        self._chunk = candidate_chunk
         self.W = n_words(n_pe)
         self.times = np.zeros(0, dtype=np.int64)
         self.occ = np.zeros((0, self.W), dtype=np.uint64)
@@ -309,8 +312,8 @@ class MultiHostScheduler(HostScheduler):
     policies score the primary plane's count, as on the device.
     """
 
-    def __init__(self, rspec, live_units=None):
-        super().__init__(rspec.total_bits)
+    def __init__(self, rspec, live_units=None, candidate_chunk: int = 128):
+        super().__init__(rspec.total_bits, candidate_chunk=candidate_chunk)
         self.rspec = rspec
         valid = rspec.valid_bits_np(live_units)
         self._pe_mask = mask_from_ids(np.nonzero(valid)[0], rspec.total_bits)

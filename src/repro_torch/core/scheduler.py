@@ -1,22 +1,31 @@
-"""Engine facade: one API over the host and device engines.
+"""Engine facade: one API over the list, host and device engines.
 
-Both engines expose the paper's three operations (``add_allocation``,
-``delete_allocation``, ``find_allocation``).  :class:`DeviceEngine`
+All three expose the paper's three operations (``add_allocation``,
+``delete_allocation``, ``find_allocation``).  ``list`` (the literal
+``AvailRectList`` of :mod:`repro_torch.core.listsched`) and ``host``
+(the numpy engine of :mod:`repro_torch.core.hostsched`) run on the
+host, and only when a caller names them.  :class:`DeviceEngine`
 holds one :class:`~repro_torch.core.timeline.SchedulerState` on the
 card and adds the fused ``admit`` step and the ``admit_stream`` batch
 path of :mod:`repro_torch.core.batch`.  Capacity overflow grows the
 state to the needed record count and re-runs.  ``rspec`` makes the
 engine multi-resource: PE ids become global bit ids across planes, and
-requests carry their ``demand`` vectors.
+requests carry their ``demand`` vectors; ``index_tile`` attaches the
+availability index.
+
+``make_scheduler`` is the reference's deprecated factory, kept as a
+shim over the service API.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Union
 
 from repro_torch.core import batch as batch_lib
 from repro_torch.core import search as search_lib
 from repro_torch.core import timeline as tl_lib
 from repro_torch.core.hostsched import HostScheduler
+from repro_torch.core.listsched import ListScheduler
 from repro_torch.core.policies import policy_index
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
 from repro_torch.device import DeviceLike
@@ -28,7 +37,7 @@ class DeviceEngine:
     def __init__(self, n_pe: int, capacity: int = 256,
                  use_kernel: bool = True, pending_capacity: int = 256,
                  device: DeviceLike = None, *, rspec=None,
-                 live_units=None):
+                 live_units=None, index_tile: Optional[int] = None):
         self.n_pe = n_pe
         self.use_kernel = use_kernel
         # valid-record count for the search bucket; None = stale
@@ -36,7 +45,8 @@ class DeviceEngine:
         self._n_valid: Optional[int] = 0
         self.state = tl_lib.init_state(capacity, n_pe, pending_capacity,
                                        device=device, rspec=rspec,
-                                       live_units=live_units)
+                                       live_units=live_units,
+                                       index_tile=index_tile)
 
     @property
     def tl(self) -> tl_lib.Timeline:
@@ -72,15 +82,25 @@ class DeviceEngine:
 
         The search walks capacity-sized tensors; searching the prefix
         cuts that work when the timeline is mostly empty (padding rows
-        never change a decision).
+        never change a decision).  With the index, a prefix that is a
+        whole number of tiles keeps the prefix of the summaries (they
+        summarise the same rows); a shorter one is searched without the
+        index, which decides the same.
         """
         if self._n_valid is None:
             self._n_valid = int(self.tl.n_valid())
         k = 16
         while k < self._n_valid:
             k *= 2
-        k = min(k, self.tl.capacity)
-        return tl_lib.Timeline(times=self.tl.times[:k], occ=self.tl.occ[:k])
+        tl = self.tl
+        k = min(k, tl.capacity)
+        view = tl_lib.Timeline(times=tl.times[:k], occ=tl.occ[:k])
+        if tl.ispec is None or k % tl.ispec.tile:
+            return view
+        nt = k // tl.ispec.tile
+        return view._replace(idx_occ=tl.idx_occ[:nt],
+                             idx_minfree=tl.idx_minfree[:nt],
+                             idx_maxfree=tl.idx_maxfree[:nt], ispec=tl.ispec)
 
     # -- the three operations ------------------------------------------
     def add_allocation(self, t_s: int, t_e: int, pes) -> None:
@@ -144,6 +164,7 @@ class DeviceEngine:
 
 
 ENGINES = {
+    "list": ListScheduler,
     "host": HostScheduler,
     "device": DeviceEngine,
 }
@@ -157,3 +178,23 @@ def _make_engine(n_pe: int, engine: str = "device", **kwargs):
         raise ValueError(
             f"unknown engine {engine!r}; pick one of {sorted(ENGINES)}")
     return cls(n_pe, **kwargs)
+
+
+def make_scheduler(n_pe: int, engine: str = "device", **kwargs):
+    """Deprecated factory over the three engines.
+
+    ``ReservationService(ServiceConfig(n_pe=..., engine=...)).session()
+    .engine`` is the same engine object, and the session adds the
+    streaming verbs.  ``engine="device"`` (the default) takes the
+    device engine's knobs (``capacity``, ``pending_capacity``,
+    ``use_kernel``, ``device``; ``device=None`` is cuda), the host
+    engines their constructor's.
+    """
+    warnings.warn(
+        "make_scheduler is deprecated: use repro_torch.api."
+        "ReservationService(ServiceConfig(n_pe=..., engine=..., ...))"
+        ".session() (session.engine is the raw engine object)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import ReservationService, ServiceConfig
+    cfg = ServiceConfig.from_engine_kwargs(n_pe, engine, **kwargs)
+    return ReservationService(cfg).session().engine

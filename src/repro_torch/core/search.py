@@ -13,6 +13,17 @@ plane fits its ``demand_tail`` entry; the policies keep scoring plane
 0's free count, and the winning mask takes units on every plane.
 ``valid_mask`` (the lane's live units, default the spec's full layout)
 carries heterogeneous machine sizes.
+
+An indexed timeline (``tl.ispec`` set) adds two conservative fast
+paths from :mod:`repro_torch.core.availindex`: :func:`summary_reject`
+proves a whole request infeasible, and the search then reports the
+rejected result without enumerating candidates (the rectangle it
+reports is one kernel call); :func:`prune_candidates` masks provably
+infeasible candidates to ``T_INF`` on the kernel path.  Neither changes
+a decision.  The reject predicate is a device value the host must read
+to branch on; the admit step reads it together with the release
+check's last flag (:mod:`repro_torch.core.batch`), other callers pay
+one read here.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import availindex as idx_lib
 from repro_torch.core import policies as policies_lib
 from repro_torch.core import resources as res_lib
 from repro_torch.core import timeline as tl_lib
@@ -151,22 +163,163 @@ def _winning_mask_mr(tl: Timeline, t_s: torch.Tensor, t_du: int,
     return words_lib.pack_bits(sel.to(torch.int32)[None, :])[0]
 
 
+def _index_demand(ispec, n_req: int, demand_tail: Optional[torch.Tensor],
+                  device: torch.device) -> torch.Tensor:
+    """int32[R]: the request's demand on every plane, for the bounds."""
+    head = torch.full((1,), int(n_req), dtype=torch.int32, device=device)
+    if ispec.R == 1:
+        return head
+    if demand_tail is None:
+        return torch.cat([head, torch.zeros((ispec.R - 1,),
+                                            dtype=torch.int32,
+                                            device=device)])
+    return torch.cat([head, demand_tail.to(torch.int32)])
+
+
+def summary_reject(tl: Timeline, t_r: int, t_du: int, t_dl: int,
+                   demand: torch.Tensor, deficit: torch.Tensor
+                   ) -> torch.Tensor:
+    """Conservative proof that no window ``[s, s + t_du)`` with ``s`` in
+    ``[t_r, t_dl - t_du]`` is feasible (a 0-d bool on the device).
+
+    Two proofs: some plane demands more units than the lane has; or,
+    with ``t_r >= times[0]`` (every window start then lies inside some
+    record's interval), every tile intersecting ``[t_r, t_dl)`` has a
+    plane whose ``maxfree - deficit`` is below the demand, since a
+    window's free count never exceeds a covering row's.  An empty
+    timeline, or a window reaching past the last record (whose all-free
+    row summarises to ``maxfree == units``), never rejects.
+    """
+    ispec = tl.ispec
+    S, T = tl.capacity, ispec.tile
+    NT = S // T
+    units = idx_lib.units_on(ispec, tl.device)
+    lo, hi, dl = int(t_r), int(t_dl) - int(t_du), int(t_dl)
+    cap_reject = (demand > units - deficit).any()
+    if hi < lo:
+        return cap_reject
+    tile_t0 = tl.times.reshape(NT, T)[:, 0]
+    tile_end = torch.cat([tile_t0[1:], tile_t0.new_full((1,), T_INF)])
+    intersect = (tile_t0 < dl) & (tile_end > lo)
+    bad = (tl.idx_maxfree - deficit[None, :] < demand[None, :]).any(dim=1)
+    tile_reject = ((tl.times[0] <= lo) & intersect.any()
+                   & (~intersect | bad).all())
+    return cap_reject | tile_reject
+
+
+def prune_candidates(tl: Timeline, starts: torch.Tensor, t_du: int,
+                     demand: torch.Tensor, deficit: torch.Tensor
+                     ) -> torch.Tensor:
+    """Mask summary-infeasible candidates to the ``T_INF`` sentinel.
+
+    A window that fully contains tile ``k`` has at most
+    ``idx_minfree[k] - deficit`` free units per plane; if that is below
+    the demand on some plane for any contained tile, the candidate is
+    truly infeasible and could never win.  Candidate 0 (the one the
+    rejected result reports when nothing is feasible) is never pruned.
+    """
+    ispec = tl.ispec
+    S, T = tl.capacity, ispec.tile
+    NT = S // T
+    a = starts.clamp(max=T_INF - int(t_du))
+    b = a + int(t_du)
+    tile_last = tl.times.reshape(NT, T)[:, -1]
+    tile_nxt0 = tl_lib.next_times(tl).reshape(NT, T)[:, 0]
+    contained = ((tile_last[None, :] < b[:, None])
+                 & (tile_nxt0[None, :] > a[:, None]))             # [P, NT]
+    bad = (tl.idx_minfree - deficit[None, :] < demand[None, :]).any(dim=1)
+    prune = (contained & bad[None, :]).any(dim=1)
+    prune[0] = False
+    return torch.where(prune, T_INF, starts)
+
+
+def _index_args(tl: Timeline, n_req: int, rspec,
+                demand_tail: Optional[torch.Tensor],
+                valid_mask: Optional[torch.Tensor]):
+    """The index bounds' demand vector and per-plane deficit."""
+    demand = _index_demand(tl.ispec, n_req, demand_tail, tl.device)
+    deficit = idx_lib.plane_deficit(
+        tl.ispec, valid_mask if rspec is not None else None, tl.device)
+    return demand, deficit
+
+
+def index_reject(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,
+                 *, rspec=None, demand_tail: Optional[torch.Tensor] = None,
+                 valid_mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """:func:`summary_reject` of a request on an indexed timeline (a
+    0-d bool on the device, not read here)."""
+    if rspec is not None and valid_mask is None:
+        valid_mask = res_lib.device_layout(rspec, tl.device).valid_mask
+    demand, deficit = _index_args(tl, n_req, rspec, demand_tail, valid_mask)
+    return summary_reject(tl, t_r, t_du, t_dl, demand, deficit)
+
+
+def _rejected(tl: Timeline, t_r: int, t_du: int, t_dl: int, t_now: int,
+              n_pe: int, rspec, valid_mask) -> SearchResult:
+    """The result of a search over an all-infeasible candidate set.
+
+    Selection then names index 0, whose start is the smallest live
+    candidate ``min(t_r, t_dl - t_du)``; its rectangle comes from the
+    kernel-backed :func:`repro_torch.kernels.ops.availability_rectangles`
+    (one candidate).
+    """
+    from repro_torch.kernels import ops as kernel_ops
+    s0 = min(int(t_r), int(t_dl) - int(t_du))
+    starts0 = torch.full((1,), s0, dtype=torch.int32, device=tl.device)
+    rects = kernel_ops.availability_rectangles(
+        tl, starts0, t_du, t_now, n_pe, rspec=rspec, valid_mask=valid_mask)
+    return SearchResult(
+        found=torch.zeros((), dtype=torch.bool, device=tl.device),
+        t_s=starts0[0], t_e=starts0[0] + int(t_du),
+        pe_mask=torch.zeros((tl.words,), dtype=torch.int32,
+                            device=tl.device),
+        n_free=rects.n_free[0], t_begin=rects.t_begin[0],
+        t_end=rects.t_end[0])
+
+
 def search(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,
            policy_id: int, t_now: int, *, n_pe: int,
            use_kernel: bool = True, rspec=None,
            demand_tail: Optional[torch.Tensor] = None,
-           valid_mask: Optional[torch.Tensor] = None) -> SearchResult:
+           valid_mask: Optional[torch.Tensor] = None,
+           reject: Optional[bool] = None, stats=None) -> SearchResult:
     """Full Algorithm 3: candidates -> rectangles -> policy -> PE pick.
 
     With ``rspec``, ``demand_tail`` (int32[R-1] on the timeline's
     device, default zeros) and ``valid_mask`` (int32[W], default every
-    unit live) feed the vector fit.
+    unit live) feed the vector fit.  On an indexed timeline ``reject``
+    is the caller's host reading of :func:`index_reject` for this
+    request; ``None`` computes and reads it here (one host sync,
+    counted in ``stats``, a :class:`~repro_torch.core.batch.StreamStats`).
     """
     if rspec is not None:
         lay = res_lib.device_layout(rspec, tl.device)
         valid_mask = lay.valid_mask if valid_mask is None else valid_mask
         demand_tail = lay.zero_tail if demand_tail is None else demand_tail
+    if tl.ispec is not None:
+        if reject is None:
+            reject = bool(index_reject(
+                tl, t_r, t_du, t_dl, n_req, rspec=rspec,
+                demand_tail=demand_tail, valid_mask=valid_mask))
+            if stats is not None:
+                stats.sync()
+        if reject:
+            return _rejected(tl, t_r, t_du, t_dl, t_now, n_pe, rspec,
+                             valid_mask)
     starts = candidate_starts(tl, t_r, t_du, t_dl)
+    if tl.ispec is not None and use_kernel:
+        # pruned starts become T_INF holes the kernels skip; the plain
+        # path scores every slot anyway, so it is left unpruned
+        pruned = prune_candidates(tl, starts, t_du, *_index_args(
+            tl, n_req, rspec, demand_tail, valid_mask))
+        if stats is not None and stats.count_candidates:
+            live = torch.stack([(starts < T_INF).sum(),
+                                (pruned == T_INF).sum()
+                                - (starts == T_INF).sum()])
+            stats.candidates = live if stats.candidates is None \
+                else stats.candidates + live
+        starts = pruned
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
         # fused rectangles + selection: the per-candidate vectors never

@@ -19,8 +19,14 @@ Invariants (kept by ``update``):
     after the last valid boundary is empty, as is every padding row;
   * bits past ``n_pe`` are never set.
 
+An indexed timeline (``ispec`` set) carries the availability index of
+:mod:`repro_torch.core.availindex`: three summary tensors that every
+update recomputes from the post-update rows, so they always equal
+``availindex.build_summaries`` of the current records.
+
 Every function is a plain function of tensors that returns new
-tensors; none of them reads a value back to the host.
+tensors; none of them reads a value back to the host, and none writes
+into a tensor it was given.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import availindex as idx_lib
 from repro_torch.core import words as words_lib
 from repro_torch.core.types import T_INF
 from repro_torch.core.words import n_words, pack_bits, unpack_bits
@@ -64,10 +71,17 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class Timeline(NamedTuple):
-    """Fixed-capacity availability timeline."""
+    """Fixed-capacity availability timeline.
+
+    The index fields are ``None`` on a timeline without the index.
+    """
 
     times: torch.Tensor  # int32[S]
     occ: torch.Tensor    # int32[S, W]
+    idx_occ: Optional[torch.Tensor] = None      # int32[S/T, W]
+    idx_minfree: Optional[torch.Tensor] = None  # int32[S/T, R]
+    idx_maxfree: Optional[torch.Tensor] = None  # int32[S/T, R]
+    ispec: Optional[Any] = None                 # IndexSpec
 
     @property
     def capacity(self) -> int:
@@ -120,36 +134,58 @@ class SchedulerState(NamedTuple):
 
 
 def empty(capacity: int, n_pe: int, device: DeviceLike = None,
-          words: Optional[int] = None) -> Timeline:
+          words: Optional[int] = None, ispec=None) -> Timeline:
     """All-free timeline of ``capacity`` records.
 
     ``words`` overrides the word width (multi-resource layouts pass
-    ``rspec.total_words``).
+    ``rspec.total_words``); ``ispec`` attaches the availability index.
     """
     dev = resolve_device(device)
     W = n_words(n_pe) if words is None else words
-    return Timeline(
+    out = Timeline(
         times=torch.full((capacity,), T_INF, dtype=I32, device=dev),
         occ=torch.zeros((capacity, W), dtype=I32, device=dev))
+    if ispec is None:
+        return out
+    if ispec.total_words != W:
+        raise ValueError(
+            f"ispec covers {ispec.total_words} words, timeline has {W}")
+    i_occ, i_min, i_max = idx_lib.empty_summaries(capacity, ispec, dev)
+    return out._replace(idx_occ=i_occ, idx_minfree=i_min,
+                        idx_maxfree=i_max, ispec=ispec)
+
+
+def _reindex(tl: Timeline, ispec) -> Timeline:
+    """The index of ``tl``'s rows, recomputed (``ispec=None``: none)."""
+    if ispec is None:
+        return tl
+    i_occ, i_min, i_max = idx_lib.build_summaries(tl.times, tl.occ, ispec)
+    return tl._replace(idx_occ=i_occ, idx_minfree=i_min, idx_maxfree=i_max,
+                       ispec=ispec)
 
 
 def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
                device: DeviceLike = None, *, rspec=None,
-               live_units: Optional[Sequence[int]] = None
-               ) -> SchedulerState:
+               live_units: Optional[Sequence[int]] = None,
+               index_tile: Optional[int] = None) -> SchedulerState:
     """Fresh all-free scheduler state on ``device`` (``None``: cuda).
 
     ``rspec`` (a :class:`~repro_torch.core.resources.ResourceSpec` with
     ``units[0] == n_pe``) switches to the multi-resource layout: the
     occupancy and every reservation mask widen to ``rspec.total_words``
     words, and ``live_units`` optionally shrinks this lane's live units
-    per plane (heterogeneous machine sizes).
+    per plane (heterogeneous machine sizes).  ``index_tile`` (a power
+    of two dividing ``capacity``) attaches the availability index.
     """
     if rspec is not None and rspec.n_pe != n_pe:
         raise ValueError(
             f"rspec.units[0]={rspec.n_pe} must equal n_pe={n_pe}")
     if live_units is not None and rspec is None:
         raise ValueError("live_units requires rspec")
+    ispec = None
+    if index_tile is not None:
+        ispec = idx_lib.make_index_spec(index_tile, n_pe, rspec)
+        ispec.n_tiles(capacity)   # validates divisibility
     dev = resolve_device(device)
     W = n_words(n_pe) if rspec is None else rspec.total_words
     lane_valid = None
@@ -161,7 +197,7 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
         return torch.zeros((), dtype=I32, device=dev)
 
     return SchedulerState(
-        tl=empty(capacity, n_pe, dev, words=W),
+        tl=empty(capacity, n_pe, dev, words=W, ispec=ispec),
         pend_ts=torch.full((pending_capacity,), T_INF, dtype=I32,
                            device=dev),
         pend_te=torch.full((pending_capacity,), T_INF, dtype=I32,
@@ -175,15 +211,16 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
 
 
 def grow(tl: Timeline, new_capacity: int) -> Timeline:
-    """Capacity growth: padding rows never change decisions."""
+    """Capacity growth: padding rows never change decisions.  An
+    attached index is rebuilt at the new tile count."""
     if new_capacity < tl.capacity:
         raise ValueError(f"cannot shrink {tl.capacity} -> {new_capacity}")
     pad = new_capacity - tl.capacity
-    return Timeline(
+    return _reindex(Timeline(
         times=torch.cat([tl.times, torch.full(
             (pad,), T_INF, dtype=I32, device=tl.device)]),
         occ=torch.cat([tl.occ, torch.zeros(
-            (pad, tl.words), dtype=I32, device=tl.device)]))
+            (pad, tl.words), dtype=I32, device=tl.device)])), tl.ispec)
 
 
 def grow_state(state: SchedulerState,
@@ -257,9 +294,10 @@ def next_times(tl: Timeline) -> torch.Tensor:
         (1,), T_INF, dtype=I32, device=tl.device)])
 
 
-def _merge_compact(ext_t: torch.Tensor, ext_o: torch.Tensor, S: int
-                   ) -> Tuple[Timeline, torch.Tensor, torch.Tensor]:
-    """Shared epilogue of every update: merge + scatter-compact.
+def _merge_compact(ext_t: torch.Tensor, ext_o: torch.Tensor, S: int,
+                   ispec=None) -> Tuple[Timeline, torch.Tensor, torch.Tensor]:
+    """Shared epilogue of every update: merge + scatter-compact, then
+    the index of the result (with ``ispec``).
 
     ``ext_t``/``ext_o`` are the time-sorted extended rows, already
     range-updated.  A row survives when its occupancy differs from its
@@ -280,8 +318,8 @@ def _merge_compact(ext_t: torch.Tensor, ext_o: torch.Tensor, S: int
     out_o[dest] = torch.where(keep[:, None], ext_o, 0)
     n_keep = keep.sum().to(I32)
     overflow = n_keep > S
-    return (Timeline(times=out_t[:S], occ=out_o[:S].contiguous()),
-            overflow, n_keep)
+    out = Timeline(times=out_t[:S], occ=out_o[:S].contiguous())
+    return _reindex(out, ispec), overflow, n_keep
 
 
 def _range_update(ext_t, ext_o, t_s, t_e, mask, is_add):
@@ -335,7 +373,7 @@ def update(tl: Timeline, t_s: Scalar, t_e: Scalar, mask: torch.Tensor,
         torch.where((idx == pos_e)[:, None],
                     occupancy_at(tl, t_e)[None, :], tl.occ[src]))
     ext_o = _range_update(ext_t, ext_o, t_s, t_e, mask, is_add)
-    return _finish(*_merge_compact(ext_t, ext_o, S), with_count)
+    return _finish(*_merge_compact(ext_t, ext_o, S, tl.ispec), with_count)
 
 
 def update_lexsort(tl: Timeline, t_s: Scalar, t_e: Scalar,
@@ -358,7 +396,7 @@ def update_lexsort(tl: Timeline, t_s: Scalar, t_e: Scalar,
     perm = torch.sort(ext_t, stable=True).indices
     ext_t, ext_o = ext_t[perm], ext_o[perm]
     ext_o = _range_update(ext_t, ext_o, t_s, t_e, mask, is_add)
-    return _finish(*_merge_compact(ext_t, ext_o, S), with_count)
+    return _finish(*_merge_compact(ext_t, ext_o, S, tl.ispec), with_count)
 
 
 def update_many(tl: Timeline, t_s: torch.Tensor, t_e: torch.Tensor,
@@ -401,7 +439,7 @@ def update_many(tl: Timeline, t_s: torch.Tensor, t_e: torch.Tensor,
     union = words_lib.or_reduce(
         torch.where(cover[:, :, None], masks[None, :, :], 0), dim=1)
     ext_o = ext_o | union if is_add else ext_o & ~union
-    return _finish(*_merge_compact(ext_t, ext_o, S), with_count)
+    return _finish(*_merge_compact(ext_t, ext_o, S, tl.ispec), with_count)
 
 
 def window_busy(tl: Timeline, a: Scalar, b: Scalar) -> torch.Tensor:
@@ -411,8 +449,10 @@ def window_busy(tl: Timeline, a: Scalar, b: Scalar) -> torch.Tensor:
 
 
 def from_host(times: np.ndarray, occ64: np.ndarray, n_pe: int,
-              capacity: int, device: DeviceLike = None) -> Timeline:
-    """Timeline from the host engine's sorted records (uint64 rows)."""
+              capacity: int, device: DeviceLike = None,
+              ispec=None) -> Timeline:
+    """Timeline from the host engine's sorted records (uint64 rows);
+    ``ispec`` builds its availability index."""
     S = times.shape[0]
     if S > capacity:
         raise ValueError(
@@ -424,8 +464,9 @@ def from_host(times: np.ndarray, occ64: np.ndarray, n_pe: int,
     t = np.full(capacity, T_INF, dtype=np.int32)
     t[:S] = times
     dev = resolve_device(device)
-    return Timeline(times=torch.from_numpy(t).to(dev),
-                    occ=torch.from_numpy(words_lib.to_int32(rows)).to(dev))
+    return _reindex(Timeline(
+        times=torch.from_numpy(t).to(dev),
+        occ=torch.from_numpy(words_lib.to_int32(rows)).to(dev)), ispec)
 
 
 _SCALARS = ("n_accepted", "n_released", "hw_records", "hw_pending")
@@ -436,7 +477,8 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
 
     Occupancy and masks come back as ``uint32`` like the reference's
     ``SchedulerState``; scalars as 0-d arrays.  Multi-resource states
-    add ``lane_valid`` (uint32).
+    add ``lane_valid`` (uint32), indexed ones the three summaries
+    (``idx_occ`` as uint32).
     """
     out = {
         "times": state.tl.times.cpu().numpy(),
@@ -451,23 +493,33 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
     if state.lane_valid is not None:
         out["lane_valid"] = words_lib.to_uint32(
             state.lane_valid.cpu().numpy())
+    tl = state.tl
+    if tl.ispec is not None:
+        out["idx_occ"] = words_lib.to_uint32(tl.idx_occ.cpu().numpy())
+        out["idx_minfree"] = tl.idx_minfree.cpu().numpy()
+        out["idx_maxfree"] = tl.idx_maxfree.cpu().numpy()
     return out
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], *,
                      device: DeviceLike = None,
-                     rspec=None) -> SchedulerState:
+                     rspec=None, ispec=None) -> SchedulerState:
     """Inverse of :func:`state_to_numpy`.
 
     Takes the arrays of a reference ``SchedulerState`` (``times``,
     ``occ`` as uint32, ``pend_ts``, ``pend_te``, ``pend_mask``, the
     counters, ``overflow`` and the ``hw_*`` marks), so a half-run
     state can cross from the JAX package to the port.  A multi-resource
-    state also needs ``lane_valid`` and its ``rspec``.
+    state also needs ``lane_valid`` and its ``rspec``; an indexed one
+    ``idx_occ`` (uint32), ``idx_minfree``, ``idx_maxfree`` and its
+    ``ispec`` (an :class:`~repro_torch.core.availindex.IndexSpec`).
     """
     if (rspec is None) != (arrays.get("lane_valid") is None):
         raise ValueError("a multi-resource state needs both rspec and "
                          "lane_valid; a plain one neither")
+    if (ispec is None) != (arrays.get("idx_occ") is None):
+        raise ValueError("an indexed state needs both ispec and the "
+                         "idx_* summaries; a plain one neither")
     dev = resolve_device(device)
 
     def i32(name):
@@ -478,8 +530,13 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
         return torch.from_numpy(
             words_lib.to_int32(np.asarray(arrays[name]))).to(dev)
 
+    tl = Timeline(times=i32("times"), occ=words("occ"))
+    if ispec is not None:
+        tl = tl._replace(idx_occ=words("idx_occ"),
+                         idx_minfree=i32("idx_minfree"),
+                         idx_maxfree=i32("idx_maxfree"), ispec=ispec)
     return SchedulerState(
-        tl=Timeline(times=i32("times"), occ=words("occ")),
+        tl=tl,
         pend_ts=i32("pend_ts"), pend_te=i32("pend_te"),
         pend_mask=words("pend_mask"),
         overflow=torch.from_numpy(

@@ -14,7 +14,10 @@ combines one row per block:
 * :func:`infeasible_case`: nothing is feasible and the candidates
   before ``first_live`` are dead, so the lowest live index must win;
 * :func:`many_tiles_case`: random starts with dead holes over many
-  blocks (and many 128-candidate Pallas tiles).
+  blocks (and many 128-candidate Pallas tiles);
+* :func:`pruned_cases`: the candidate arrays the availability index's
+  pruning hands the kernels (dead holes in the middle, index 0 always
+  live), and the one-candidate arrays of the early reject.
 
 Each case is a :class:`SelectCase` for one :class:`ResourceSpec`
 layout (R = 1 is ``ResourceSpec((n_pe,))``).
@@ -183,3 +186,67 @@ def seam_cases(rng, spec: ResourceSpec, live, capacity: int,
                   infeasible_case(rng, spec, live, capacity, P, fl),
                   many_tiles_case(rng, spec, live, capacity, P)]
     return cases
+
+
+#: 128-candidate tiles of the reference's Pallas kernels
+PALLAS_TILE = 128
+
+
+def _feasible_request(rng, spec: ResourceSpec, live):
+    """A request of a fraction of the machine on every plane."""
+    n0 = _live_plane0(spec, live)
+    return (int(rng.integers(1, max(2, n0 // 3))),
+            tuple(int(rng.integers(0, u // 3 + 1)) for u in spec.units[1:]))
+
+
+def pruned_cases(rng, spec: ResourceSpec, live, capacity: int
+                 ) -> List[SelectCase]:
+    """Candidate arrays with the holes that index pruning leaves.
+
+    Sorted distinct starts over the timeline's span, ``P = 2S + 2``
+    (the search's shape), then masked to ``T_INF`` the way
+    ``search.prune_candidates`` masks them, index 0 always live:
+
+    * ``holes``: 40 % dead in the middle of the array;
+    * ``seam``: indices 1 .. 127 dead, so the first live one after
+      index 0 opens the second 128-candidate tile (P >= 129);
+    * ``only 0``: every candidate but index 0 dead, once with a request
+      index 0 can hold and once with one it cannot;
+    * ``one``: a single candidate (``P = 1``), the early reject's
+      rectangle query, feasible and not.
+    """
+    times, occ = random_timeline(rng, spec, live, capacity, 0.5)
+    span = int(times[times < T_INF][-1])
+    P = 2 * capacity + 2
+    t_du = int(rng.integers(1, 400))
+    n_req, tail = _feasible_request(rng, spec, live)
+    n0 = _live_plane0(spec, live)
+    out: List[SelectCase] = []
+
+    def case(label, starts, n_req=n_req, tail=tail):
+        out.append(SelectCase(
+            label=f"pruned {label} P={starts.shape[0]}", times=times,
+            occ=occ, starts=starts.astype(np.int32), t_du=t_du,
+            t_now=int(rng.integers(0, max(1, span // 4))), n_req=n_req,
+            demand_tail=tail))
+
+    base = np.sort(rng.choice(span + 1, size=min(P, span + 1),
+                              replace=False))
+    base = np.concatenate([base, np.full(P - base.shape[0], T_INF)])
+    holes = base.copy()
+    dead = rng.random(P) < 0.4
+    dead[0] = False
+    holes[dead] = T_INF
+    case("holes", holes)
+    if P > PALLAS_TILE:
+        seam = base.copy()
+        seam[1:PALLAS_TILE] = T_INF
+        case("seam", seam)
+    only0 = np.full(P, T_INF)
+    only0[0] = base[0]
+    case("only 0", only0)
+    case("only 0 infeasible", only0, n_req=n0 + 1)
+    one = base[:1].copy()
+    case("one", one)
+    case("one infeasible", one, n_req=n0 + 1)
+    return out

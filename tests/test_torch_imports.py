@@ -98,12 +98,37 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: ReservationService(ServiceConfig(
             n_pe=8, resources=(8, 2))).session(),
         lambda: scheduler.DeviceEngine(8, rspec=ResourceSpec((8, 2))),
+        lambda: timeline.init_state(16, 8, index_tile=8),
+        lambda: scheduler.DeviceEngine(8, index_tile=8),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, index_tile=16)).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, donate=False)).session(),
+        lambda: simulate_batched([job], 8, Policy.FF, index_tile=16),
+        lambda: simulate_batched([job], 8, Policy.FF,
+                                 cross_check_engine="list"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(RuntimeError, match="no CUDA device"):
+        scheduler.make_scheduler(8)
     # asking for the CPU works
     assert timeline.init_state(16, 8, device="cpu").tl.capacity == 16
+
+
+def test_host_engines_run_only_when_named():
+    """``engine="host"`` / ``"list"`` are the reference's CPU engines,
+    picked explicitly; nothing else reaches them."""
+    job = ARRequest(0, 0, 5, 10, 1)
+    for engine in ("host", "list"):
+        s = ReservationService(ServiceConfig(n_pe=8, engine=engine)).session()
+        assert s.offer([job]).n_accepted == 1
+        assert type(s.engine) is scheduler.ENGINES[engine]
+        assert simulate([job], 8, Policy.FF, engine=engine).n_accepted == 1
+    assert ServiceConfig(n_pe=8).engine == "device"
+    assert set(scheduler.ENGINES) == {"list", "host", "device"}
 
 
 def test_kernel_wrappers_never_fall_back():

@@ -4,8 +4,12 @@ One-shot and chunked sessions (ring wrap, ``flush=False`` staging, a
 final partial chunk of filler, growth inside a chunk, ``tick``) on
 plain, multi-resource and heterogeneous-lane configs: the same
 allocations, records and counters as ``repro.api`` with the same
-config.  Plus ``ServiceConfig`` validation, the settings the port
-does not run yet, and demand checks that reject before any mutation.
+config, on the eager chunk loop (``donate=False``) and on the pipelined
+one (``donate=True``, the default), terminal growth failure included.
+Then ``cancel`` / ``cancel_many``, ``snapshot`` / ``restore``, the host
+and list engines, ``metrics()``, ``ServiceConfig`` validation, the
+settings the port does not run yet, and demand checks that reject
+before any mutation.
 """
 import dataclasses
 import random
@@ -14,8 +18,10 @@ import pytest
 
 from repro.api import ReservationService as RefService
 from repro.api import ServiceConfig as RefConfig
+from repro.core import batch as ref_batch
 from repro.core.types import ARRequest as RefRequest
 from repro_torch.api import ReservationService, ServiceConfig
+from repro_torch.api import service as pt_service
 from repro_torch.core import batch as pt_batch
 from repro_torch.core.types import ARRequest, Policy
 
@@ -48,15 +54,16 @@ def _ref(jobs):
                        demand=j.demand) for j in jobs]
 
 
-def _sessions(**kw):
+def _sessions(donate=False, **kw):
     """The port's session and the reference's with the same config.
 
-    The reference runs its eager chunk loop (``donate=False``), the one
-    the port has; its pipelined loop makes the same decisions but counts
-    a growth found while replaying a chunk once more.
+    ``donate`` picks the chunk loop of both: eager (``False``) or
+    pipelined (``True``).  They decide the same, but the pipelined loop
+    counts a growth found while replaying a chunk once more.
     """
-    ours = ReservationService(ServiceConfig(device="cpu", **kw)).session()
-    theirs = RefService(RefConfig(donate=False, **kw)).session()
+    ours = ReservationService(ServiceConfig(device="cpu", donate=donate,
+                                            **kw)).session()
+    theirs = RefService(RefConfig(donate=donate, **kw)).session()
     return ours, theirs
 
 
@@ -249,8 +256,7 @@ def test_config_validation_matches_reference(kw):
 @pytest.mark.parametrize("kw,item", [
     (dict(lanes=2), "A12"), (dict(n_partitions=2), "A15"),
     (dict(backfill="easy"), "A11"), (dict(backfill="conservative"), "A11"),
-    (dict(tenants=object()), "A14"), (dict(index_tile=16), "A10"),
-    (dict(engine="host"), "A9"), (dict(engine="list"), "A9"),
+    (dict(tenants=object()), "A14"),
     (dict(lanes=2, machine_sizes=(8, 6)), "A12"),
 ])
 def test_settings_not_ported_yet_raise(kw, item):
@@ -272,6 +278,225 @@ def test_config_properties_match_reference():
         assert ours.backfilling == theirs.backfilling
         assert ours.replace(capacity=64).capacity == 64
     assert ServiceConfig(n_pe=8, policy="PEDu_B").policy is Policy.PEDU_B
-    for gone in ("donate", "placement"):
-        with pytest.raises(TypeError):
-            ServiceConfig(n_pe=8, **{gone: None})
+    assert ServiceConfig(n_pe=8).donate is RefConfig(n_pe=8).donate is True
+    for kw in (dict(index_tile=16), dict(engine="host"),
+               dict(engine="list", engine_kwargs=None)):
+        assert ServiceConfig(n_pe=8, **kw).replace() == ServiceConfig(
+            n_pe=8, **kw)
+    with pytest.raises(TypeError):
+        ServiceConfig(n_pe=8, placement=None)
+
+
+def _ring_rows(ring):
+    """The staged requests of a ring, oldest first."""
+    return [tuple(int(ring._buf[f][(ring._head + i) % ring.capacity])
+                  for f in ring._fields) for i in range(ring.count)]
+
+
+@pytest.mark.parametrize("name", ["plain", "r4_heterogeneous"])
+def test_pipelined_session_matches_reference_pipelined(name):
+    """``donate=True`` on both: deferred results, growth found while
+    replaying a chunk, and the counters of the reference's pipelined
+    loop (not its eager one)."""
+    kw = CONFIGS[name]
+    units = kw.get("resources", (kw["n_pe"],))
+    jobs = _jobs(110, units, seed=5)
+    ours, theirs = _sessions(donate=True, chunk_size=8, ring_capacity=16,
+                             capacity=4, pending_capacity=4, **kw)
+    cuts = [0, 13, 30, 57, 70, 101, 110]
+    pending = []
+    for k, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+        piece = jobs[lo:hi]
+        pending.append((ours.offer(piece, flush=k % 2 == 1),
+                        theirs.offer(_ref(piece), flush=k % 2 == 1)))
+        if k % 2:
+            # two offers in flight: one host read settles both unless
+            # a latch was set (then the replay reads as the eager path)
+            assert len(ours._backend._inflight) == 2
+            syncs = ours._backend.stats.host_syncs
+            growths = ours._backend.counters["growths"]
+            for res, ref_res in pending:
+                _assert_same(ours, theirs, res, ref_res)
+            assert not ours._backend._inflight
+            if ours._backend.counters["growths"] == growths:
+                assert ours._backend.stats.host_syncs == syncs + 1
+            pending = []
+            _assert_metrics(ours, theirs)
+    _assert_same(ours, theirs, ours.flush(), theirs.flush())
+    m = ours.metrics()
+    assert m["growths"] >= 2 and m["ring_wrapped"]
+    _assert_metrics(ours, theirs)
+
+
+def test_pipelined_and_eager_count_growths_as_the_reference_does():
+    """The same stream on both loops of both packages: equal decisions,
+    and each loop's growth count equals the reference's for that loop."""
+    jobs = _jobs(90, (32,), seed=11)
+    got = {}
+    for donate in (False, True):
+        ours, theirs = _sessions(donate=donate, n_pe=32, chunk_size=8,
+                                 ring_capacity=64, capacity=2,
+                                 pending_capacity=2)
+        res, ref_res = ours.offer(jobs), theirs.offer(_ref(jobs))
+        _assert_same(ours, theirs, res, ref_res)
+        _assert_metrics(ours, theirs)
+        got[donate] = (_alloc_tuples(res), ours.metrics()["growths"])
+    assert got[False][0] == got[True][0]
+
+
+def test_pipelined_terminal_growth_error_restages_the_ring():
+    """Growth runs out while the drain replays: the error surfaces on
+    the first result read, the earlier offer stands, and the undecided
+    requests are back in the ring in the reference's order."""
+    jobs = [ARRequest(i, i, 5000, i + 5000, 1) for i in range(30)]
+    kw = dict(n_pe=64, capacity=4, pending_capacity=4, max_growths=1,
+              chunk_size=16, ring_capacity=64)
+    ours, theirs = _sessions(donate=True, **kw)
+    first = (ours.offer(jobs[:2]), theirs.offer(_ref(jobs[:2])))
+    second = (ours.offer(jobs[2:], flush=False),
+              theirs.offer(_ref(jobs[2:]), flush=False))
+    with pytest.raises(pt_batch.GrowthError, match="overflowing"):
+        second[0].allocations()
+    with pytest.raises(ref_batch.GrowthError, match="overflowing"):
+        second[1].allocations()
+    assert _alloc_tuples(first[0]) == _alloc_tuples(first[1])
+    assert len(_alloc_tuples(first[0])) == 2
+    assert _alloc_tuples(second[0]) == _alloc_tuples(second[1]) == []
+    ring, ref_ring = ours._backend.ring, theirs._backend.ring
+    assert _ring_rows(ring) == _ring_rows(ref_ring)
+    assert len(_ring_rows(ring)) == 28
+    assert ring.last_popped_t_a == ref_ring.last_popped_t_a
+    assert ours.records() == theirs.records()
+    _assert_metrics(ours, theirs)
+    # the session stays usable on the rolled-back state
+    assert ours.tick(10**6) == theirs.tick(10**6)
+    assert ours.records() == theirs.records()
+
+
+def test_cancel_and_cancel_many_match_reference():
+    jobs = _jobs(40, (32,), seed=3)
+    for auto_release in (True, False):
+        ours, theirs = _sessions(n_pe=32, chunk_size=None,
+                                 auto_release=auto_release)
+        # allocations still pending at the end of the offer
+        last = jobs[-1].t_a
+        allocs = [a for a in ours.offer(jobs).allocations()
+                  if a and a.t_e > last]
+        ref_allocs = [a for a in theirs.offer(_ref(jobs)).allocations()
+                      if a and a.t_e > last]
+        assert len(allocs) == len(ref_allocs) >= 4
+        # one cancel, then the same again (idempotent under auto-release)
+        for _ in range(2):
+            assert ours.cancel(allocs[0]) == theirs.cancel(ref_allocs[0])
+        assert ours.cancel(t_s=1, t_e=2, pe_ids=[0]) == theirs.cancel(
+            t_s=1, t_e=2, pe_ids=[0])
+        # a batch with a duplicate and an already cancelled one
+        picks = [1, 2, 1, 0, 3]
+        got = ours.cancel_many([allocs[i] for i in picks])
+        want = theirs.cancel_many([ref_allocs[i] for i in picks])
+        assert got == want
+        if auto_release:
+            assert got == [True, True, False, False, True]
+        assert ours.records() == theirs.records()
+        _assert_metrics(ours, theirs)
+        assert ours.metrics()["cancelled"] == theirs.metrics()["cancelled"]
+        # the freed room is used again as the reference uses it
+        more = [ARRequest(j.t_a + 400, j.t_r + 400, j.t_du, j.t_dl + 400,
+                          j.n_pe) for j in jobs[:10]]
+        _assert_same(ours, theirs, ours.offer(more),
+                     theirs.offer(_ref(more)))
+    with pytest.raises(ValueError, match="cancel needs"):
+        ours.cancel(t_s=1)
+    with pytest.raises(ValueError, match="ensemble"):
+        ours.cancel(allocs[0], lane=1)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_snapshot_restore_round_trip(donate):
+    """Restore rewinds decisions, records, counters and the ring; later
+    offers go down the eager path until the next admission, as in the
+    reference."""
+    jobs = _jobs(60, (32, 4), seed=8)
+    ours, theirs = _sessions(donate=donate, n_pe=32, resources=(32, 4),
+                             chunk_size=8, ring_capacity=32, capacity=4)
+    _assert_same(ours, theirs, ours.offer(jobs[:20], flush=False),
+                 theirs.offer(_ref(jobs[:20]), flush=False))
+    snap, ref_snap = ours.snapshot(), theirs.snapshot()
+    first = _alloc_tuples(ours.offer(jobs[20:45]))
+    assert first == _alloc_tuples(theirs.offer(_ref(jobs[20:45])))
+    before = ours.metrics()
+    ours.restore(snap)
+    theirs.restore(ref_snap)
+    assert ours._backend._retained and theirs._backend._retained
+    _assert_metrics(ours, theirs)
+    assert ours.metrics()["offered"] == 20 < before["offered"]
+    again = ours.offer(jobs[20:45])
+    assert not ours._backend._inflight       # eager after a restore
+    assert _alloc_tuples(again) == first
+    _assert_same(ours, theirs, again, theirs.offer(_ref(jobs[20:45])))
+    _assert_same(ours, theirs, ours.offer(jobs[45:]),
+                 theirs.offer(_ref(jobs[45:])))
+    _assert_metrics(ours, theirs)
+
+
+@pytest.mark.parametrize("engine", ["host", "list"])
+def test_host_and_list_sessions_match_device_and_reference(engine):
+    jobs = _jobs(50, (24,), seed=4)
+    host = ReservationService(ServiceConfig(
+        n_pe=24, engine=engine)).session()
+    ref = RefService(RefConfig(n_pe=24, engine=engine)).session()
+    dev, _ = _sessions(n_pe=24, chunk_size=None)
+    results = [(s.offer(jobs[:30]), s) for s in (host, ref, dev)]
+    tuples = [_alloc_tuples(r) for r, _ in results]
+    assert tuples[0] == tuples[1] == tuples[2]
+    assert host.records() == ref.records() == dev.records()
+    res = results[0][0]
+    assert res.n_accepted == results[2][0].n_accepted
+    # the host decision rows equal the device session's
+    for f in ("accepted", "t_s", "t_e", "pe_mask", "n_free"):
+        got = getattr(res.decision, f)
+        want = getattr(results[2][0].decision, f)
+        acc = want.new_ones(want.shape[0], dtype=bool) if f != "n_free" \
+            else results[2][0].decision.accepted
+        assert (got[acc] == want[acc]).all(), f
+    t = jobs[30].t_a
+    assert host.tick(t) == ref.tick(t) == dev.tick(t)
+    a = next(x for x in res.allocations() if x is not None)
+    assert host.cancel(a) == ref.cancel(a) == dev.cancel(a)
+    assert host.cancel(a) == ref.cancel(a) == dev.cancel(a) is False
+    snap = host.snapshot()
+    out = [_alloc_tuples(s.offer(jobs[30:])) for s in (host, ref, dev)]
+    assert out[0] == out[1] == out[2]
+    for k in ("offered", "accepted", "cancelled", "n_pending"):
+        assert host.metrics()[k] == ref.metrics()[k] == dev.metrics()[k], k
+    # host sessions count the releases inside an offer too, as the
+    # reference's do; device sessions count those of tick only
+    assert host.metrics()["released"] == ref.metrics()["released"]
+    host.restore(snap)
+    assert _alloc_tuples(host.offer(jobs[30:])) == out[0]
+    with pytest.raises(ValueError, match="ring-buffer"):
+        host.offer(jobs[:1], flush=False)
+    with pytest.raises(TypeError):
+        ReservationService(ServiceConfig(
+            n_pe=8, engine=engine, engine_kwargs={"nope": 1})).session()
+
+
+def test_metrics_match_reference_and_an_idle_poll_reads_nothing(monkeypatch):
+    jobs = _jobs(40, (32,), seed=6)
+    ours, theirs = _sessions(donate=True, n_pe=32, chunk_size=8,
+                             index_tile=8, capacity=16)
+    res, ref_res = ours.offer(jobs), theirs.offer(_ref(jobs))
+    _assert_metrics(ours, theirs)
+    _assert_same(ours, theirs, res, ref_res)
+    reads = []
+    real = pt_service._StreamBackend._refresh_dev_metrics
+    monkeypatch.setattr(pt_service._StreamBackend, "_refresh_dev_metrics",
+                        lambda self: reads.append(1) or real(self))
+    syncs = ours._backend.stats.host_syncs
+    m1, m2 = ours.metrics(), ours.metrics()
+    assert m1 == m2 and not reads
+    assert ours._backend.stats.host_syncs == syncs
+    assert ours.tick(jobs[-1].t_a + 10**4) == theirs.tick(
+        jobs[-1].t_a + 10**4)
+    assert ours.metrics()["n_pending"] == 0 and reads == [1]
+    _assert_metrics(ours, theirs)
