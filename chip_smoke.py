@@ -14,11 +14,16 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    output, over random timelines (n_pe in {1024, 1000, 2048, 64},
    capacity in {128, 1024, 4096}, all seven policies) and the edge
    cases (empty timeline, dead candidates, an infeasible request, a
-   window at the horizon), on both of the select kernel's branches
+   window at the horizon, no blocking record in 2,000), on both of the
+   select kernel's branches
    (live records in shared memory, and over its budget in global
-   memory); times both at the paper's shape, fails unless each call is
-   one kernel on the card (profiler), and times an empty kernel of the
-   same library at the select kernel's launch shape (the launch floor);
+   memory); ``availscan`` in both modes on each input (all candidates,
+   and at P = 1 on the first, middle and last start: the rectangle mode
+   on a one-candidate tensor, the one-window kernel through
+   ``availscan_one``);
+   times both at the paper's shape, fails unless each call is one
+   kernel on the card (profiler), and times an empty kernel of the same
+   library at the launch shape (the launch floor);
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
    ``WorkloadParams(n_jobs=2000, seed=0)``, PE_W; the paper's 10,000
    jobs with ``--n-jobs 10000``, cut by default to keep the run short
@@ -33,7 +38,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    seed=11)`` (the reference's test uses 1500; cut for time): PE_W's
    acceptance within 0.01 of the best, FF the lowest slowdown;
 5. multi-resource kernel phase (after phase 2): holds ``availscan_mr``
-   and ``availscan_select_mr`` against their plain versions, exact, on
+   (both modes, as in phase 2) and ``availscan_select_mr`` against
+   their plain versions, exact, on
    the layouts (1024,), (1024,) with 1000 live PEs, (64, 8, 4, 16),
    (1024, 128, 64, 256) and (2048, 14336) (512 words) at capacities
    128, 1024 and 4096, all seven policies, demand tails of zero, half
@@ -52,8 +58,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 5c. pruned starts (after phase 5b): all four kernels against their plain
    versions on the candidate arrays of ``cases.pruned_cases`` (dead
    holes mid-array, index 0 live then dead to past the first
-   128-candidate tile, only index 0 live, P = 1) at 1024 PEs and the
-   R = 4 layout; with nothing feasible every select must name index 0;
+   128-candidate tile, only index 0 live, P = 1), the rectangle kernels
+   in both modes, at 1024 PEs and the R = 4 layout; with nothing
+   feasible every select must name index 0;
 3b. the availability index (after phase 3): ``simulate_batched(...,
    index_tile=16, cross_check=True)`` on the main path's jobs, decisions
    held against the host loop and the main path's index-free run, one
@@ -62,10 +69,14 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    the reference's saturated stream (``benchmarks/bench_index.py``)
    scaled to 1024 PEs at capacity 256 with tile 32 and without the
    index: every Decision field equal, at least 90 % of the 480 probes
-   early-rejected, each one ``availscan`` kernel on the card
-   (profiler); then the same stream stamped with the R = 4 demands
-   against ``MultiResourceOracle``, one ``availscan_mr`` launch per
-   early reject;
+   early-rejected, each one one-window ``availscan`` kernel on the card
+   (profiler), device operations per probe step; then the same stream
+   stamped with the R = 4 demands against ``MultiResourceOracle``, one
+   one-window ``availscan_mr`` kernel per early reject; on each
+   stream's timeline the early reject's kernel at P = 1 is held against
+   its plain version at all 480 probe starts and timed (per call, on the
+   card, launch floor at one block, bound, resources), and so is the
+   whole early reject (``search._rejected``, one kernel a call);
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
    chunk_size=64, ring_capacity=256))`` on the 10,000-job paper stream
@@ -97,6 +108,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -126,11 +138,6 @@ MR_LAYOUTS = (((1024,), None), ((1024,), (1000,)), ((64, 8, 4, 16), None),
 MR_CAPACITIES = (128, 1024, 4096)
 # back-to-back calls of each select kernel, each with another P
 N_REPEAT = 1000
-
-
-def _nullcontext():
-    import contextlib
-    return contextlib.nullcontext()
 
 
 def fail(msg: str) -> None:
@@ -163,35 +170,57 @@ def random_timeline_mr(rng, spec, live, capacity: int, fill: float):
     return cases.random_timeline(rng, spec, live, capacity, fill)
 
 
-def scan_work(times, occ, starts, t_du) -> tuple:
-    """(bytes, word ops) this input needs.
-
-    Bytes: what the scan reads, once each: the occupancy rows of the
-    live records (padding rows are never read), the live times and the
-    padding sentinel that stops the right scan, every candidate start.
-    Word ops: the OR over each live window's records, its popcount, and
-    the AND tests of the outward scans up to the first blocking record.
-    """
+def _touched(times, occ, starts, t_du, free_of):
+    """The occupancy words the rectangles of these starts need, counted
+    once each, and per live candidate ``(window rows, free words, rows
+    scanned left, rows scanned right)``: every word of the overlapping
+    records [lo, hi), and of the records the outward scans test up to
+    the first blocking one on each side only the words that hold free
+    units (``free_of(busy)`` gives the free words): a record can block
+    only there."""
     W = occ.shape[1]
     t64 = times.astype(np.int64)
     n_valid = int((times < T_INF).sum())
-    ops = 0
+    need = np.zeros(occ.shape, bool)
+    per = []
     for s in starts[starts < T_INF].astype(np.int64):
         a = min(int(s), T_INF - t_du)
         b = a + t_du
-        # overlapping records [lo, hi), as the kernel finds them
+        # overlapping records [lo, hi), as the kernels find them
         lo = max(int(np.searchsorted(t64, a, side="right")) - 1, 0)
         hi = int(np.searchsorted(t64, b, side="left"))
         busy = np.bitwise_or.reduce(occ[lo:hi], axis=0) if hi > lo \
             else np.zeros(W, np.uint32)
-        blocking = ((occ[:n_valid] & ~busy) != 0).any(axis=1)
+        free = free_of(busy)
+        nz = free != 0
+        blocking = ((occ[:n_valid] & free) != 0).any(axis=1)
         left = np.nonzero(blocking[:lo])[0]
         right = np.nonzero(blocking[hi:])[0]
-        n_left = lo - int(left[-1]) if left.size else lo
-        n_right = int(right[0]) + 1 if right.size else n_valid - hi
-        ops += W * ((hi - lo) + 1 + 2 * (n_left + n_right))
-    n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
-                   + starts.size)
+        k_left = int(left[-1]) if left.size else 0
+        k_right = hi + int(right[0]) + 1 if right.size else n_valid
+        need[lo:hi] = True
+        need[k_left:lo] |= nz
+        need[hi:k_right] |= nz
+        per.append((hi - lo, int(nz.sum()), lo - k_left,
+                    max(k_right - hi, 0)))
+    return int(need.sum()), per, n_valid
+
+
+def scan_work(times, occ, starts, t_du) -> tuple:
+    """(bytes, word ops) this input needs.
+
+    Bytes: what the scan reads, once each: the occupancy words the
+    candidates' windows and outward scans need (:func:`_touched`), the
+    live times and the padding sentinel that stops the right scan, every
+    candidate start.  Word ops: the OR over each live window's records,
+    its popcount, and the AND tests of the outward scans on the free
+    words up to the first blocking record.
+    """
+    W = occ.shape[1]
+    n_need, per, n_valid = _touched(times, occ, starts, t_du, lambda b: ~b)
+    ops = sum(W * (n_win + 1) + 2 * n_free * (n_l + n_r)
+              for n_win, n_free, n_l, n_r in per)
+    n_bytes = 4 * (n_need + min(n_valid + 1, times.size) + starts.size)
     return n_bytes, ops
 
 
@@ -204,24 +233,11 @@ def scan_work_mr(times, occ, starts, t_du, valid, n_planes) -> tuple:
     per-plane add of every word and the demand compares.
     """
     W = occ.shape[1]
-    t64 = times.astype(np.int64)
-    n_valid = int((times < T_INF).sum())
-    ops = 0
-    for s in starts[starts < T_INF].astype(np.int64):
-        a = min(int(s), T_INF - t_du)
-        b = a + t_du
-        lo = max(int(np.searchsorted(t64, a, side="right")) - 1, 0)
-        hi = int(np.searchsorted(t64, b, side="left"))
-        busy = np.bitwise_or.reduce(occ[lo:hi], axis=0) if hi > lo \
-            else np.zeros(W, np.uint32)
-        free = ~busy & valid
-        blocking = ((occ[:n_valid] & free) != 0).any(axis=1)
-        left = np.nonzero(blocking[:lo])[0]
-        right = np.nonzero(blocking[hi:])[0]
-        n_left = lo - int(left[-1]) if left.size else lo
-        n_right = int(right[0]) + 1 if right.size else n_valid - hi
-        ops += W * ((hi - lo) + 3 + 2 * (n_left + n_right)) + n_planes - 1
-    n_bytes = 4 * (n_valid * W + min(n_valid + 1, times.size)
+    n_need, per, n_valid = _touched(times, occ, starts, t_du,
+                                    lambda b: ~b & valid)
+    ops = sum(W * (n_win + 3) + 2 * n_free * (n_l + n_r) + n_planes - 1
+              for n_win, n_free, n_l, n_r in per)
+    n_bytes = 4 * (n_need + min(n_valid + 1, times.size)
                    + starts.size + 2 * W + n_planes - 1)
     return n_bytes, ops
 
@@ -267,33 +283,71 @@ def cuda_time_ms(fn, reps: int, rounds: int = 7) -> float:
     return float(np.median(per_call))
 
 
+# Under the profiler the first few device events of a window can go
+# missing: on some hosts its first 3-7, whatever the time since the
+# window opened (the kernels under test when they came first, else
+# empty kernels launched ahead of them), none on others.  So a counted
+# window starts the tracer in a discarded warmup step of the profiler's
+# schedule, opens with a burst of empty kernels of the library (not
+# counted) that takes that loss, and closes with three more and a pause.
+PROFILE_OPEN_KERNELS = 32
+PROFILE_EDGE_S = 0.02
+
+
+def profile_edge(n_kernels: int = 3) -> None:
+    """``n_kernels`` empty kernels, a sync and a pause: the edge of a
+    profiled window."""
+    import torch
+    from repro_torch.kernels import build
+    lib = build.load()
+    for _ in range(n_kernels):
+        lib.availscan_empty(1, 32, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_EDGE_S)
+
+
+@contextlib.contextmanager
+def profiled_window():
+    """A ``torch.profiler`` window over the card whose tracer already
+    runs when it opens (a discarded warmup step first), opened by
+    ``PROFILE_OPEN_KERNELS`` empty kernels and closed by three."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    prof.start()
+    try:
+        profile_edge()
+        prof.step()
+        profile_edge(PROFILE_OPEN_KERNELS)
+        yield prof
+        torch.cuda.synchronize()
+        profile_edge()
+    finally:
+        prof.stop()
+
+
+def profiled_events(prof) -> list:
+    """The device operations a :func:`profiled_window` saw, its own empty
+    kernels left out."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0
+            and "empty_kernel" not in e.key]
+
+
 def device_profile(fn, reps: int = 50):
     """``(ms, kernels, names)``: kernel time on the card per call (the
     sum of every kernel's self device time, None if the profiler saw
-    none), the kernels the card ran per call, and their names.  The
-    profiler can miss the first kernel of its window, so the window
-    opens with three launches of the library's empty kernel, which are
-    not counted."""
+    none), the kernels the card ran per call, and their names, over one
+    :func:`profiled_window`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
-    lib = build.load()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            lib.availscan_empty(1, 32, torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
+    with profiled_window() as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0)) > 0
-              and "empty_kernel" not in e.key]
-    total_us = sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-                   for e in events)
+    events = profiled_events(prof)
+    total_us = sum(e.self_device_time_total for e in events)
     return (total_us / reps / 1e3 if total_us > 0 else None,
             sum(e.count for e in events) / reps, sorted(e.key for e in events))
 
@@ -349,25 +403,71 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-# the select kernels' variants at the paper's shapes: R = 1 on 32 words
-# (one word a lane), the session's multi-resource layout on 46 (two)
-SELECT_VARIANTS = {"availscan_select": "availscan_select_kernelILi1ELb0E",
-                   "availscan_select_mr": "availscan_select_kernelILi2ELb1E"}
+# each kernel's variant at the paper's shapes: R = 1 on 32 words (one
+# word a lane), the session's multi-resource layout on 46 (two).  The
+# many-candidate mode is the select body, in rectangle mode (kRects) for
+# the rectangle kernels; their one-window mode (the early reject's entry)
+# is its own kernel.
+VARIANTS = {"availscan_select": "availscan_select_kernelILi1ELb0ELb0E",
+            "availscan_select_mr": "availscan_select_kernelILi2ELb1ELb0E",
+            "availscan": "availscan_select_kernelILi1ELb0ELb1E",
+            "availscan_mr": "availscan_select_kernelILi2ELb1ELb1E"}
+ONE_VARIANTS = {"availscan": "availscan_one_kernelILi1ELb0E",
+                "availscan_mr": "availscan_one_kernelILi2ELb1E"}
+
+
+def _report_of(report: dict, variant: str) -> dict:
+    hit = [v for k, v in report.items() if variant in k]
+    if not hit:
+        fail(f"no ptxas report for {variant}")
+    return hit[0]
 
 
 def select_resources(report: dict, name: str, S: int, W: int) -> dict:
-    """Registers, shared memory and spills of a select kernel's variant
-    at S x W, from the ptxas report."""
+    """Registers, shared memory and spills of the many-candidate body's
+    variant for ``name`` at S x W, from the ptxas report."""
     from repro_torch.kernels import build
-    lib = build.load()
-    hit = [v for k, v in report.items() if SELECT_VARIANTS[name] in k]
-    if not hit:
-        fail(f"no ptxas report for {SELECT_VARIANTS[name]}")
-    rows = lib.availscan_smem_rows(S, W)
-    return dict(registers=hit[0].get("registers"),
-                smem_static_bytes=hit[0].get("smem_static"),
+    hit = _report_of(report, VARIANTS[name])
+    rows = build.load().availscan_smem_rows(S, W)
+    return dict(registers=hit.get("registers"),
+                smem_static_bytes=hit.get("smem_static"),
                 smem_dynamic_bytes=(rows * (W + 1) + 1) * 4,
-                spill_bytes=hit[0].get("spill_bytes"))
+                spill_bytes=hit.get("spill_bytes"))
+
+
+def one_resources(report: dict, name: str) -> dict:
+    """The same for the one-window kernel of ``name`` (no dynamic shared
+    memory)."""
+    hit = _report_of(report, ONE_VARIANTS[name])
+    return dict(registers=hit.get("registers"),
+                smem_static_bytes=hit.get("smem_static"),
+                smem_dynamic_bytes=0, spill_bytes=hit.get("spill_bytes"))
+
+
+def _flat(x):
+    import torch
+    if isinstance(x, tuple):
+        return torch.cat([t.reshape(-1) for t in x])
+    return x
+
+
+def check_windows(label: str, starts, rects, rects_ref, one, one_ref) -> None:
+    """A rectangle kernel at P = 1 against its plain version, exact, on
+    the first, middle and last candidates of ``starts``: the rectangle
+    mode on a one-candidate starts tensor (``rects``), and the one-window
+    mode through the early reject's entry with the start as a host
+    integer (``one``)."""
+    import torch
+    P = starts.shape[0]
+    for i in sorted({0, P // 2, P - 1}):
+        st = starts[i:i + 1]
+        s = int(st[0])
+        for mode, g, w in (("P = 1", rects(st), rects_ref(st)),
+                           ("one", one(s), one_ref(s))):
+            if not torch.equal(_flat(g), _flat(w)):
+                fail(f"{label}: P = 1 ({mode}) differs at start "
+                     f"{s}: {_flat(g).tolist()[:8]} vs "
+                     f"{_flat(w).tolist()[:8]}")
 
 
 def launch_floor(P: int) -> dict:
@@ -398,12 +498,23 @@ def launch_floor(P: int) -> dict:
                 grid=blocks, block_threads=threads)
 
 
+DESIGNS = {
+    "availscan_select": "one launch, shared-memory staging",
+    "availscan_select_mr": "one launch, shared-memory staging",
+    "availscan": "starts tensor: the select body in rectangle mode; "
+                 "early reject: one block on one window",
+    "availscan_mr": "starts tensor: the select body in rectangle mode; "
+                    "early reject: one block on one window"}
+
+
 def kernel_phase(rng, dev, report: dict) -> dict:
     import torch
     from repro_torch.core import search as search_lib
+    from repro_torch.core.resources import ResourceSpec
     from repro_torch.core.timeline import Timeline
     from repro_torch.core.words import to_int32
     from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import cases
     from repro_torch.kernels import ref as R
 
     n_checked = 0
@@ -424,6 +535,12 @@ def kernel_phase(rng, dev, report: dict) -> dict:
                 bad = (g != w).nonzero()[:5, 0].tolist()
                 fail(f"availscan {name} differs ({label}) at {bad}: "
                      f"{g[bad].tolist()} vs {w[bad].tolist()}")
+        check_windows(
+            f"availscan {label}", starts,
+            lambda st: K.availscan(times, occ, st, t_du, t_now, n_pe),
+            lambda st: R.availscan_ref(times, occ, st, t_du, t_now, n_pe),
+            lambda x: K.availscan_one(times, occ, x, t_du, t_now, n_pe),
+            lambda x: R.availscan_one_ref(times, occ, x, t_du, t_now, n_pe))
         for pid in policies:
             g = K.availscan_select(times, occ, starts, t_du, t_now, n_req,
                                    pid, n_pe)
@@ -473,10 +590,14 @@ def kernel_phase(rng, dev, report: dict) -> dict:
         check_case(times_np, occ_np,
                    [int(live[-1]), T_INF - 10, T_INF - 1, T_INF - 3000],
                    5000, 0, n_pe, 1, all_pol, "window at the horizon")
+        far_t, far_o = cases.no_blocking_timeline(ResourceSpec((n_pe,)),
+                                                  4096, 2000)
+        check_case(far_t, far_o, [int(far_t[1000]), 7, int(far_t[10]), T_INF],
+                   2, -5, n_pe, 1, all_pol, "no blocking record in 2,000")
     if not all(branches.values()):
         fail(f"the R = 1 cases missed a select branch: {branches}")
-    print(f"kernel phase: {n_checked} cases exact (each: availscan + "
-          f"availscan_select x policies); select branches: "
+    print(f"kernel phase: {n_checked} cases exact (each: availscan in both "
+          f"modes + availscan_select x policies); select branches: "
           f"{branches['shared']} shared-memory, {branches['global']} "
           f"global-memory (live records over the budget)")
 
@@ -528,26 +649,32 @@ def kernel_phase(rng, dev, report: dict) -> dict:
                        live=int((starts < T_INF).sum()), n_pe=n_pe),
             bytes=n_bytes, word_ops=ops, kernels_per_call=1,
             device_kernel=kname)
-        if name == "availscan_select":
-            rows[name].update(design="one launch, shared-memory staging",
-                              **launch_floor(int(starts.numel())),
-                              **select_resources(report, name, cap,
-                                                 occ_np.shape[1]))
+        rows[name].update(
+            design=DESIGNS[name], **launch_floor(int(starts.numel())),
+            **select_resources(report, name, cap, occ_np.shape[1]))
         print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
               f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
               f"{_us(plain_dev_ms)}), bound "
               f"{rows[name]['bound_ms'] * 1e6:.2f} ns "
               f"({rows[name]['bound_by']}; {n_bytes} B, {ops} word ops), "
               f"one kernel per call")
-    r = rows["availscan_select"]
+    print_floor(rows, ("availscan", "availscan_select"))
+    return rows
+
+
+def print_floor(rows: dict, names) -> None:
+    r = rows[names[0]]
     print(f"launch floor: an empty kernel of {r['grid']} x "
           f"{r['block_threads']} threads: per call "
           f"{r['launch_floor_ms'] * 1e3:.2f} us, on the card "
-          f"{_us(r['launch_floor_device_ms'])}; availscan_select "
-          f"{r['registers']} registers, {r['smem_static_bytes']} B static + "
-          f"{r['smem_dynamic_bytes']} B dynamic shared memory, "
-          f"{r['spill_bytes']} B spilled")
-    return rows
+          f"{_us(r['launch_floor_device_ms'])}")
+    for name in names:
+        r = rows[name]
+        kernel = r["device_kernel"].split("::", 1)[-1].split("(")[0]
+        print(f"  {name} ({kernel}): {r['registers']} "
+              f"registers, {r['smem_static_bytes']} B static + "
+              f"{r['smem_dynamic_bytes']} B dynamic shared memory, "
+              f"{r['spill_bytes']} B spilled")
 
 
 def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
@@ -558,6 +685,7 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
     from repro_torch.core.timeline import Timeline
     from repro_torch.core.words import to_int32
     from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import cases
     from repro_torch.kernels import ref as R
 
     n_checked = 0
@@ -583,6 +711,16 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
             if not torch.equal(g, w):
                 bad = (g != w).nonzero()[:5, 0].tolist()
                 fail(f"availscan_mr {name} differs ({label}) at {bad}")
+        check_windows(
+            f"availscan_mr {label}", starts,
+            lambda st: K.availscan_mr(times, occ, st, valid, plane, spec.R,
+                                      t_du, t_now, n_pe=spec.n_pe),
+            lambda st: R.availscan_mr_ref(times, occ, st, valid, plane,
+                                          spec.R, t_du, t_now),
+            lambda x: K.availscan_one_mr(times, occ, x, valid, plane, spec.R,
+                                         t_du, t_now, n_pe=spec.n_pe),
+            lambda x: R.availscan_one_mr_ref(times, occ, x, valid, plane,
+                                             spec.R, t_du, t_now))
         n_free, tail, t_begin, t_end = want
         demands = {(0,) * (spec.R - 1), tuple(u // 2 for u in spec.units[1:]),
                    spec.units[1:]}
@@ -648,6 +786,10 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
         check_case(spec, lu, times_np, occ_np,
                    [int(live_t[-1]), T_INF - 10, T_INF - 1, T_INF - 3000],
                    5000, 0, 1, f"{units} window at the horizon")
+        far_t, far_o = cases.no_blocking_timeline(spec, 4096, 2000)
+        check_case(spec, lu, far_t, far_o,
+                   [int(far_t[1000]), 7, int(far_t[10]), T_INF], 2, -5, 1,
+                   f"{units} no blocking record in 2,000")
         if spec.R > 1:
             # one unit of the last plane held over the whole horizon: a
             # one-PE request that asks for that whole plane fits nowhere
@@ -659,7 +801,8 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
     if not all(branches.values()):
         fail(f"the R > 1 cases missed a select branch: {branches}")
     print(f"multi-resource kernel phase: {n_checked} cases exact (each: "
-          f"availscan_mr + availscan_select_mr x 7 policies x demand tails);"
+          f"availscan_mr in both modes + availscan_select_mr x 7 policies x "
+          f"demand tails);"
           f" R > 1 select branches: {branches['shared']} shared-memory, "
           f"{branches['global']} global-memory")
 
@@ -717,24 +860,14 @@ def kernel_phase_mr(rng, dev, rows: dict, report: dict) -> None:
             kernels_per_call=1, device_kernel=kname,
             **bound_row(n_bytes + out_bytes, ops))
         r = rows[name]
-        if name == "availscan_select_mr":
-            r.update(design="one launch, shared-memory staging",
-                     **launch_floor(int(starts.numel())),
-                     **select_resources(report, name, 128,
-                                        spec.total_words))
+        r.update(design=DESIGNS[name], **launch_floor(int(starts.numel())),
+                 **select_resources(report, name, 128, spec.total_words))
         print(f"{name}: per call {ms * 1e3:.2f} us (kernels on the card "
               f"{_us(dev_ms)}), plain {plain_ms * 1e3:.1f} us (on the card "
               f"{_us(plain_dev_ms)}), bound {r['bound_ms'] * 1e6:.2f} ns "
               f"({r['bound_by']}; {r['bytes']} B, {ops} word ops), "
               f"one kernel per call")
-    r = rows["availscan_select_mr"]
-    print(f"launch floor: an empty kernel of {r['grid']} x "
-          f"{r['block_threads']} threads: per call "
-          f"{r['launch_floor_ms'] * 1e3:.2f} us, on the card "
-          f"{_us(r['launch_floor_device_ms'])}; availscan_select_mr "
-          f"{r['registers']} registers, {r['smem_static_bytes']} B static + "
-          f"{r['smem_dynamic_bytes']} B dynamic shared memory, "
-          f"{r['spill_bytes']} B spilled")
+    print_floor(rows, ("availscan_mr", "availscan_select_mr"))
 
 
 def case_on_card(case, spec, live, dev):
@@ -973,9 +1106,9 @@ def main_path(jobs, dev, rows: dict, n_event_loop: int):
 
 def profile_steps(jobs, dev, n_steps: int = 300) -> None:
     """Where an admit step's time goes: one profiled stream of
-    ``n_steps`` requests (wall clock, kernel launches, device busy)."""
+    ``n_steps`` requests (wall clock, kernel launches, device busy) in a
+    :func:`profiled_window`, its empty kernels left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import batch as batch_lib
     from repro_torch.core import timeline as tl_lib
     from repro_torch.core.types import Policy
@@ -984,13 +1117,12 @@ def profile_steps(jobs, dev, n_steps: int = 300) -> None:
     state = tl_lib.init_state(128, 1024, 256, device=dev)
     batch_lib.admit_stream(state, batch, Policy.PE_W, n_pe=1024)   # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled_window() as prof:
         t0 = time.perf_counter()
         batch_lib.admit_stream(state, batch, Policy.PE_W, n_pe=1024)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+    events = profiled_events(prof)
     busy_s = sum(e.self_device_time_total for e in events) / 1e6
     n_kernels = sum(e.count for e in events)
     print(f"profiled {n_steps} admit steps: wall {wall:.3f} s "
@@ -1126,9 +1258,9 @@ def session_path(jobs, dev, rows: dict) -> None:
 
 def profile_session(jobs, dev, n_jobs: int = 320) -> None:
     """Where a session's admit step goes: a warm session, then one
-    profiled offer of ``n_jobs`` requests."""
+    offer of ``n_jobs`` requests in a :func:`profiled_window`, its empty
+    kernels left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import ReservationService, ServiceConfig
     from repro_torch.core.types import Policy
 
@@ -1138,7 +1270,7 @@ def profile_session(jobs, dev, n_jobs: int = 320) -> None:
     sess.offer(jobs[:n_jobs])
     before = sess.metrics()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled_window() as prof:
         t0 = time.perf_counter()
         sess.offer(jobs[n_jobs:2 * n_jobs])
         torch.cuda.synchronize()
@@ -1146,8 +1278,7 @@ def profile_session(jobs, dev, n_jobs: int = 320) -> None:
     after = sess.metrics()
     steps = after["steps"] - before["steps"]
     syncs = after["host_syncs"] - before["host_syncs"]
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+    events = profiled_events(prof)
     busy_s = sum(e.self_device_time_total for e in events) / 1e6
     n_kernels = sum(e.count for e in events)
     print(f"profiled session: {steps} admit steps, wall {wall:.3f} s "
@@ -1261,6 +1392,28 @@ def pruned_phase(rng, dev, rows: dict) -> None:
                                        spec.R, *args)
             if not all(torch.equal(a, b) for a, b in zip(g, w)):
                 fail(f"rectangles differ on {label}")
+            if spec.R == 1:
+                check_windows(
+                    f"availscan {label}", starts,
+                    lambda st: K.availscan(times, occ, st, *args, spec.n_pe),
+                    lambda st: R.availscan_ref(times, occ, st, *args,
+                                               spec.n_pe),
+                    lambda x: K.availscan_one(times, occ, x, *args,
+                                              spec.n_pe),
+                    lambda x: R.availscan_one_ref(times, occ, x, *args,
+                                                  spec.n_pe))
+            else:
+                check_windows(
+                    f"availscan_mr {label}", starts,
+                    lambda st: K.availscan_mr(times, occ, st, valid, plane,
+                                              spec.R, *args, n_pe=spec.n_pe),
+                    lambda st: R.availscan_mr_ref(times, occ, st, valid,
+                                                  plane, spec.R, *args),
+                    lambda x: K.availscan_one_mr(times, occ, x, valid, plane,
+                                                 spec.R, *args,
+                                                 n_pe=spec.n_pe),
+                    lambda x: R.availscan_one_mr_ref(times, occ, x, valid,
+                                                     plane, spec.R, *args))
             for pid in range(7):
                 if spec.R == 1:
                     g = K.availscan_select(times, occ, starts, *args,
@@ -1281,8 +1434,8 @@ def pruned_phase(rng, dev, rows: dict) -> None:
                     fail(f"{label}: nothing feasible names index {int(w[3])}")
             n_cases += 1
     print(f"pruned starts: {n_cases} cases, all four kernels exact x 7 "
-          f"policies (holes, a live candidate past the 128 seam, only "
-          f"index 0 live, P = 1)")
+          f"policies, the rectangle kernels in both modes (holes, a live "
+          f"candidate past the 128 seam, only index 0 live, P = 1)")
 
 
 def indexed_stream(jobs, off, dev, rows: dict) -> None:
@@ -1350,110 +1503,233 @@ def saturated_jobs(n_fill: int = 240, n_probe: int = 480,
     return jobs
 
 
-def saturated_stream(dev, rows: dict) -> None:
-    """The saturated stream at capacity 256, index tile 32 and no index:
-    every Decision field equal, at least 90 % of the probes rejected by
-    the index, each of those one ``availscan`` kernel on the card.
-
-    The fills and the probes go as one-shot offers of one session (the
-    same stream), and only the indexed probes run under the profiler,
-    120 to a window: a window of all 720 steps holds some 200,000
-    kernels, and the profiler has been seen to lose a few of them."""
+def _saturated_session(jobs, dev, n_fill: int, tile, units=None):
+    """One session of the saturated stream at capacity 256: the fills as
+    one offer, then the probes in offers of 60, each in a
+    :func:`profiled_window` when the index is on.  Returns
+    the session, its offers' results, the wall seconds, the launch counts,
+    and the one-window kernels and all device operations (kernels and
+    copies) the profiler saw in the probe windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import ReservationService, ServiceConfig
-    from repro_torch.core.batch import Decision
     from repro_torch.core.types import Policy
     from repro_torch.kernels import availscan as K
-    from repro_torch.kernels import build
+
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, policy=Policy.PE_W, capacity=256, chunk_size=None,
+        index_tile=tile, device=dev,
+        **({} if units is None else dict(resources=units)))).session()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [sess.offer(jobs[:n_fill])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one_kernels = device_ops = 0
+    for lo in range(n_fill, len(jobs), 60):
+        with profiled_window() if tile else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            results.append(sess.offer(jobs[lo:lo + 60]))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        if tile:
+            events = profiled_events(prof)
+            one_kernels += sum(e.count for e in events
+                               if "availscan_one_kernel" in e.key)
+            device_ops += sum(e.count for e in events)
+    return sess, results, wall, dict(K.LAUNCHES), one_kernels, device_ops
+
+
+def saturated_stream(dev, rows: dict, report: dict) -> None:
+    """The saturated stream at capacity 256, index tile 32 and no index:
+    every Decision field equal, at least 90 % of the probes rejected by
+    the index, each of those one ``availscan`` kernel on the card (the
+    one-window kernel, counted by the profiler); then the same stream
+    stamped with the R = 4 demands against ``MultiResourceOracle``, one
+    ``availscan_mr`` kernel per early reject.  On each stream's
+    timeline the early reject's kernel is then timed at P = 1
+    (:func:`one_window_row`).
+
+    Only the indexed probes run under the profiler, 60 to a window: a
+    window of all 720 steps holds some 200,000 kernels, and the profiler
+    has been seen to lose a few of them."""
+    import torch
+    from repro_torch.core.batch import Decision
+    from repro_torch.core.types import Policy
 
     jobs = saturated_jobs()
     n_fill, n_probe = 240, 480
-    lib = build.load()
-    out = {}
-    for tile in (32, None):
-        sess = ReservationService(ServiceConfig(
-            n_pe=1024, policy=Policy.PE_W, capacity=256, chunk_size=None,
-            index_tile=tile, device=dev)).session()
-        K.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fills = sess.offer(jobs[:n_fill]).decision
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        parts, rect_kernels = [fills], 0
-        for lo in range(n_fill, len(jobs), 120):
-            with profile(activities=[ProfilerActivity.CUDA]) if tile \
-                    else _nullcontext() as prof:
-                # each window opens with three empty kernels, as in
-                # device_profile: the profiler can miss its first ones
-                for _ in range(3):
-                    lib.availscan_empty(
-                        1, 32, torch.cuda.current_stream().cuda_stream)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                parts.append(sess.offer(jobs[lo:lo + 120]).decision)
-                torch.cuda.synchronize()
-                wall += time.perf_counter() - t0
-            if tile:
-                rect_kernels += sum(e.count for e in prof.key_averages()
-                                    if "availscan_rects_kernel" in e.key)
-        dec = Decision(*(torch.cat(f) for f in zip(*parts)))
-        out[tile] = (dec, wall, dict(K.LAUNCHES), rect_kernels,
-                     sess.metrics())
-    (dec_on, wall_on, l_on, k_on, m_on), (dec_off, wall_off, l_off, _, _) = \
-        out[32], out[None]
+    out = {tile: _saturated_session(jobs, dev, n_fill, tile)
+           for tile in (32, None)}
+    sess, res_on, wall_on, l_on, k_on, ops_on = out[32]
+    _, res_off, wall_off, l_off, _, _ = out[None]
+    dec_on, dec_off = (Decision(*(torch.cat(f) for f in zip(
+        *[r.decision for r in res]))) for res in (res_on, res_off))
     for f, a, b in zip(dec_on._fields, dec_on, dec_off):
         if not torch.equal(a, b):
             fail(f"saturated stream: Decision.{f} differs with the index")
     n_acc = int(dec_on.accepted.sum())
-    rejects = m_on["early_rejects"]
+    rejects = sess.metrics()["early_rejects"]
     if n_acc != n_fill or rejects < 0.9 * n_probe:
         fail(f"saturated stream: {n_acc} accepted, {rejects} early rejects "
              f"of {n_probe} probes")
     if l_on["availscan"] != rejects or k_on != rejects:
         fail(f"saturated stream: {l_on['availscan']} availscan launches, "
-             f"{k_on} availscan kernels on the card for {rejects} early "
-             f"rejects")
+             f"{k_on} availscan_one_kernel kernels on the card for "
+             f"{rejects} early rejects")
     rows["availscan"]["launches_saturated"] = l_on["availscan"]
     n = len(jobs)
     print(f"saturated stream: {n} jobs (240 fills, 480 probes of 768 PEs), "
           f"capacity 256: every Decision field equal with tile 32 and "
           f"without; early rejects {rejects}/{n_probe} probes; availscan "
-          f"launches {l_on['availscan']} = kernels on the card {k_on}; "
-          f"availscan_select launches {l_on['availscan_select']} on, "
-          f"{l_off['availscan_select']} off; "
+          f"launches {l_on['availscan']} = one-window kernels on the card "
+          f"{k_on}; {ops_on / n_probe:.2f} device operations per probe step "
+          f"(kernels and copies); availscan_select launches "
+          f"{l_on['availscan_select']} on, {l_off['availscan_select']} off; "
           f"{n / wall_on:.1f} requests/s on (profiler on for the probes), "
           f"{n / wall_off:.1f} off (a record, not a claim)")
+    one_window_row(rows, report, "availscan", sess, jobs[n_fill:], None,
+                   ops_on / n_probe)
 
     # the same stream stamped with the R = 4 demands: the early reject's
     # rectangle is the multi-resource kernel
     from repro_torch.core.hostsched import MultiResourceOracle
     from repro_torch.core.resources import ResourceSpec
     jobs_mr = stamp(jobs, MR_UNITS)
-    sess = ReservationService(ServiceConfig(
-        n_pe=1024, resources=MR_UNITS, policy=Policy.PE_W, capacity=256,
-        chunk_size=None, index_tile=32, device=dev)).session()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    allocs, got = _decisions([sess.offer(jobs_mr)])
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    sess, res, wall, launches, k_mr, ops_mr = _saturated_session(
+        jobs_mr, dev, n_fill, 32, MR_UNITS)
+    _, got = _decisions(res)
     oracle = MultiResourceOracle(ResourceSpec(MR_UNITS), Policy.PE_W, "none")
     want = oracle.run(jobs_mr)
     if got != want or sess.records() != oracle.records():
         fail(f"indexed multi-resource saturated stream differs from the "
              f"oracle {_first_diff(got, want)}")
     rejects = sess.metrics()["early_rejects"]
-    if launches["availscan_mr"] != rejects or rejects < 0.9 * n_probe:
+    if launches["availscan_mr"] != rejects or k_mr != rejects \
+            or rejects < 0.9 * n_probe:
         fail(f"indexed multi-resource stream: {launches['availscan_mr']} "
-             f"availscan_mr launches for {rejects} early rejects")
+             f"availscan_mr launches, {k_mr} availscan_one_kernel kernels on "
+             f"the card for {rejects} early rejects")
     rows["availscan_mr"]["launches_saturated"] = launches["availscan_mr"]
     print(f"saturated stream, R = 4 {MR_UNITS}, tile 32: identical to "
           f"MultiResourceOracle; early rejects {rejects}/{n_probe} probes, "
-          f"availscan_mr launches {launches['availscan_mr']}, "
-          f"availscan_select_mr {launches['availscan_select_mr']}; "
-          f"{n / wall:.1f} requests/s")
+          f"availscan_mr launches {launches['availscan_mr']} = one-window "
+          f"kernels on the card {k_mr}; {ops_mr / n_probe:.2f} device "
+          f"operations per probe step; availscan_select_mr "
+          f"{launches['availscan_select_mr']}; {n / wall:.1f} requests/s "
+          f"(profiler on for the probes)")
+    one_window_row(rows, report, "availscan_mr", sess, jobs_mr[n_fill:],
+                   ResourceSpec(MR_UNITS), ops_mr / n_probe)
+
+
+def one_window_row(rows: dict, report: dict, name: str, sess, probes, spec,
+                   ops_per_step: float) -> None:
+    """The early reject's kernel at P = 1, where the path finds it: on
+    the timeline the saturated stream left (just written, so in L2), at
+    the probes' starts ``min(t_r, t_dl - t_du)``, in turn.  Exact on
+    every probe; per call (CUDA events, host-bound), on the card and one
+    kernel a call (profiler), the plain version, the launch floor at its
+    grid, the bound from these probes' inputs, and the whole early
+    reject as the search runs it (``search._rejected``: per call and
+    kernels per call).  Goes into ``rows[name]["p1"]``."""
+    import itertools
+    import torch
+    from repro_torch.core import search as search_lib
+    from repro_torch.core.words import to_uint32
+    from repro_torch.kernels import availscan as K
+    from repro_torch.kernels import ref as R
+
+    tl = sess.engine.tl
+    starts = [min(j.t_r, j.t_dl - j.t_du) for j in probes]
+    if spec is None:
+        valid = None
+
+        def kern(i):
+            j = probes[i]
+            return K.availscan_one(tl.times, tl.occ, starts[i], j.t_du,
+                                   j.t_a, 1024)
+
+        def plain(i):
+            j = probes[i]
+            return R.availscan_one_ref(tl.times, tl.occ, starts[i], j.t_du,
+                                       j.t_a, 1024)
+    else:
+        from repro_torch.core.resources import device_layout
+        valid = sess.engine.state.lane_valid
+        plane = device_layout(spec, tl.device).plane_of_word
+
+        def kern(i):
+            j = probes[i]
+            return K.availscan_one_mr(tl.times, tl.occ, starts[i], valid,
+                                      plane, spec.R, j.t_du, j.t_a,
+                                      n_pe=spec.n_pe)
+
+        def plain(i):
+            j = probes[i]
+            return R.availscan_one_mr_ref(tl.times, tl.occ, starts[i], valid,
+                                          plane, spec.R, j.t_du, j.t_a)
+
+    for i in range(len(probes)):
+        if not torch.equal(kern(i), plain(i)):
+            fail(f"{name} (P = 1) differs from its plain version on the "
+                 f"saturated timeline at probe {i}")
+
+    def cycle(fn):
+        it = itertools.cycle(range(len(probes)))
+        return lambda: fn(next(it))
+
+    def rejected(i):
+        j = probes[i]
+        return search_lib._rejected(tl, j.t_r, j.t_du, j.t_dl, j.t_a, 1024,
+                                    spec, valid)
+
+    ms = cuda_time_ms(cycle(kern), reps=200)
+    plain_ms = cuda_time_ms(cycle(plain), reps=20)
+    dev_ms, kname = one_kernel_per_call(f"{name} (P = 1)", cycle(kern))
+    plain_dev_ms = device_ms(cycle(plain), reps=10)
+    rej_ms = cuda_time_ms(cycle(rejected), reps=200)
+    _, rej_per_call, rej_names = device_profile(cycle(rejected), reps=200)
+    if rej_per_call != 1.0 or rej_names != [kname]:
+        fail(f"the early reject ran {rej_per_call} kernels a call on the "
+             f"card ({rej_names})")
+    # the bound: what each probe's window needs, averaged over the probes
+    times_np = tl.times.cpu().numpy()
+    occ_np = to_uint32(tl.occ.cpu().numpy())
+    W = occ_np.shape[1]
+    work = []
+    for s, j in zip(starts, probes):
+        st = np.asarray([s], np.int32)
+        if spec is None:
+            work.append(scan_work(times_np, occ_np, st, j.t_du))
+        else:
+            work.append(scan_work_mr(times_np, occ_np, st, j.t_du,
+                                     to_uint32(valid.cpu().numpy()), spec.R))
+    out_bytes = 4 * ((6 if spec is None else spec.R + 5) + W)
+    n_bytes = int(round(np.mean([w[0] for w in work]))) + out_bytes
+    ops = int(round(np.mean([w[1] for w in work])))
+    p1 = dict(shape=dict(S=int(times_np.size),
+                         live=int((times_np < T_INF).sum()), P=1, words=W,
+                         probes=len(probes)),
+              launches=rows[name]["launches_saturated"], max_abs_err=0,
+              ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+              plain_device_ms=plain_dev_ms, device_kernel=kname,
+              early_reject_ms=rej_ms, early_reject_kernels=rej_per_call,
+              device_ops_per_probe_step=ops_per_step,
+              **bound_row(n_bytes, ops), **launch_floor(1),
+              **one_resources(report, name))
+    rows[name]["p1"] = p1
+    print(f"{name} at P = 1 on the saturated timeline ({p1['shape']['live']}"
+          f" live records, {len(probes)} probe starts in turn): per call "
+          f"{ms * 1e3:.2f} us (on the card {_us(dev_ms)}, one kernel a call),"
+          f" plain {plain_ms * 1e3:.1f} us (on the card "
+          f"{_us(plain_dev_ms)}), bound {p1['bound_ms'] * 1e6:.3f} ns "
+          f"({p1['bound_by']}; {n_bytes} B, {ops} word ops); launch floor "
+          f"at 1 x 256 threads {p1['launch_floor_ms'] * 1e3:.2f} us per call,"
+          f" {_us(p1['launch_floor_device_ms'])} on the card; "
+          f"{p1['registers']} registers, {p1['smem_static_bytes']} B static "
+          f"shared memory, {p1['spill_bytes']} B spilled; the early reject "
+          f"as the search runs it: {rej_ms * 1e3:.2f} us per call, "
+          f"{rej_per_call:.0f} kernel a call")
 
 
 def pipelined_paths(jobs_mr, dev, rows: dict) -> None:
@@ -1677,7 +1953,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     indexed_stream(jobs, plain, dev, rows)
-    saturated_stream(dev, rows)
+    saturated_stream(dev, rows, report)
     print(f"index phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -17,9 +17,10 @@ carries heterogeneous machine sizes.
 An indexed timeline (``tl.ispec`` set) adds two conservative fast
 paths from :mod:`repro_torch.core.availindex`: :func:`summary_reject`
 proves a whole request infeasible, and the search then reports the
-rejected result without enumerating candidates (the rectangle it
-reports is one kernel call); :func:`prune_candidates` masks provably
-infeasible candidates to ``T_INF`` on the kernel path.  Neither changes
+rejected result without enumerating candidates (the result is one
+kernel call, and its fields are views of that call's output row);
+:func:`prune_candidates` masks provably infeasible candidates to
+``T_INF`` on the kernel path.  Neither changes
 a decision.  The reject predicate is a device value the host must read
 to branch on; the admit step reads it together with the release
 check's last flag (:mod:`repro_torch.core.batch`), other callers pay
@@ -260,22 +261,18 @@ def _rejected(tl: Timeline, t_r: int, t_du: int, t_dl: int, t_now: int,
     """The result of a search over an all-infeasible candidate set.
 
     Selection then names index 0, whose start is the smallest live
-    candidate ``min(t_r, t_dl - t_du)``; its rectangle comes from the
-    kernel-backed :func:`repro_torch.kernels.ops.availability_rectangles`
-    (one candidate).
+    candidate ``min(t_r, t_dl - t_du)``; its rectangle and the whole
+    result are one kernel launch at that start
+    (:func:`repro_torch.kernels.ops.window_rectangle`), and every field
+    is a view of the kernel's output row.
     """
     from repro_torch.kernels import ops as kernel_ops
     s0 = min(int(t_r), int(t_dl) - int(t_du))
-    starts0 = torch.full((1,), s0, dtype=torch.int32, device=tl.device)
-    rects = kernel_ops.availability_rectangles(
-        tl, starts0, t_du, t_now, n_pe, rspec=rspec, valid_mask=valid_mask)
-    return SearchResult(
-        found=torch.zeros((), dtype=torch.bool, device=tl.device),
-        t_s=starts0[0], t_e=starts0[0] + int(t_du),
-        pe_mask=torch.zeros((tl.words,), dtype=torch.int32,
-                            device=tl.device),
-        n_free=rects.n_free[0], t_begin=rects.t_begin[0],
-        t_end=rects.t_end[0])
+    w = kernel_ops.window_rectangle(tl, s0, t_du, t_now, n_pe, rspec=rspec,
+                                    valid_mask=valid_mask)
+    return SearchResult(found=w["found"], t_s=w["t_s"], t_e=w["t_e"],
+                        pe_mask=w["pe_mask"], n_free=w["n_free"],
+                        t_begin=w["t_begin"], t_end=w["t_end"])
 
 
 def search(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,

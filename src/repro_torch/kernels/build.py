@@ -78,12 +78,16 @@ def load() -> ctypes.CDLL:
     lib.availscan_empty.restype = i32
     lib.availscan_error_string.argtypes = [i32]
     lib.availscan_error_string.restype = ctypes.c_char_p
-    lib.availscan_rects.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.availscan_rects.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.availscan_rects.restype = i32
+    lib.availscan_one.argtypes = [ptr] * 2 + [i32, ptr] + [i32] * 5 + [ptr]
+    lib.availscan_one.restype = i32
     lib.availscan_select.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     lib.availscan_select.restype = i32
-    lib.availscan_rects_mr.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.availscan_rects_mr.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.availscan_rects_mr.restype = i32
+    lib.availscan_one_mr.argtypes = [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr]
+    lib.availscan_one_mr.restype = i32
     lib.availscan_select_mr.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
     lib.availscan_select_mr.restype = i32
     return lib

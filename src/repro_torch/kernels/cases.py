@@ -17,7 +17,9 @@ combines one row per block:
   blocks (and many 128-candidate Pallas tiles);
 * :func:`pruned_cases`: the candidate arrays the availability index's
   pruning hands the kernels (dead holes in the middle, index 0 always
-  live), and the one-candidate arrays of the early reject.
+  live), and the one-candidate arrays of the early reject;
+* :func:`no_blocking_timeline`: a timeline on which nothing blocks a
+  window, so the rectangle kernels' outward scans run to both ends.
 
 Each case is a :class:`SelectCase` for one :class:`ResourceSpec`
 layout (R = 1 is ``ResourceSpec((n_pe,))``).
@@ -250,3 +252,18 @@ def pruned_cases(rng, spec: ResourceSpec, live, capacity: int
     case("one", one)
     case("one infeasible", one, n_req=n0 + 1)
     return out
+
+
+def no_blocking_timeline(spec: ResourceSpec, capacity: int, n_records: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """``n_records`` records two time units apart, the even ones holding
+    units 0-9 of plane 0, the odd ones empty, padded to ``capacity``.  A
+    window over an even record makes those units busy, and every other
+    record occupies only them, so no record blocks it on either side:
+    the scans test every record (the one-window kernel's far bands, over
+    several rounds when a side holds more than a few hundred records)."""
+    times = np.full(capacity, T_INF, np.int32)
+    times[:n_records] = np.arange(0, 2 * n_records, 2)
+    occ = np.zeros((capacity, spec.total_words), np.uint32)
+    occ[0:n_records:2, 0] = 0x3FF
+    return times, occ

@@ -1,13 +1,16 @@
 // Availability-rectangle scan of Algorithm 3 on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/availscan.py:
-//   availscan_rects     <- availscan (l.146, body _availscan_kernel l.112)
-//   availscan_select    <- availscan_select (l.373, body
-//                          _availscan_select_kernel l.306)
-//   availscan_rects_mr  <- availscan_mr (l.228, body _availscan_kernel_mr
-//                          l.204, _tile_rects_mr l.79)
-//   availscan_select_mr <- availscan_select_mr (l.494, body
-//                          _availscan_select_kernel_mr l.429)
+//   availscan_rects, availscan_one        <- availscan (l.146, body
+//                                            _availscan_kernel l.112)
+//   availscan_select                      <- availscan_select (l.373, body
+//                                            _availscan_select_kernel l.306)
+//   availscan_rects_mr, availscan_one_mr  <- availscan_mr (l.228, body
+//                                            _availscan_kernel_mr l.204,
+//                                            _tile_rects_mr l.79)
+//   availscan_select_mr                   <- availscan_select_mr (l.494, body
+//                                            _availscan_select_kernel_mr
+//                                            l.429)
 //
 // What it computes, per candidate start s (live iff s < T_INF), for the
 // job window [a, b) with a = min(s, T_INF - t_du), b = a + t_du:
@@ -47,9 +50,10 @@
 // to f32 and contract it on the matrix unit.  The work is bitwise OR,
 // AND and popcount over a few KB: wgmma has no 1-bit type, and the
 // bit-expanded f32 form would multiply the bytes by 32 for nothing.
-// So the words stay packed (int32 with uint32 bits): one warp takes one
-// candidate, lane w holds words w + 32 j, and the record axis is
-// walked, not multiplied:
+// So the words stay packed (int32 with uint32 bits): lane w of a warp
+// holds words w + 32 j, and the record axis is walked, not multiplied.
+// Two modes share that arithmetic.  With many candidates one warp takes
+// one candidate:
 //   * two warp-uniform 32-ary searches over the sorted times (the lanes
 //     probe 32 times at once, a ballot keeps one chunk: one round up to
 //     32 records, two up to 1024) find the overlapping records [lo, hi);
@@ -59,28 +63,39 @@
 //     and right from hi, four records a step with __any_sync, and stops
 //     at the first blocking record; since times are sorted that record
 //     holds the max end / min start the definitions ask for.
+// The early reject's one window has an entry of its own, where the
+// whole block takes the candidate; see "Design of the one-window mode"
+// below.
 //
 // Bound.  At the paper's size (S = 128 records, P = 258 candidates,
 // W = 32 words, ~25 live records; 46 words for the four-resource
 // machine) a call reads the live records' rows, the times and the
 // starts, ~5-10 KB, and does ~10^4 word operations: the card could do
-// that in a few nanoseconds.  What bounds a call on this card is
-// latency: the launch, the first reads from global memory (hundreds of
-// cycles), the chain of dependent reads and votes a warp walks per
-// candidate, and the cross-block reduction's round trips to L2 (a
-// release-acquire atomic, then the rows).  The design below keeps each
-// of those to once per call; tools/select_stamps.py shows where a
-// call's cycles go on the card.
+// that in a few nanoseconds.  The early reject (P = 1) reads the live
+// times (~1 KB at S = 256) and a handful of rows.  What bounds a call
+// on this card is latency: the launch, the first reads from global
+// memory (hundreds of cycles), the chain of dependent reads and votes a
+// warp walks per candidate, and the cross-block reduction's round trips
+// to L2 (a release-acquire atomic, then the rows).  The designs below
+// keep each of those to once per call.  Per mode: the many-candidate
+// mode pays one staging round per block, then works in shared memory;
+// the one-window mode pays its dependent rounds of reads (two, or three
+// when a far band runs) and its barriers, all inside one block, so at
+// P = 1 the card's width buys nothing and latency is the whole cost.
+// tools/select_stamps.py shows where a call's cycles go on the card.
 //
-// Design of the select kernels: one launch per call.
+// Design of the many-candidate mode (the select kernels, and the
+// rectangle kernels on a starts tensor of any P): one launch per call,
+// one device body (availscan_select_kernel<NW, kMr, kRects>).
 //   * Staging.  At the start each block issues every read that needs no
 //     earlier one, before it uses any of them: times[0 : min(S,
 //     rows_cap + 1)] (stored to shared memory and counted), the block's
 //     starts, occ's first rows (up to kFirstBytes, by 16-byte
 //     cp.async), the demand tail and the lane's layout words.  After
 //     one barrier the warps' counts give the live count n_live (times
-//     are sorted, T_INF padding last); the host never reads it.  If the live rows fit the budget (rows_cap, from
-//     S, W and kSmemBudget) but not the first copy, the rest follow by
+//     are sorted, T_INF padding last); the host never reads it.  If
+//     the live rows fit the budget (rows_cap, from S, W and
+//     kSmemBudget) but not the first copy, the rest follow by
 //     cp.async.  The searches, the OR and the outward scans then read
 //     shared memory.  When the live rows exceed the budget, the same
 //     body walks global memory; the branch is chosen on the card from
@@ -107,11 +122,63 @@
 //     candidates a warp) was tried in place of the ticket at the
 //     paper's shape and gained less than two calls of the same code
 //     differ, so the one path stays.
-// The rectangle kernels (availscan_rects, availscan_rects_mr) keep the
-// first design's launch: global memory, one candidate a warp, with the
-// searches, the OR and the scans shared with the select body.
+//   * Rectangles.  With kRects the same body writes each candidate's
+//     n_free / t_begin / t_end (and on _mr its R - 1 plane counts) to
+//     one int32 buffer and stops: no ticket, no reduction.  A dead
+//     candidate writes zeros; a block whose candidates are all dead
+//     reads nothing.
+//
+// Design of the one-window mode (availscan_one_kernel<NW, kMr>, P = 1:
+// the early reject's rectangle).  The first design gave the candidate
+// one warp of a 256-thread block (the other seven returned at once),
+// and that warp walked a chain of dependent global reads: the two
+// 32-ary searches, the OR over the window's rows, then the scans four
+// records a step, out to the first blocking record or to the end (on
+// the saturated stream 180 of 480 probes have no blocking record on
+// either side: ~360 records, ~90 steps).  Here the whole block takes the
+// candidate:
+//   1. every thread reads its share of times[0, S) (one coalesced round
+//      at S <= 256, strided above), keeps it in shared memory (S <=
+//      kOneTimes; global memory serves the lookups above) and counts
+//      #{t <= a}, #{t < b} and the live records; with the layout words
+//      on _mr that is all the round reads.  A block sum gives lo, hi and
+//      n_live, so the overlap search costs no read of its own.
+//   2. the eight warps take the window's rows [lo, hi) in stripes, and
+//      each also takes the near band's record on either side (lo - 1 -
+//      warp and hi + warp), all issued before any is used.  The partial
+//      ORs fold by shared-memory atomicOr; after one barrier every warp
+//      tests its band rows against the free words, and the nearest
+//      blocking record on each side is a block-wide atomicMax (left) or
+//      atomicMin (right) of the blocking indices: a warp farther out may
+//      find one while the nearest finds none.
+//   3. only for a side whose near band holds no blocking record: the
+//      far bands, kThreads records a side a round, one a thread, nearest
+//      first, each tested on the words that hold free units only (warp
+//      0 lists them once busy is known: a record can block only there),
+//      kFarBatch words' reads in flight at once (left to the register
+//      allocator, the R = 4 far probes took 4.3 us a call, not 3.7);
+//      block-wide max / min again.  The right side ends at n_live (T_INF
+//      padding never blocks).
+// So a call takes two dependent rounds of global reads after the launch
+// when a blocking record lies within eight records of the window on
+// each side, and one more per 256 records a side scans beyond that.
+// The near band is eight records a side because on the saturated
+// stream's timeline every probe that has a blocking record has it
+// within seven records (counted on the CPU from that timeline), and
+// clock stamps (tools/select_stamps.py) put the near-band test at ~620
+// cycles against ~1,550 for a far round.  A first far band that staged
+// whole rows by cp.async and tested them a warp a row took 5.4 us a
+// call against 2.3 us for the near probes (tools/rects_before_after.py,
+// NVIDIA H100 80GB HBM3 at 700 W); the thread-a-record test on the free
+// words replaced it (2.9 us).  On _mr one set of R plane counters in shared
+// memory serves the block.  The start comes as a kernel argument (the
+// search knows it on the host), and the kernel also writes the rejected
+// search result's t_s, t_e, found (0) and empty PE mask, so an early
+// reject is this one launch and views of its output.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -124,6 +191,8 @@ constexpr int kScratchHead = 16;          // ints before the rows (counter)
 constexpr int kSmemBudget = 96 * 1024;    // dynamic shared memory, bytes
 constexpr int kFirstBytes = 6 * 1024;     // occ staged before n_live is known
 constexpr int kMaxWordsMr = 512;          // multi-resource: 16 words per lane
+constexpr int kOneTimes = 4096;           // times the one-window mode keeps
+constexpr int kFarBatch = 8;              // far-band words read at once
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Rect {
@@ -355,75 +424,8 @@ __device__ __forceinline__ Rect scan_window(const int* __restrict__ times,
   return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
-availscan_rects_kernel(const int* __restrict__ times,
-                       const unsigned* __restrict__ occ,
-                       const int* __restrict__ starts,
-                       int* __restrict__ n_free, int* __restrict__ t_begin,
-                       int* __restrict__ t_end, int S, int W, int P,
-                       int t_du, int t_now, int n_pe) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;                     // warp-uniform
-  const int s = starts[p];
-  Rect r = {0, 0, 0};
-  if (s < kTInf) {                        // warp-uniform
-    unsigned vm[2];
-    int pl[2];
-    lane_layout<2, false>(nullptr, nullptr, W, lane, vm, pl);
-    const int a = min(s, kTInf - t_du);
-    r = scan_window<2, false>(times, occ, S, W, a, a + t_du, t_now, n_pe,
-                              lane, vm, pl, nullptr, 1);
-  }
-  if (lane == 0) {
-    n_free[p] = r.n_free;
-    t_begin[p] = r.t_begin;
-    t_end[p] = r.t_end;
-  }
-}
-
-// Multi-resource rectangles.  NW = occupancy words per lane (W <= 32
-// NW); every warp owns kMaxWordsMr plane counters in shared memory,
-// since R <= W.
-template <int NW>
-__global__ void __launch_bounds__(kThreads)
-availscan_rects_mr_kernel(const int* __restrict__ times,
-                          const unsigned* __restrict__ occ,
-                          const unsigned* __restrict__ valid,
-                          const int* __restrict__ plane,
-                          const int* __restrict__ starts,
-                          int* __restrict__ n_free, int* __restrict__ t_begin,
-                          int* __restrict__ t_end, int* __restrict__ tail,
-                          int S, int W, int R, int P, int t_du, int t_now) {
-  __shared__ int counts[kWarps][kMaxWordsMr];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarps + warp;
-  if (p >= P) return;                     // warp-uniform
-  const int s = starts[p];
-  int* cnt = counts[warp];
-  int* my_tail = tail + (size_t)p * (R - 1);
-  Rect r = {0, 0, 0};
-  if (s < kTInf) {                        // warp-uniform
-    unsigned vm[NW];
-    int pl[NW];
-    lane_layout<NW, true>(valid, plane, W, lane, vm, pl);
-    const int a = min(s, kTInf - t_du);
-    r = scan_window<NW, true>(times, occ, S, W, a, a + t_du, t_now, 0, lane,
-                              vm, pl, cnt, R);
-    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = cnt[q];
-  } else {
-    for (int q = 1 + lane; q < R; q += 32) my_tail[q - 1] = 0;
-  }
-  if (lane == 0) {
-    n_free[p] = r.n_free;
-    t_begin[p] = r.t_begin;
-    t_end[p] = r.t_end;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// the select kernels
+// the many-candidate mode: the select kernels and the rectangles at P > 1
 // ---------------------------------------------------------------------------
 
 // lexicographic (key1, key2, start_key, index) less-than, without
@@ -569,21 +571,52 @@ struct SelectArgs {
   int rows_first;             // rows staged before n_live is known
 };
 
+// Rectangle mode: candidate p's n_free, t_begin, t_end into out, an
+// int32[3, P] block followed on _mr by the int32[P, R - 1] plane
+// counts; a dead candidate (live false) writes zeros.
+template <bool kMr>
+__device__ __forceinline__ void write_rect(const SelectArgs& g,
+                                           int* __restrict__ out, int p,
+                                           const Rect& r, const int* cnt,
+                                           bool live, int lane) {
+  if (lane == 0) {
+    out[p] = r.n_free;
+    out[g.P + p] = r.t_begin;
+    out[2 * g.P + p] = r.t_end;
+  }
+  if (kMr) {
+    int* tail = out + 3 * (size_t)g.P + (size_t)p * (g.R - 1);
+    for (int q = 1 + lane; q < g.R; q += 32) tail[q - 1] = live ? cnt[q] : 0;
+    __syncwarp();                         // cnt is rezeroed next
+  }
+}
+
 // One warp: its candidates p = blockIdx.x * kWarps + warp + k * gridDim.x
-// * kWarps, over records [0, L) of times / occ; best holds the lowest
-// row, in every lane.  The first kThreads / kWarps starts of each warp
-// come from s_starts.
-template <int NW, bool kMr>
+// * kWarps, over records [0, L) of times / occ.  Select: best holds the
+// lowest row, in every lane.  Rectangles (kRects): each candidate's
+// rectangle goes to out.  The first kThreads / kWarps starts of each
+// warp come from s_starts.
+template <int NW, bool kMr, bool kRects>
 __device__ __forceinline__ void warp_candidates(
     const SelectArgs& g, const int* __restrict__ times,
     const unsigned* __restrict__ occ, int L, const int* s_starts,
     const unsigned (&vm)[NW], const int (&pl)[NW], int* cnt, const int* dem,
-    int lane, int warp, int (&best)[8]) {
+    int lane, int warp, int* __restrict__ out, int (&best)[8]) {
   int j = 0;
   for (int p = blockIdx.x * kWarps + warp; p < g.P;
        p += gridDim.x * kWarps, ++j) {
     const int s = j < kThreads / kWarps ? s_starts[j * kWarps + warp]
                                         : g.starts[p];
+    if (kRects) {
+      Rect r = {0, 0, 0};
+      if (s < kTInf) {                    // warp-uniform
+        const int a = min(s, kTInf - g.t_du);
+        r = scan_window<NW, kMr>(times, occ, L, g.W, a, a + g.t_du, g.t_now,
+                                 g.n_pe, lane, vm, pl, cnt, g.R);
+      }
+      write_rect<kMr>(g, out, p, r, cnt, s < kTInf, lane);
+      continue;
+    }
     if (s >= kTInf) continue;             // warp-uniform
     const int a = min(s, kTInf - g.t_du);
     const Rect r = scan_window<NW, kMr>(times, occ, L, g.W, a, a + g.t_du,
@@ -606,12 +639,13 @@ __device__ __forceinline__ void warp_candidates(
   }
 }
 
-// The fused scan + select: one launch, one int32[8] row in out.
-// scratch: int32[kScratchHead + 8 * kMaxBlocks], scratch[0] the ticket
-// counter (0 between calls), the block rows from kScratchHead on.
-// Dynamic shared memory: occ rows [0, rows_cap), then times
-// [0, rows_cap + 1).
-template <int NW, bool kMr>
+// The many-candidate body.  Select: the fused scan + select, one
+// int32[8] row in out; scratch: int32[kScratchHead + 8 * kMaxBlocks],
+// scratch[0] the ticket counter (0 between calls), the block rows from
+// kScratchHead on.  Rectangles (kRects): every candidate's rectangle in
+// out (see write_rect), scratch unused.  Dynamic shared memory: occ rows
+// [0, rows_cap), then times [0, rows_cap + 1).
+template <int NW, bool kMr, bool kRects>
 __global__ void __launch_bounds__(kThreads)
 availscan_select_kernel(const SelectArgs g, int* __restrict__ scratch,
                         int* __restrict__ out) {
@@ -640,7 +674,7 @@ availscan_select_kernel(const SelectArgs g, int* __restrict__ scratch,
   const int s0 = p0 < g.P ? g.starts[p0] : kTInf;
   const unsigned first = (unsigned)g.rows_first * (unsigned)g.W;
   stage_words(s_occ, g.occ, 0u, first, tid);
-  if (kMr)
+  if (kMr && !kRects)
     for (int q = tid; q < g.R - 1; q += kThreads) dem[q] = g.demand[q];
   unsigned vm[NW];
   int pl[NW];
@@ -669,25 +703,31 @@ availscan_select_kernel(const SelectArgs g, int* __restrict__ scratch,
 
   int best[8];
   sentinel_row(best);
+  int* cnt = kMr ? counts[warp] : nullptr;
   if (any_live) {                         // block-uniform
     // the live count: times are sorted, T_INF padding last
     int n_live = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) n_live += warp_live[w];
-    int* cnt = kMr ? counts[warp] : nullptr;
     if (n_live <= g.rows_cap) {           // block-uniform
       if (n_live > g.rows_first) {
         stage_words(s_occ, g.occ, first, (unsigned)n_live * g.W, tid);
         cp_async_wait_all();
       }
       __syncthreads();
-      warp_candidates<NW, kMr>(g, s_times, s_occ, n_live, s_starts, vm, pl,
-                               cnt, dem, lane, warp, best);
+      warp_candidates<NW, kMr, kRects>(g, s_times, s_occ, n_live, s_starts,
+                                       vm, pl, cnt, dem, lane, warp, out,
+                                       best);
     } else {
-      warp_candidates<NW, kMr>(g, g.times, g.occ, g.S, s_starts, vm, pl,
-                               cnt, dem, lane, warp, best);
+      warp_candidates<NW, kMr, kRects>(g, g.times, g.occ, g.S, s_starts, vm,
+                                       pl, cnt, dem, lane, warp, out, best);
     }
+  } else if (kRects) {
+    // every candidate of the block is dead: zeros, nothing read
+    warp_candidates<NW, kMr, kRects>(g, g.times, g.occ, 0, s_starts, vm, pl,
+                                     cnt, dem, lane, warp, out, best);
   }
+  if (kRects) return;                     // no row to combine
 
   // the block's row: fold the warps' rows in warp 0
   if (lane == 0) {
@@ -735,6 +775,254 @@ availscan_select_kernel(const SelectArgs g, int* __restrict__ scratch,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the one-window mode: one candidate, the whole block (the early reject)
+// ---------------------------------------------------------------------------
+
+struct OneArgs {
+  const int* times;
+  const unsigned* occ;
+  const unsigned* valid;      // multi-resource only
+  const int* plane;           // multi-resource only
+  int* out;
+  int s, S, W, R, t_du, t_now, n_pe;
+};
+
+// the lane's words of record k (zeros for k < 0: no record)
+template <int NW>
+__device__ __forceinline__ void lane_row(const unsigned* __restrict__ occ,
+                                         int W, int k, int lane,
+                                         unsigned (&x)[NW]) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int w = lane + 32 * j;
+    x[j] = k >= 0 && w < W ? occ[(size_t)k * W + w] : 0u;
+  }
+}
+
+// whether a row held in registers occupies one of the free units
+template <int NW>
+__device__ __forceinline__ bool warp_blocks(const unsigned (&x)[NW],
+                                            const unsigned (&fr)[NW]) {
+  unsigned hit = 0u;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) hit |= x[j] & fr[j];
+  return __any_sync(kFull, hit != 0u);
+}
+
+// The window's output: n_free, t_begin, t_end and the R - 1 plane
+// counts (cnt[1..R-1], zeros without cnt), then the rejected search's
+// t_s = s, t_e = s + t_du (int32 wrap, as the reference adds), found =
+// 0 and W zero words of PE mask.
+__device__ __forceinline__ void write_one(const OneArgs& g, int s, int n_free,
+                                          int t_begin, int t_end,
+                                          const int* cnt, int tid) {
+  int* out = g.out;
+  if (tid == 0) {
+    out[0] = n_free;
+    out[1] = t_begin;
+    out[2] = t_end;
+  }
+  for (int q = 1 + tid; q < g.R; q += kThreads)
+    out[2 + q] = cnt != nullptr ? cnt[q] : 0;
+  int* tail = out + g.R + 2;
+  if (tid == 0) {
+    tail[0] = s;
+    tail[1] = (int)((unsigned)s + (unsigned)g.t_du);
+    tail[2] = 0;
+  }
+  for (int w = tid; w < g.W; w += kThreads) tail[3 + w] = 0;
+}
+
+// One launch of one block: the rectangle of the window at start s.
+template <int NW, bool kMr>
+__global__ void __launch_bounds__(kThreads)
+availscan_one_kernel(const OneArgs g) {
+  constexpr int kW = kMr ? kMaxWordsMr : 64;
+  __shared__ int s_times[kOneTimes];      // times[0, S) when S <= kOneTimes
+  __shared__ unsigned s_busy[kW];
+  __shared__ int s_cnt[kMr ? kMaxWordsMr : 1];
+  __shared__ int s_nz[kW];                // the words with free units
+  __shared__ unsigned s_nz_free[kW];      // and their free bits
+  __shared__ int s_sum[3][kWarps];
+  __shared__ int s_left, s_right;         // nearest blocking records
+  __shared__ int s_n_nz;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int s = g.s;
+  if (s >= kTInf) {                       // block-uniform: a dead start
+    write_one(g, s, 0, 0, 0, nullptr, tid);
+    return;
+  }
+  const int a = min(s, kTInf - g.t_du);
+  const int b = a + g.t_du;
+  const bool staged_times = g.S <= kOneTimes;
+
+  // Round 1: the layout words and every time, counted (and kept in
+  // shared memory for the result's lookups).  Records [lo, hi) overlap
+  // [a, b): lo = #{t <= a} - 1 (at least 0), hi = #{t < b}; the n_live
+  // live records come first (sorted, T_INF padding last).
+  unsigned vm[NW];
+  int pl[NW];
+  lane_layout<NW, kMr>(g.valid, g.plane, g.W, lane, vm, pl);
+  int na = 0, nb = 0, nl = 0;
+#pragma unroll 4
+  for (int i = tid; i < g.S; i += kThreads) {
+    const int t = g.times[i];
+    if (staged_times) s_times[i] = t;
+    na += t <= a;
+    nb += t < b;
+    nl += t < kTInf;
+  }
+  for (int w = tid; w < g.W; w += kThreads) s_busy[w] = 0u;
+  if (kMr)
+    for (int q = tid; q < g.R; q += kThreads) s_cnt[q] = 0;
+  if (tid == 0) {
+    s_left = -1;
+    s_right = kBig;
+  }
+  na = __reduce_add_sync(kFull, na);
+  nb = __reduce_add_sync(kFull, nb);
+  nl = __reduce_add_sync(kFull, nl);
+  if (lane == 0) {
+    s_sum[0][warp] = na;
+    s_sum[1][warp] = nb;
+    s_sum[2][warp] = nl;
+  }
+  __syncthreads();
+  na = nb = nl = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    na += s_sum[0][w];
+    nb += s_sum[1][w];
+    nl += s_sum[2][w];
+  }
+  const int lo = max(na - 1, 0);
+  const int hi = nb;
+  const int L = nl;
+
+  // Round 2, every read issued before any is used: the near band, one
+  // record a warp on each side (kl = lo - 1 - warp ends at or before a,
+  // kr = hi + warp starts at or after b), then the warp's stripe of the
+  // window's rows.
+  const int kl = lo - 1 - warp;
+  const int kr = hi + warp;
+  unsigned left[NW], right[NW];
+  lane_row<NW>(g.occ, g.W, kl, lane, left);
+  lane_row<NW>(g.occ, g.W, kr < L ? kr : -1, lane, right);
+  unsigned busy[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) busy[j] = 0u;
+#pragma unroll 2
+  for (int k = lo + warp; k < hi; k += kWarps) {
+    unsigned x[NW];
+    lane_row<NW>(g.occ, g.W, k, lane, x);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) busy[j] |= x[j];
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    if (busy[j]) atomicOr(&s_busy[lane + 32 * j], busy[j]);
+  __syncthreads();
+
+  // the window's busy and free words, in every warp; the counts
+  unsigned fr[NW];
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int w = lane + 32 * j;
+    const unsigned bw = w < g.W ? s_busy[w] : 0u;
+    c += __popc(bw);
+    fr[j] = ~bw & vm[j];
+  }
+  const int n_busy = __reduce_add_sync(kFull, c);
+  if (warp == 0) {
+    // the plane counts, and the list of words with free units (a record
+    // can block only through them), in word order
+    int n_nz = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (kMr) {
+        const int cf = __popc(fr[j]);
+        if (cf) atomicAdd(&s_cnt[pl[j]], cf);
+      }
+      const unsigned m = __ballot_sync(kFull, fr[j] != 0u);
+      if (fr[j] != 0u) {
+        const int at = n_nz + __popc(m & ((1u << lane) - 1u));
+        s_nz[at] = lane + 32 * j;
+        s_nz_free[at] = fr[j];
+      }
+      n_nz += __popc(m);
+    }
+    if (lane == 0) s_n_nz = n_nz;
+  }
+  // the near band's tests: the nearest blocking record on each side is
+  // the block's max (left) / min (right) of the warps' blocking ones
+  if (kl >= 0 && warp_blocks<NW>(left, fr) && lane == 0)
+    atomicMax(&s_left, kl);
+  if (kr < L && warp_blocks<NW>(right, fr) && lane == 0)
+    atomicMin(&s_right, kr);
+  __syncthreads();
+
+  // The far bands, only for a side whose near band holds no blocking
+  // record: one record a thread on each open side a round (kThreads
+  // records a side, nearest first), each tested on the free words only;
+  // the nearest blocking one is the block's max / min again.
+  const int n_nz = s_n_nz;
+  int next_l = lo - kWarps;               // records [0, next_l) untested
+  int next_r = hi + kWarps;               // records [next_r, L) untested
+  for (;;) {
+    const bool open_l = s_left < 0 && next_l > 0 && n_nz > 0;
+    const bool open_r = s_right == kBig && next_r < L && n_nz > 0;
+    if (!open_l && !open_r) break;        // block-uniform
+    __syncthreads();                      // flags read before the writes
+    const int fl = next_l - 1 - tid;
+    const int fr_k = next_r + tid;
+    const bool do_l = open_l && fl >= 0;
+    const bool do_r = open_r && fr_k < L;
+    const unsigned* row_l = g.occ + (size_t)(do_l ? fl : 0) * g.W;
+    const unsigned* row_r = g.occ + (size_t)(do_r ? fr_k : 0) * g.W;
+    // kFarBatch words' reads of each side in flight before any is used
+    unsigned hit_l = 0u, hit_r = 0u;
+    for (int i = 0; i < n_nz; i += kFarBatch) {
+      unsigned xl[kFarBatch], xr[kFarBatch], f[kFarBatch];
+#pragma unroll
+      for (int u = 0; u < kFarBatch; ++u) {
+        const bool in = i + u < n_nz;
+        const int w = in ? s_nz[i + u] : 0;
+        f[u] = in ? s_nz_free[i + u] : 0u;
+        xl[u] = do_l && in ? row_l[w] : 0u;
+        xr[u] = do_r && in ? row_r[w] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kFarBatch; ++u) {
+        hit_l |= xl[u] & f[u];
+        hit_r |= xr[u] & f[u];
+      }
+    }
+    const int best_l = __reduce_max_sync(kFull, hit_l ? fl : -1);
+    const int best_r = __reduce_min_sync(kFull, hit_r ? fr_k : kBig);
+    if (lane == 0) {
+      if (best_l >= 0) atomicMax(&s_left, best_l);
+      if (best_r != kBig) atomicMin(&s_right, best_r);
+    }
+    __syncthreads();
+    next_l -= kThreads;
+    next_r += kThreads;
+  }
+  // t_begin: the end of the nearest blocking record on the left,
+  // times[k + 1]; t_end: the start of the nearest on the right
+  const int kb = s_left + 1;
+  const int tb = s_left < 0 ? -kTInf : staged_times ? s_times[kb]
+                                                    : g.times[kb];
+  const int te = s_right == kBig ? kTInf
+                 : staged_times ? s_times[s_right] : g.times[s_right];
+  const int n_free = kMr ? s_cnt[0] : g.n_pe - n_busy;
+  write_one(g, s, n_free, min(max(tb, g.t_now), a), te,
+            kMr ? s_cnt : nullptr, tid);
+}
+
 __global__ void empty_kernel() {}
 
 int n_blocks(int P) { return (P + kWarps - 1) / kWarps; }
@@ -757,9 +1045,9 @@ int first_rows(int rows_cap, int W) {
   return rows_cap < fit ? rows_cap : (fit > 0 ? fit : 1);
 }
 
-template <int NW, bool kMr>
+template <int NW, bool kMr, bool kRects>
 int launch_select(SelectArgs g, int* scratch, int* out, cudaStream_t stream) {
-  auto kernel = availscan_select_kernel<NW, kMr>;
+  auto kernel = availscan_select_kernel<NW, kMr, kRects>;
   // the dynamic shared-memory limit, once per device for this variant
   static unsigned long long attr_set = 0ull;
   int dev = 0;
@@ -780,26 +1068,35 @@ int launch_select(SelectArgs g, int* scratch, int* out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-struct MrArgs {
-  const int* times;
-  const unsigned* occ;
-  const unsigned* valid;
-  const int* plane;
-  const int* starts;
-  int S, W, R, P, t_du, t_now;
-};
-
-template <int NW>
-void launch_rects_mr(const MrArgs& m, int* n_free, int* t_begin, int* t_end,
-                     int* tail, cudaStream_t stream) {
-  availscan_rects_mr_kernel<NW><<<n_blocks(m.P), kThreads, 0, stream>>>(
-      m.times, m.occ, m.valid, m.plane, m.starts, n_free, t_begin, t_end,
-      tail, m.S, m.W, m.R, m.P, m.t_du, m.t_now);
+template <int NW, bool kMr>
+int launch_one(const OneArgs& g, cudaStream_t stream) {
+  availscan_one_kernel<NW, kMr><<<1, kThreads, 0, stream>>>(g);
+  return (int)cudaGetLastError();
 }
 
-// the smallest instantiated words-per-lane count covering W
-int words_per_lane(int W) {
-  return W <= 32 ? 1 : W <= 64 ? 2 : W <= 128 ? 4 : W <= 256 ? 8 : 16;
+// f(std::integral_constant<int, NW>{}) for the smallest instantiated
+// words-per-lane count NW covering W (1 or 2 on R = 1, W <= 64)
+template <bool kMr, typename F>
+int with_words(int W, F f) {
+  if (W <= 32) return f(std::integral_constant<int, 1>{});
+  if constexpr (!kMr) {
+    return f(std::integral_constant<int, 2>{});
+  } else {
+    if (W <= 64) return f(std::integral_constant<int, 2>{});
+    if (W <= 128) return f(std::integral_constant<int, 4>{});
+    if (W <= 256) return f(std::integral_constant<int, 8>{});
+    return f(std::integral_constant<int, 16>{});
+  }
+}
+
+// The rectangles of P candidates: the many-candidate body in rectangle
+// mode (the one-window kernel has entries of its own).
+template <bool kMr>
+int launch_rects(const SelectArgs& g, int* out, cudaStream_t stream) {
+  return with_words<kMr>(g.W, [&](auto nw) {
+    return launch_select<decltype(nw)::value, kMr, true>(g, nullptr, out,
+                                                         stream);
+  });
 }
 
 }  // namespace
@@ -830,15 +1127,32 @@ int availscan_empty(int blocks, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// n_free / t_begin / t_end: int32[P] outputs.  Returns cudaGetLastError().
+// Rectangles, R = 1 (W <= 64).  out: int32[3, P] (n_free, t_begin,
+// t_end).  Returns cudaGetLastError() after the one launch.
 int availscan_rects(const void* times, const void* occ, const void* starts,
-                    void* n_free, void* t_begin, void* t_end, int S, int W,
-                    int P, int t_du, int t_now, int n_pe, void* stream) {
-  availscan_rects_kernel<<<n_blocks(P), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int*)times, (const unsigned*)occ, (const int*)starts,
-      (int*)n_free, (int*)t_begin, (int*)t_end, S, W, P, t_du, t_now, n_pe);
-  return (int)cudaGetLastError();
+                    void* out, int S, int W, int P, int t_du, int t_now,
+                    int n_pe, void* stream) {
+  if (W < 1 || W > 64 || P < 1) return (int)cudaErrorInvalidValue;
+  const SelectArgs g = {(const int*)times, (const unsigned*)occ, nullptr,
+                        nullptr, nullptr, (const int*)starts, S, W, 1, P,
+                        t_du, t_now, 0, 0, n_pe, 0, 0};
+  return launch_rects<false>(g, (int*)out, (cudaStream_t)stream);
+}
+
+// One window at start s (a host integer), R = 1 (W <= 64): the early
+// reject's rectangle and search result.  out: int32[6 + W]: n_free,
+// t_begin, t_end, t_s, t_e, found (0), then W zero words of PE mask.
+// Returns cudaGetLastError() after the one launch.
+int availscan_one(const void* times, const void* occ, int s, void* out,
+                  int S, int W, int t_du, int t_now, int n_pe,
+                  void* stream) {
+  if (W < 1 || W > 64) return (int)cudaErrorInvalidValue;
+  const OneArgs o = {(const int*)times, (const unsigned*)occ, nullptr,
+                     nullptr, (int*)out, s, S, W, 1, t_du, t_now, n_pe};
+  cudaStream_t st = (cudaStream_t)stream;
+  return with_words<false>(W, [&](auto nw) {
+    return launch_one<decltype(nw)::value, false>(o, st);
+  });
 }
 
 // Fused scan + select, R = 1 (W <= 64).  scratch:
@@ -855,37 +1169,46 @@ int availscan_select(const void* times, const void* occ, const void* starts,
   int* sc = (int*)scratch;
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  return W <= 32 ? launch_select<1, false>(g, sc, o, st)
-                 : launch_select<2, false>(g, sc, o, st);
+  return with_words<false>(W, [&](auto nw) {
+    return launch_select<decltype(nw)::value, false, false>(g, sc, o, st);
+  });
 }
 
 int availscan_mr_max_words(void) { return kMaxWordsMr; }
 
 // Multi-resource rectangles.  valid, plane: int32[W] (plane ids in
-// [0, R), 1 <= R <= W <= availscan_mr_max_words()); n_free / t_begin /
-// t_end: int32[P]; tail: int32[P, R - 1].  Returns cudaGetLastError().
+// [0, R), 1 <= R <= W <= availscan_mr_max_words()); out: int32[3, P]
+// (n_free, t_begin, t_end) followed by int32[P, R - 1] (the other
+// planes' counts).  Returns cudaGetLastError() after the one launch.
 int availscan_rects_mr(const void* times, const void* occ, const void* valid,
-                       const void* plane, const void* starts, void* n_free,
-                       void* t_begin, void* t_end, void* tail, int S, int W,
-                       int R, int P, int t_du, int t_now, void* stream) {
+                       const void* plane, const void* starts, void* out,
+                       int S, int W, int R, int P, int t_du, int t_now,
+                       void* stream) {
+  if (W < 1 || W > kMaxWordsMr || R < 1 || R > W || P < 1)
+    return (int)cudaErrorInvalidValue;
+  const SelectArgs g = {(const int*)times, (const unsigned*)occ,
+                        (const unsigned*)valid, (const int*)plane, nullptr,
+                        (const int*)starts, S, W, R, P, t_du, t_now, 0, 0, 0,
+                        0, 0};
+  return launch_rects<true>(g, (int*)out, (cudaStream_t)stream);
+}
+
+// Multi-resource one window at start s.  out: int32[R + 5 + W]: n_free,
+// t_begin, t_end, the other planes' counts (R - 1), t_s, t_e, found
+// (0), then W zero words of PE mask.  Returns cudaGetLastError() after
+// the one launch.
+int availscan_one_mr(const void* times, const void* occ, const void* valid,
+                     const void* plane, int s, void* out, int S, int W,
+                     int R, int t_du, int t_now, void* stream) {
   if (W < 1 || W > kMaxWordsMr || R < 1 || R > W)
     return (int)cudaErrorInvalidValue;
-  const MrArgs m = {(const int*)times, (const unsigned*)occ,
-                    (const unsigned*)valid, (const int*)plane,
-                    (const int*)starts, S, W, R, P, t_du, t_now};
-  int* nf = (int*)n_free;
-  int* tb = (int*)t_begin;
-  int* te = (int*)t_end;
-  int* tl = (int*)tail;
+  const OneArgs o = {(const int*)times, (const unsigned*)occ,
+                     (const unsigned*)valid, (const int*)plane, (int*)out,
+                     s, S, W, R, t_du, t_now, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (words_per_lane(W)) {
-    case 1: launch_rects_mr<1>(m, nf, tb, te, tl, st); break;
-    case 2: launch_rects_mr<2>(m, nf, tb, te, tl, st); break;
-    case 4: launch_rects_mr<4>(m, nf, tb, te, tl, st); break;
-    case 8: launch_rects_mr<8>(m, nf, tb, te, tl, st); break;
-    default: launch_rects_mr<16>(m, nf, tb, te, tl, st); break;
-  }
-  return (int)cudaGetLastError();
+  return with_words<true>(W, [&](auto nw) {
+    return launch_one<decltype(nw)::value, true>(o, st);
+  });
 }
 
 // Multi-resource fused select.  demand: int32[R - 1] (unread when
@@ -905,13 +1228,9 @@ int availscan_select_mr(const void* times, const void* occ, const void* valid,
   int* sc = (int*)scratch;
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (words_per_lane(W)) {
-    case 1: return launch_select<1, true>(g, sc, o, st);
-    case 2: return launch_select<2, true>(g, sc, o, st);
-    case 4: return launch_select<4, true>(g, sc, o, st);
-    case 8: return launch_select<8, true>(g, sc, o, st);
-    default: return launch_select<16, true>(g, sc, o, st);
-  }
+  return with_words<true>(W, [&](auto nw) {
+    return launch_select<decltype(nw)::value, true, false>(g, sc, o, st);
+  });
 }
 
 }  // extern "C"

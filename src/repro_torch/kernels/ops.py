@@ -55,6 +55,45 @@ def availability_rectangles(tl: Timeline, starts: torch.Tensor, t_du: int,
                                  valid=starts < T_INF)
 
 
+def window_rectangle(tl: Timeline, s: int, t_du: int, t_now: int,
+                     n_pe: int, *, rspec=None,
+                     valid_mask: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The early reject's rectangle: one window at start ``s`` (a host
+    integer), one kernel launch on the card.
+
+    Returns ``n_free``, ``t_begin``, ``t_end``, ``n_free_tail`` (int32[R
+    - 1], empty without ``rspec``) and the rejected search result's
+    ``t_s`` (= ``s``), ``t_e`` (``s + t_du``), ``found`` (False) and
+    ``pe_mask`` (int32[W] zeros), all views of the kernel's one int32
+    row (:func:`repro_torch.kernels.availscan.availscan_one`), so
+    nothing else runs on the card.
+    """
+    if rspec is not None:
+        lay = res_lib.device_layout(rspec, tl.device)
+        args = (tl.times, tl.occ, int(s),
+                lay.valid_mask if valid_mask is None else valid_mask,
+                lay.plane_of_word, rspec.R, int(t_du), int(t_now))
+        if tl.times.device.type == "cpu":
+            row = _ref.availscan_one_mr_ref(*args)
+        else:
+            row = _k.availscan_one_mr(*args, n_pe=rspec.n_pe)
+        R = rspec.R
+    else:
+        args = (tl.times, tl.occ, int(s), int(t_du), int(t_now), n_pe)
+        if tl.times.device.type == "cpu":
+            row = _ref.availscan_one_ref(*args)
+        else:
+            row = _k.availscan_one(*args)
+        R = 1
+    return dict(n_free=row[0], t_begin=row[1], t_end=row[2],
+                n_free_tail=row[3:R + 2], t_s=row[R + 2], t_e=row[R + 3],
+                # a bool view of the int32 0's first byte: no conversion
+                # kernel
+                found=row[R + 4:R + 5].view(torch.bool)[0],
+                pe_mask=row[R + 5:])
+
+
 def search_select(tl: Timeline, starts: torch.Tensor, t_du: int,
                   t_now: int, n_req: int, policy_id: int,
                   n_pe: int, *, rspec=None,

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the four availability-scan kernels.
+"""Plain PyTorch versions of the availability-scan kernels.
 
 Each function computes exactly what its CUDA kernel in
-``csrc/availscan.cu`` computes, on any device.  The wrappers in
+``csrc/availscan.cu`` computes, on any device: the four of the TPU
+kernels, and the one-window rows of the early reject
+(:func:`availscan_one_ref`, :func:`availscan_one_mr_ref`).  The wrappers in
 :mod:`repro_torch.kernels.ops` take these for tensors on the CPU; on
 the card they serve only as the yardstick the kernels are held to.
 
@@ -115,6 +117,41 @@ def availscan_mr_ref(times: torch.Tensor, occ: torch.Tensor,
     planes, t_begin, t_end = _rects(times, occ, starts, t_du, t_now, count,
                                     n_planes)
     return planes[:, 0], planes[:, 1:], t_begin, t_end
+
+
+def _one_row(s: int, t_du: int, W: int, rects) -> torch.Tensor:
+    """The one-window row: the rectangle's fields (n_free, t_begin,
+    t_end, the tail on multi-resource), then t_s = s, t_e = s + t_du
+    wrapped to int32 as the reference adds, found = 0 and W words of
+    PE mask (0)."""
+    head = torch.cat([x.reshape(-1) for x in rects])
+    t_e = (s + t_du + 2**31) % 2**32 - 2**31
+    rest = torch.tensor([s, t_e, 0] + [0] * W, dtype=torch.int32,
+                        device=head.device)
+    return torch.cat([head, rest])
+
+
+def availscan_one_ref(times: torch.Tensor, occ: torch.Tensor, s: int,
+                      t_du: int, t_now: int, n_pe: int) -> torch.Tensor:
+    """:func:`availscan_ref` of the one start ``s`` (a host integer) as
+    the early reject's int32[6 + W] row: ``n_free, t_begin, t_end, t_s,
+    t_e, found`` (0), then the empty PE mask."""
+    starts = torch.tensor([s], dtype=torch.int32, device=times.device)
+    n_free, t_begin, t_end = availscan_ref(times, occ, starts, t_du, t_now,
+                                           n_pe)
+    return _one_row(s, t_du, occ.shape[1], (n_free, t_begin, t_end))
+
+
+def availscan_one_mr_ref(times: torch.Tensor, occ: torch.Tensor, s: int,
+                         valid_mask: torch.Tensor,
+                         plane_of_word: torch.Tensor, n_planes: int,
+                         t_du: int, t_now: int) -> torch.Tensor:
+    """Multi-resource :func:`availscan_one_ref`: int32[R + 5 + W], the
+    other planes' counts (R - 1) right after ``t_end``."""
+    starts = torch.tensor([s], dtype=torch.int32, device=times.device)
+    n_free, tail, t_begin, t_end = availscan_mr_ref(
+        times, occ, starts, valid_mask, plane_of_word, n_planes, t_du, t_now)
+    return _one_row(s, t_du, occ.shape[1], (n_free, t_begin, t_end, tail))
 
 
 def select_row(starts: torch.Tensor, n_free: torch.Tensor,

@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]), ids=lambda p: p.name)
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "tools").glob("*.py")]), ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

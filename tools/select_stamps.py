@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Where a select call's time goes on the card: per-block clock stamps.
+"""Where a kernel call's time goes on the card: per-block clock stamps.
 
     python3 tools/select_stamps.py
 
 Builds an instrumented copy of ``src/repro_torch/kernels/csrc/
 availscan.cu`` into ``build/`` (thread 0 of each block writes
-``clock64()`` at named points of ``availscan_select_kernel``, and
-``%globaltimer`` at its entry and exit), runs ``availscan_select`` 30
-times at the paper's shape (S = 128, P = 258, 1024 PEs, the timeline
-``chip_smoke.py`` times) and prints, for the first blocks of the last
-call, the cycles from the block's entry to each point.  The stamps
-perturb what they measure a little; read them as where the cycles go,
-not as the kernel's time (``chip_smoke.py`` gives that).  The anchors
-are lines of the current source: the script fails if one is missing.
-Needs one CUDA card.
+``clock64()`` at named points of ``availscan_select_kernel`` and of
+``availscan_one_kernel``, and ``%globaltimer`` at their entry and exit),
+then:
+
+* runs ``availscan_select`` 30 times at the paper's shape (S = 128,
+  P = 258, 1024 PEs, the timeline ``chip_smoke.py`` times) and prints,
+  for the first blocks of the last call, the cycles from the block's
+  entry to each point;
+* runs the one-window kernel (``availscan_one``, the early reject's
+  rectangle) 30 times on the saturated stream's timeline (the state
+  after its 240 fills, capacity 256, 1024 PEs) at a probe whose blocking
+  records lie within the near band and at one with none on either side
+  (the far bands), and prints the same for its one block.
+
+The stamps perturb what they measure a little; read them as where the
+cycles go, not as the kernel's time (``chip_smoke.py`` gives that).
+The anchors are lines of the current source: the script fails if one
+is missing.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ POINTS = [
     ("  s_starts[tid] = s0;", 2, "times read"),
     ("  n_below = __reduce_add_sync(kFull, n_below);", 3, "starts read"),
     ("  int best[8];\n  sentinel_row(best);", 4, "first barrier"),
-    ("      warp_candidates<NW, kMr>(g, s_times, s_occ", 5, "staged"),
+    ("      warp_candidates<NW, kMr, kRects>(g, s_times, s_occ", 5, "staged"),
     ("  // the block's row: fold the warps' rows in warp 0", 6, "scored"),
     ("  int row[8];\n  if (lane < kWarps)", 7, "fold barrier"),
     ("  if (gridDim.x == 1) {\n    if (lane == 0) write_row(out, row);", 8,
@@ -45,6 +54,22 @@ POINTS = [
 ]
 END = ("    *reinterpret_cast<volatile int*>(counter) = 0;   "
        "// for the next call\n  }\n}")
+# the one-window kernel's points, in slots of their own
+ONE_POINTS = [
+    ("  const int s = g.s;", 12, "entry"),
+    ("  for (int w = tid; w < g.W; w += kThreads) s_busy[w] = 0u;", 13,
+     "times read"),
+    ("  na = nb = nl = 0;", 14, "round 1 barrier"),
+    ("#pragma unroll\n  for (int j = 0; j < NW; ++j)\n"
+     "    if (busy[j]) atomicOr(", 15, "window ORed"),
+    ("  // the window's busy and free words, in every warp; the counts", 16,
+     "fold barrier"),
+    ("  // The far bands, only for a side whose near band holds no", 17,
+     "near band tested"),
+    ("  // t_begin: the end of the nearest blocking record on the left,", 18,
+     "far bands done"),
+]
+ONE_END = "            kMr ? s_cnt : nullptr, tid);\n}"
 
 
 def instrumented_source() -> str:
@@ -56,15 +81,16 @@ def instrumented_source() -> str:
             "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
             "g_stamps[blockIdx.x][k] = t; } } while (0)\n")
     src = src.replace("namespace {\n", "namespace {\n" + head, 1)
-    for anchor, k, _ in POINTS:
+    for anchor, k, _ in POINTS + ONE_POINTS:
         if anchor not in src:
             raise SystemExit(f"anchor missing from availscan.cu: {anchor!r}")
-        extra = f"GTIME({SLOTS - 2}); " if k == 0 else ""
+        extra = f"GTIME({SLOTS - 2}); " if k in (0, 12) else ""
         src = src.replace(anchor, f"  {extra}STAMP({k});\n" + anchor, 1)
-    if END not in src:
-        raise SystemExit("end anchor missing from availscan.cu")
-    src = src.replace(END, END[:-1] + f"  STAMP(10); GTIME({SLOTS - 1});\n}}",
-                      1)
+    for end, k in ((END, 10), (ONE_END, 19)):
+        if end not in src:
+            raise SystemExit("end anchor missing from availscan.cu")
+        src = src.replace(end, end[:-1] + f"  STAMP({k}); GTIME({SLOTS - 1});"
+                          "\n}", 1)
     return src + ('\nextern "C" int stamps_read(void* dst) { return (int)'
                   'cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps)); }\n')
 
@@ -90,6 +116,7 @@ def main() -> int:
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.availscan_select.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+    lib.availscan_one.argtypes = [ptr] * 2 + [i32, ptr] + [i32] * 5 + [ptr]
     lib.availscan_select_scratch_ints.restype = i32
     lib.stamps_read.argtypes = [ptr]
     dev = torch.device("cuda")
@@ -121,15 +148,66 @@ def main() -> int:
           f"{int((times_np < C.T_INF).sum())}; cycles from each block's "
           f"entry (- where the block did not pass)")
     for b in range(5):
-        row = stamps[b]
-        cells = [f"{names[k]} {row[k] - row[0] if row[k] else '-'}"
-                 for k in range(11)]
-        print(f"block {b}: " + ", ".join(cells))
-        if row[SLOTS - 1]:
-            ns = row[SLOTS - 1] - row[SLOTS - 2]
-            print(f"  entry to end {ns} ns, {row[10] - row[0]} cycles: "
-                  f"{(row[10] - row[0]) / ns:.3f} GHz")
+        print_row(f"block {b}", stamps[b], names, range(11))
+    one_window(lib, dev, stamps)
     return 0
+
+
+def print_row(label, row, names, slots) -> None:
+    first, last = slots[0], slots[-1]
+    cells = [f"{names[k]} {row[k] - row[first] if row[k] else '-'}"
+             for k in slots]
+    print(f"{label}: " + ", ".join(cells))
+    if row[SLOTS - 1]:
+        ns = row[SLOTS - 1] - row[SLOTS - 2]
+        print(f"  entry to end {ns} ns, {row[last] - row[first]} cycles: "
+              f"{(row[last] - row[first]) / ns:.3f} GHz")
+
+
+def one_window(lib, dev, stamps) -> None:
+    """The one-window kernel on the saturated timeline, at a near-band
+    probe and a far-band one."""
+    import torch
+    import chip_smoke as C
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.types import Policy
+    from repro_torch.core.words import to_uint32
+
+    jobs = C.saturated_jobs()
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, policy=Policy.PE_W, capacity=256, chunk_size=None,
+        index_tile=32, device=dev)).session()
+    sess.offer(jobs[:240])
+    tl = sess.engine.tl
+    times_np = tl.times.cpu().numpy()
+    occ_np = to_uint32(tl.occ.cpu().numpy())
+    picks = {}
+    for j in jobs[240:]:
+        s0 = min(j.t_r, j.t_dl - j.t_du)
+        _, per, _ = C._touched(times_np, occ_np, np.asarray([s0], np.int32),
+                               j.t_du, lambda b: ~b)
+        _, _, n_left, n_right = per[0]
+        kind = "near" if max(n_left, n_right) <= 8 else "far"
+        picks.setdefault(kind, (j, s0, per[0]))
+    S, W = occ_np.shape
+    out = torch.empty(6 + W, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = {k: n for _, k, n in ONE_POINTS}
+    names[19] = "end"
+    print(f"one-window kernel, saturated timeline: S = {S}, "
+          f"{int((times_np < C.T_INF).sum())} live records")
+    for kind, (j, s0, (n_win, _, n_left, n_right)) in sorted(picks.items()):
+        for _ in range(30):
+            rc = lib.availscan_one(tl.times.data_ptr(), tl.occ.data_ptr(),
+                                   s0, out.data_ptr(), S, W, j.t_du, j.t_a,
+                                   1024, stream)
+            if rc:
+                raise SystemExit(f"launch failed: CUDA error {rc}")
+            torch.cuda.synchronize()
+        lib.stamps_read(stamps.ctypes.data)
+        print_row(f"{kind} probe ({n_win} window rows, {n_left} scanned "
+                  f"left, {n_right} right)", stamps[0], names,
+                  list(range(12, 20)))
 
 
 if __name__ == "__main__":
