@@ -1892,6 +1892,317 @@ def host_engines(jobs, dev) -> None:
               f"session ({n / host_s:.1f} requests/s on the host)")
 
 
+# ---------------------------------------------------------------------------
+# backfilling: the deferral queue through admit_stream_grow and a session
+# ---------------------------------------------------------------------------
+
+BF_QUEUE = 8              # deferral-queue entries of every backfill run
+BF_OFFERS = (40, 50)      # the cancelling session: offers x requests each
+
+
+def _state_records(state):
+    from repro_torch.core.batch import mask32_to_ids
+    return [(int(t), frozenset(mask32_to_ids(o)))
+            for t, o in zip(state.tl.times.cpu().numpy(),
+                            state.tl.occ.cpu().numpy()) if t < T_INF]
+
+
+def _bf_stream(jobs, dev, mode, *, rspec=None, index_tile=None):
+    """``admit_stream_grow`` of ``jobs`` under ``mode`` on the card (PE_W,
+    capacity 128, 256 pending slots, a queue of ``BF_QUEUE`` entries; no
+    queue under ``none``, as on the main path); launches counted."""
+    import torch
+    from repro_torch.core import batch as B
+    from repro_torch.core import timeline as T
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    state = T.init_state(128, 1024, 256, device=dev,
+                         park_capacity=0 if mode == "none" else BF_QUEUE,
+                         rspec=rspec, index_tile=index_tile)
+    batch = B.requests_to_batch(jobs, dev,
+                                0 if rspec is None else rspec.R - 1)
+    stats = B.StreamStats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out, dec = B.admit_stream_grow(state, batch, Policy.PE_W, n_pe=1024,
+                                   backfill=mode, stats=stats)
+    acc, ts, parked = (x.cpu().numpy() for x in (dec.accepted, dec.t_s,
+                                                 dec.parked))
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    return dict(out=out, dec=dec, stats=stats, wall=wall, launches=launches,
+                trace=[(bool(a), int(t)) for a, t in zip(acc, ts)],
+                parked=[bool(p) for p in parked])
+
+
+def _searches(st) -> int:
+    """Select launches a run needs: one per full admit search, plus the
+    retry sweep's and the displacements' searches."""
+    return (st.steps - st.early_rejects + st.retry_searches
+            + st.displace_searches)
+
+
+def _hold_bf(label, run, oracle, jobs, select: str) -> None:
+    """A backfill run against ``oracle`` run on the same jobs: decisions,
+    parked flags, records, queue and counters; one select launch per
+    search."""
+    from repro_torch.core.batch import parked_entries
+    want = [oracle.admit(j) for j in jobs]
+    if run["trace"] != [w[:2] for w in want]:
+        fail(f"{label}: decisions differ from the oracle "
+             f"{_first_diff(run['trace'], [w[:2] for w in want])}")
+    if run["parked"] != [w[2] for w in want]:
+        fail(f"{label}: parked flags differ from the oracle")
+    out = run["out"]
+    if _state_records(out) != oracle.records():
+        fail(f"{label}: records differ from the oracle's")
+    if parked_entries(out) != oracle.pending():
+        fail(f"{label}: the deferral queue differs from the oracle's")
+    got = (0, 0, 0) if not out.park_capacity else (
+        int(out.n_parked), int(out.n_promoted), int(out.n_moved))
+    if got != (oracle.n_parked, oracle.n_promoted, oracle.n_moved):
+        fail(f"{label}: counters {got} vs the oracle's "
+             f"{(oracle.n_parked, oracle.n_promoted, oracle.n_moved)}")
+    st = run["stats"]
+    if run["launches"][select] != _searches(st):
+        fail(f"{label}: {run['launches'][select]} {select} launches for "
+             f"{_searches(st)} searches ({st})")
+
+
+def _bf_line(label, run, n) -> str:
+    st = run["stats"]
+    return (f"{label}: {n / run['wall']:.1f} requests/s, host syncs "
+            f"{st.host_syncs} = {st.host_syncs / n:.3f} per request, "
+            f"searches {st.steps} admit ({st.early_rejects} early rejects) + "
+            f"{st.retry_searches} retry + {st.displace_searches} "
+            f"displacement = {_searches(st)} select launches, "
+            f"{st.displacements} displacements tried")
+
+
+def backfill_streams(jobs, plain, dev, rows: dict) -> dict:
+    """``none``, conservative and EASY on the paper stream through
+    ``admit_stream_grow``, held against ``BackfillOracle``; conservative
+    decides as the main path."""
+    from repro_torch.core.hostsched import BackfillOracle
+    from repro_torch.core.types import Policy
+
+    n = len(jobs)
+    runs = {m: _bf_stream(jobs, dev, m)
+            for m in ("none", "conservative", "easy")}
+    if runs["none"]["trace"] != plain.decisions:
+        fail("backfill none: decisions differ from the main path")
+    if runs["conservative"]["trace"] != plain.decisions:
+        fail("conservative backfilling decides differently from the main "
+             f"path {_first_diff(runs['conservative']['trace'], plain.decisions)}")
+    for mode in ("none", "conservative", "easy"):
+        _hold_bf(f"backfill {mode}", runs[mode],
+                 BackfillOracle(1024, Policy.PE_W, mode,
+                                park_capacity=BF_QUEUE), jobs,
+                 "availscan_select")
+        print(_bf_line(f"backfill {mode}", runs[mode], n))
+    cons, easy = runs["conservative"], runs["easy"]
+    if not int(cons["out"].n_parked) or int(cons["out"].n_moved):
+        fail("conservative: nothing parked, or a reservation moved")
+    if not int(easy["out"].n_parked) or not easy["stats"].displacements \
+            or not int(easy["out"].n_moved):
+        fail("EASY: nothing parked, no displacement tried, or none moved")
+    for mode in ("conservative", "easy"):
+        out = runs[mode]["out"]
+        print(f"backfill {mode}: accepted {sum(a for a, _ in runs[mode]['trace'])}"
+              f" of {n}, parked {int(out.n_parked)}, promoted "
+              f"{int(out.n_promoted)}, moved {int(out.n_moved)}; identical "
+              f"to BackfillOracle")
+    rows["availscan_select"]["launches_backfill"] = {
+        m: runs[m]["launches"]["availscan_select"] for m in runs}
+    return runs
+
+
+def backfill_session(jobs, dev, rows: dict) -> None:
+    """An EASY pipelined session that cancels the queue's tail after each
+    offer, held against the oracle doing the same; one snapshot and
+    restore mid-stream."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import BackfillOracle
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    n_offers, size = BF_OFFERS
+    jobs = jobs[:n_offers * size]
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, policy=Policy.PE_W, capacity=128, pending_capacity=256,
+        backfill="easy", backfill_queue=BF_QUEUE, chunk_size=64,
+        ring_capacity=256, device=dev)).session()
+    oracle = BackfillOracle(1024, Policy.PE_W, "easy",
+                            park_capacity=BF_QUEUE)
+    got, want, cancels = [], [], 0
+    K.reset_launches()
+    wall = 0.0
+    for k in range(n_offers):
+        piece = jobs[k * size:(k + 1) * size]
+        t0 = time.perf_counter()
+        if k == n_offers // 2:
+            snap = sess.snapshot()
+            once = _decisions([sess.offer(piece)])[1]
+            sess.restore(snap)
+        res = sess.offer(piece)
+        got += _decisions([res])[1]
+        tail = sess.pending()
+        if tail:
+            e = tail[-1]
+            ok = sess.cancel(t_s=e["t_s"], t_e=e["t_e"], pe_ids=e["pe_ids"])
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        want += [oracle.admit(j)[:2] for j in piece]
+        if k == n_offers // 2 and once != got[-size:]:
+            fail("backfill session: the offer replayed after restore "
+                 "decides differently")
+        if tail != oracle.pending():
+            fail(f"backfill session: the queue differs from the oracle's "
+                 f"after offer {k}")
+        if tail:
+            if not ok or not oracle.cancel(e["t_s"], e["t_e"], e["pe_ids"]):
+                fail(f"backfill session: cancelling {e} failed")
+            cancels += 1
+    launches = K.LAUNCHES["availscan_select"]
+    if got != want:
+        fail(f"backfill session: decisions differ from the oracle "
+             f"{_first_diff(got, want)}")
+    if sess.records() != oracle.records():
+        fail("backfill session: records differ from the oracle's")
+    m = sess.metrics()
+    moves = {e: sum(1 for mv in oracle.moves if mv[4] == e)
+             for e in ("retry", "displace")}
+    if (m["n_parked"], m["n_promoted"], m["n_moved"]) != (
+            oracle.n_parked, oracle.n_promoted, oracle.n_moved):
+        fail(f"backfill session: counters differ from the oracle's "
+             f"({m['n_parked']}, {m['n_promoted']}, {m['n_moved']})")
+    if not moves["retry"] or not moves["displace"] or not m["n_parked"]:
+        fail(f"backfill session: nothing parked or no move of a kind {moves}")
+    # the snapshot's discarded offer ran its searches too
+    st = sess._backend.stats
+    if launches != _searches(st):
+        fail(f"backfill session: {launches} select launches for "
+             f"{_searches(st)} searches")
+    rows["availscan_select"]["launches_backfill"]["session"] = launches
+    n = len(jobs)
+    print(f"backfill session (EASY, pipelined, chunks of 64): {n_offers} "
+          f"offers of {size}, {cancels} cancels of the queue's tail: "
+          f"accepted {sum(a for a, _ in got)}, moves {moves['retry']} by the "
+          f"retry sweep and {moves['displace']} by displacement, parked "
+          f"{m['n_parked']}; identical to BackfillOracle, snapshot/restore "
+          f"replays alike; {(n + size) / wall:.1f} requests/s over the "
+          f"session's verbs ({n + size} requests admitted, the replayed "
+          f"offer included; the oracle excluded), host syncs "
+          f"{m['host_syncs']} = {m['host_syncs'] / (n + size):.3f} per "
+          f"request, select launches {launches} = "
+          f"{m['steps']} steps - {m['early_rejects']} early rejects + "
+          f"{m['retry_searches']} retry + {m['displace_searches']} "
+          f"displacement searches")
+
+
+def backfill_mr(jobs_mr, dev, rows: dict) -> None:
+    """EASY on the stamped paper stream at R = 4, held against
+    ``MultiResourceOracle``."""
+    from repro_torch.core.hostsched import MultiResourceOracle
+    from repro_torch.core.resources import ResourceSpec
+    from repro_torch.core.types import Policy
+
+    spec = ResourceSpec(MR_UNITS)
+    run = _bf_stream(jobs_mr, dev, "easy", rspec=spec)
+    _hold_bf("backfill R = 4", run,
+             MultiResourceOracle(spec, Policy.PE_W, "easy",
+                                 park_capacity=BF_QUEUE), jobs_mr,
+             "availscan_select_mr")
+    out = run["out"]
+    if not int(out.n_parked) or not run["stats"].displacements:
+        fail("backfill R = 4: nothing parked or no displacement tried")
+    rows["availscan_select_mr"]["launches_backfill"] = \
+        run["launches"]["availscan_select_mr"]
+    print(_bf_line("backfill R = 4 (EASY)", run, len(jobs_mr)))
+    print(f"backfill R = 4: accepted {sum(a for a, _ in run['trace'])}, "
+          f"parked {int(out.n_parked)}, moved {int(out.n_moved)}; identical "
+          f"to MultiResourceOracle")
+
+
+def backfill_indexed(jobs, easy, dev, rows: dict) -> None:
+    """EASY with the availability index (tile 16): every Decision field
+    and the queue equal the index-free run's."""
+    import torch
+    from repro_torch.core.batch import parked_entries
+
+    run = _bf_stream(jobs, dev, "easy", index_tile=16)
+    for f in easy["dec"]._fields:
+        if not torch.equal(getattr(run["dec"], f), getattr(easy["dec"], f)):
+            fail(f"backfill indexed: Decision.{f} differs from the "
+                 f"index-free run")
+    if parked_entries(run["out"]) != parked_entries(easy["out"]):
+        fail("backfill indexed: the queue differs from the index-free run")
+    st = run["stats"]
+    if run["launches"]["availscan_select"] != _searches(st) or \
+            run["launches"]["availscan"] != st.early_rejects:
+        fail(f"backfill indexed: launches {run['launches']} for {st}")
+    rows["availscan"]["launches_backfill_indexed"] = \
+        run["launches"]["availscan"]
+    print(_bf_line("backfill EASY, index tile 16", run, len(jobs)))
+    print(f"backfill indexed: identical to the index-free EASY run; "
+          f"{st.early_rejects} early rejects, {st.reject_displacements} of "
+          f"them followed by a displacement")
+
+
+def backfill_profile(jobs, dev, n_steps: int = 300) -> None:
+    """Kernels per EASY step in a :func:`profiled_window`, and the host
+    syncs of a step whose queue stays idle against a ``none`` step."""
+    import torch
+    from repro_torch.core import batch as B
+    from repro_torch.core import timeline as T
+    from repro_torch.core.types import Policy
+
+    def stream(js, mode, stats=None, policy=Policy.PE_W):
+        state = T.init_state(128, 1024, 256, device=dev,
+                             park_capacity=0 if mode == "none" else BF_QUEUE)
+        return B.admit_stream(state, B.requests_to_batch(js, dev),
+                              policy, mode, n_pe=1024, stats=stats)
+
+    few = jobs[:n_steps]
+    stream(few, "easy")                                            # warm
+    torch.cuda.synchronize()
+    stats = B.StreamStats()
+    with profiled_window() as prof:
+        t0 = time.perf_counter()
+        out, _ = stream(few, "easy", stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = profiled_events(prof)
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    n_kernels = sum(e.count for e in events)
+    print(f"profiled {n_steps} EASY steps: wall {wall:.3f} s "
+          f"({wall / n_steps * 1e3:.3f} ms/step, profiler on), device busy "
+          f"{busy_s:.4f} s, idle share {1 - busy_s / wall:.4f}, "
+          f"{n_kernels / n_steps:.1f} kernels/step, "
+          f"{stats.host_syncs / n_steps:.3f} host syncs/step, "
+          f"{_searches(stats) / n_steps:.3f} searches/step, parked "
+          f"{int(out.n_parked)}")
+    # an idle queue: under First Fit one-PE requests start at their
+    # ready time, so nothing ever parks
+    idle = [dataclasses.replace(j, n_pe=1) for j in few]
+    syncs = {}
+    for mode in ("none", "easy"):
+        st = B.StreamStats()
+        out, dec = stream(idle, mode, st, Policy.FF)
+        if mode == "easy" and (int(out.n_parked) or bool(dec.parked.any())):
+            fail("idle-queue stream parked a request")
+        syncs[mode] = st.host_syncs
+    if syncs["easy"] != syncs["none"]:
+        fail(f"an EASY step with an idle queue reads more than a none step: "
+             f"{syncs}")
+    print(f"idle queue ({n_steps} one-PE requests, First Fit, nothing "
+          f"parks): host "
+          f"syncs none {syncs['none']}, EASY {syncs['easy']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1969,6 +2280,14 @@ def main(argv=None) -> int:
     session_variants(jobs_mr, paper, dev, args.n_event_loop)
     print(f"multi-resource session phases took "
           f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bf = backfill_streams(jobs, plain, dev, rows)
+    backfill_session(jobs, dev, rows)
+    backfill_mr(stamp(jobs, MR_UNITS), dev, rows)
+    backfill_indexed(jobs, bf["easy"], dev, rows)
+    backfill_profile(jobs, dev)
+    print(f"backfill phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pipelined_paths(jobs_mr, dev, rows)

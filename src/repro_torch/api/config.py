@@ -8,8 +8,8 @@ does, and adds ``device``.  ``donate`` keeps its name and default but
 not its mechanism: PyTorch has no buffer donation, so the field only
 selects the reference's pipelined offer (see ``ServiceConfig``).  A
 session runs one device timeline, or one of the host engines; fields
-that ask for more (ensemble lanes, partitions, backfilling, tenants)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+that ask for more (ensemble lanes, partitions, tenants) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -72,6 +72,13 @@ class ServiceConfig:
         chunk's latch before the next one starts.  Decisions are the
         same.  A snapshot or restore sends later offers down the eager
         path until the next admission, as in the reference.
+    ``backfill`` / ``backfill_queue``
+        ``"easy"`` or ``"conservative"`` parks each accepted request
+        that starts after its ready time in a deferral queue of
+        ``backfill_queue`` entries: conservative never moves it (the
+        decisions of ``"none"``), EASY may pull it earlier after a
+        cancel or move it to admit a request that would otherwise be
+        rejected.  One lane; a 1-tuple is its per-lane spelling.
     ``index_tile``
         Attaches the availability index (tiles of ``index_tile``
         records, a power of two dividing ``capacity``): early rejects
@@ -258,7 +265,6 @@ class ServiceConfig:
         for on, what, item in (
                 (self.lanes > 1, "lanes > 1", "A12"),
                 (self.n_partitions > 1, "n_partitions > 1", "A15"),
-                (self.backfilling, f"backfill={self.backfill!r}", "A11"),
                 (self.tenants is not None, "tenants", "A14")):
             if on:
                 raise NotImplementedError(
@@ -297,6 +303,11 @@ class ServiceConfig:
         bf = self.backfill
         modes = (bf,) if isinstance(bf, str) else bf
         return any(m != BackfillMode.NONE.value for m in modes)
+
+    @property
+    def park_capacity(self) -> int:
+        """Deferral-queue size: 0 when no lane backfills."""
+        return self.backfill_queue if self.backfilling else 0
 
     def replace(self, **changes) -> "ServiceConfig":
         return dataclasses.replace(self, **changes)

@@ -19,9 +19,11 @@ The port's copy of ``repro/api/service.py`` for one-lane sessions.  A
 ``snapshot()`` / ``restore(...)``
     Capture and rewind the whole session.  States are never written in
     place, so a snapshot holds references, not copies.
+``pending()``
+    The backfilling deferral queue, FCFS order.
 ``metrics()``
-    Admission counters, growths, capacities, ring geometry and the host
-    syncs the session paid.
+    Admission counters, growths, capacities, ring geometry, the host
+    syncs the session paid and, when backfilling, the queue's counters.
 
 Capacity overflow grows once to the high-water mark the failed
 dispatch recorded and re-runs that chunk, so chunked decisions equal a
@@ -282,8 +284,14 @@ class Session:
         return self._backend.records()
 
     def pending(self, lane: int = 0) -> list:
-        """The backfilling deferral queue: always empty, since the port
-        does not run backfilling yet (ROADMAP A11)."""
+        """The live backfilling deferral queue, FCFS order.
+
+        One dict per parked reservation (``seq``/``t_s``/``t_e``/
+        ``t_r``/``t_dl``/``n_pe``/``pe_ids``, plus ``demand`` on
+        multi-resource sessions); the first entry is the head of queue.
+        Empty on sessions that do not backfill.  ``lane`` belongs to
+        ensemble sessions and must stay 0.
+        """
         return self._backend.pending(lane)
 
     def metrics(self) -> Dict[str, Any]:
@@ -422,9 +430,12 @@ class _StreamBackend(_BackendBase):
         self.engine = DeviceEngine(
             cfg.n_pe, capacity=cfg.capacity, use_kernel=cfg.use_kernel,
             pending_capacity=cfg.pending_capacity, device=cfg.device,
-            rspec=cfg.rspec, live_units=mu[0] if mu is not None else None,
+            park_capacity=cfg.park_capacity, rspec=cfg.rspec,
+            live_units=mu[0] if mu is not None else None,
             index_tile=cfg.index_tile)
         self._rspec = cfg.rspec
+        self._bf = batch_lib.BF_NONE if not cfg.backfilling else \
+            batch_lib.as_backfill_id(cfg.backfill)
         self.device = self.engine.tl.device
         self.ring = (RequestRing(cfg.ring_capacity,
                                  extra_demand=cfg.extra_demand)
@@ -466,7 +477,7 @@ class _StreamBackend(_BackendBase):
         try:
             state, dec = batch_lib.admit_stream_grow(
                 self._state, batch, pid, n_pe=self.cfg.n_pe,
-                auto_release=self.cfg.auto_release,
+                backfill=self._bf, auto_release=self.cfg.auto_release,
                 use_kernel=self.cfg.use_kernel,
                 max_growths=self.growth_budget, stats=self.stats,
                 donate=self._donate_ok())
@@ -500,6 +511,12 @@ class _StreamBackend(_BackendBase):
     def records(self):
         self._drain_inflight()
         return self.engine.records()
+
+    def pending(self, lane: int = 0) -> list:
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
+        self._drain_inflight()
+        return batch_lib.parked_entries(self._state)
 
     def offer(self, requests, *, policy, routing, flush) -> OfferResult:
         if routing is not None:
@@ -608,7 +625,7 @@ class _StreamBackend(_BackendBase):
         def dispatch(cur) -> None:
             batch, valid = cur
             state, dec = batch_lib.admit_stream_donated(
-                self._state, batch, pid, n_pe=self.cfg.n_pe,
+                self._state, batch, pid, self._bf, n_pe=self.cfg.n_pe,
                 auto_release=self.cfg.auto_release,
                 use_kernel=self.cfg.use_kernel, stats=self.stats)
             self._state = state
@@ -819,7 +836,16 @@ class _StreamBackend(_BackendBase):
     def _refresh_dev_metrics(self) -> None:
         """One host read of every state-derived counter."""
         s = self._state
-        self._dev_metrics = dict(n_pending=int((s.pend_te != T_INF).sum()))
+        n_pending = (s.pend_te != T_INF).sum()
+        if not self.cfg.backfilling:
+            self._dev_metrics = dict(n_pending=int(n_pending))
+            return
+        vals = dict(n_pending=n_pending.to(torch.int32),
+                    n_parked_now=(s.park_seq != T_INF).sum().to(torch.int32),
+                    n_parked=s.n_parked, n_promoted=s.n_promoted,
+                    n_moved=s.n_moved)
+        host = torch.stack(list(vals.values())).cpu().tolist()
+        self._dev_metrics = dict(zip(vals, (int(v) for v in host)))
 
     def metrics(self) -> Dict[str, Any]:
         # an idle poll (nothing in flight, nothing deferred, the cache
@@ -840,6 +866,13 @@ class _StreamBackend(_BackendBase):
             out.update(ring_capacity=self.ring.capacity,
                        ring_staged=self.ring.count,
                        ring_wrapped=self.ring.wrapped)
+        if self.cfg.backfilling:
+            st = self.stats
+            out.update(park_capacity=self._state.park_capacity,
+                       retry_searches=st.retry_searches,
+                       displace_searches=st.displace_searches,
+                       displacements=st.displacements,
+                       reject_displacements=st.reject_displacements)
         return out
 
 

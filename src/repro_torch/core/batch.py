@@ -31,10 +31,30 @@ each step hands its row of the batch's ``demand`` column (the
 secondary planes' demands, int32[R-1], on the device) and the lane's
 ``lane_valid`` mask to the search.  Streaming arrivals stage through
 the host-side :class:`RequestRing` and leave as fixed-shape chunks.
+
+Backfilling.  A state with a deferral queue (``park_capacity > 0``)
+admits under a backfill mode (:data:`BF_NONE`, :data:`BF_EASY`,
+:data:`BF_CONSERVATIVE`): an accepted request that starts after its
+ready time parks in the queue; a parked reservation whose start has
+arrived is promoted into the pending-release buffer; under EASY a
+cancel arms a retry sweep that pulls parked reservations earlier, and
+an otherwise rejected request may displace the non-head entries
+(:func:`_displace`).  The reference hides the queue work behind
+``lax.cond``; here the host branches, and reads what it branches on in
+the transfers the step already makes: the queue's predicates come with
+the release loop's first flag, so a step whose queue is idle costs the
+syncs of a ``none`` step.  A sweep or a displacement reads the queue's
+FCFS order once, and the searches inside them run without the index's
+early reject (it never changes an answer, and the loops use only
+``found``, ``t_s`` and the mask), so they read nothing else per
+iteration; a displacement reads once more whether the request itself
+fits around the lifted entries.  Every accept or rollback inside them
+stays on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,9 +68,11 @@ from repro_torch.core.timeline import I32, SchedulerState
 from repro_torch.core.types import (
     Allocation,
     ARRequest,
+    BackfillMode,
     Policy,
     Rectangle,
     T_INF,
+    backfill_index,
 )
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -59,6 +81,27 @@ MAX_DOUBLINGS = 8
 
 # Due reservations deleted per release pass (one update_many call).
 RELEASE_CHUNK = 8
+
+# Backfill mode ids (see repro_torch.core.types.BackfillMode).
+BF_NONE = backfill_index(BackfillMode.NONE)
+BF_EASY = backfill_index(BackfillMode.EASY)
+BF_CONSERVATIVE = backfill_index(BackfillMode.CONSERVATIVE)
+
+
+def as_backfill_id(backfill) -> int:
+    """Any backfill spelling -> its integer id.
+
+    Accepts a mode name, a :class:`~repro_torch.core.types.BackfillMode`,
+    a validated id, or a 1-tuple (the one-lane spelling of the per-lane
+    config form).
+    """
+    if isinstance(backfill, (tuple, list)):
+        if len(backfill) != 1:
+            raise ValueError(
+                f"{len(backfill)} backfill modes for a single lane "
+                f"(per-lane tuples belong to ensemble callers)")
+        backfill = backfill[0]
+    return backfill_index(backfill)
 
 
 class RequestBatch(NamedTuple):
@@ -91,7 +134,7 @@ class Decision(NamedTuple):
     n_free: torch.Tensor    # int32 winning-rectangle free PEs
     t_begin: torch.Tensor   # int32 winning-rectangle begin
     t_end: torch.Tensor     # int32 winning-rectangle end
-    parked: torch.Tensor    # bool; always False (no deferral queue)
+    parked: torch.Tensor    # bool: accepted into the deferral queue
 
 
 @dataclasses.dataclass
@@ -103,6 +146,16 @@ class StreamStats:
     release_passes: int = 0  # RELEASE_CHUNK passes (update_many calls)
     growths: int = 0         # overflow -> grow -> re-run cycles
     early_rejects: int = 0   # steps the index proved infeasible
+    # backfilling: the searches of the EASY retry sweep, and of the
+    # displacement transactions (the request's own and the
+    # re-placements); transactions tried, and those tried after an
+    # early reject.  A step's own search is one per step, so the select
+    # kernel runs steps - early_rejects + retry_searches +
+    # displace_searches times
+    retry_searches: int = 0
+    displace_searches: int = 0
+    displacements: int = 0
+    reject_displacements: int = 0
     # with count_candidates, int64[2] on the device (never read here):
     # live candidates the searches enumerated, and how many of them the
     # index pruned
@@ -360,38 +413,100 @@ def _where_tl(pred, if_true: tl_lib.Timeline,
 
 def _where_state(pred, if_true: SchedulerState,
                  if_false: SchedulerState) -> SchedulerState:
-    """Field-wise select of two states of one layout."""
+    """Field-wise select of two states of one layout (a state without a
+    deferral queue has ``None`` there, and nothing is selected)."""
     return if_true._replace(**{
         f: (_where_tl if f == "tl" else torch.where)(
             pred, getattr(if_true, f), getattr(if_false, f))
-        for f in _STEP_FIELDS})
+        for f in _STEP_FIELDS if getattr(if_true, f) is not None})
+
+
+def _read(stats: Optional[StreamStats], xs: List[torch.Tensor]) -> List[int]:
+    """One host read of 0-d device values (bools, or int32 with them)."""
+    if len(xs) == 1:
+        vals = [int(xs[0])]
+    else:
+        if any(x.dtype != torch.bool for x in xs):
+            xs = [x.to(I32) for x in xs]
+        vals = [int(v) for v in torch.stack(xs).cpu().tolist()]
+    if stats is not None:
+        stats.sync()
+    return vals
 
 
 def _release_then(state: SchedulerState, t_now: int,
-                  stats: Optional[StreamStats], probe=None
-                  ) -> Tuple[SchedulerState, Optional[bool]]:
-    """:func:`release_due`, plus ``probe(state)`` read with its last flag.
+                  stats: Optional[StreamStats], probe=None, stop=None
+                  ) -> Tuple[SchedulerState, List[int]]:
+    """:func:`release_due`, reading ``probe(state)`` with every flag.
 
-    ``probe`` maps the state to a 0-d bool on the device.  It is
-    computed with every "anything still due?" flag and read in the same
-    transfer; the reading that comes with the last flag (nothing due)
-    is of the released state, and is returned with it.
+    ``probe`` maps the state to a list of 0-d device values, computed
+    with each "anything still due?" flag and read in the same transfer.
+    Returns the state and the last read, ``[due, *probe]``: the reading
+    that comes with the last flag (nothing due) is of the released
+    state.  A read for which ``stop(values)`` holds ends the loop before
+    the release it announces.
     """
     while True:
         due = (state.pend_te <= t_now).any() & ~state.overflow
-        value = None
-        if probe is None:
-            due_h = bool(due)
-        else:
-            due_h, value = (bool(x) for x in
-                            torch.stack([due, probe(state)]).cpu())
-        if stats is not None:
-            stats.sync()
-        if not due_h:
-            return state, value
+        vals = _read(stats, [due] + ([] if probe is None else probe(state)))
+        if not vals[0] or (stop is not None and stop(vals)):
+            return state, vals
         state = _release_chunk(state, t_now)
         if stats is not None:
             stats.release_passes += 1
+
+
+def _promote_due(s: SchedulerState, t_now: int) -> SchedulerState:
+    """Commit the parked reservations whose start has arrived.
+
+    A queue entry with ``t_s <= t_now`` becomes immovable and moves to
+    the pending-release buffer, freeing its queue slot.  All due entries
+    promote in one pass: the k-th due entry in FCFS order takes the k-th
+    free pending slot in index order, so the pending arrays equal the
+    reference's, not just the records.  More due entries than free
+    slots latch ``overflow`` (``hw_pending`` K + 1).  The caller gates
+    it: the pass assumes something is due and nothing has overflowed.
+    """
+    K = s.pending_capacity
+    due = (s.park_seq < T_INF) & (s.park_ts <= t_now)
+    free = s.pend_te == T_INF
+    n_free = free.sum().to(I32)
+    n_due = due.sum().to(I32)
+    seq = torch.where(due, s.park_seq, T_INF)
+    # FCFS rank among due entries (sequence numbers are unique)
+    rank = ((seq[None, :] < seq[:, None]) & due[None, :]).sum(dim=1)
+    promoted = due & (rank < n_free)
+    frank = torch.cumsum(free, dim=0) - 1
+    # take[q, k]: queue entry q goes to pending slot k
+    take = promoted[:, None] & free[None, :] & (frank[None, :]
+                                                == rank[:, None])
+    got = take.any(dim=0)
+    src = take.to(I32).argmax(dim=0)
+
+    def scat(pend, park):
+        return torch.where(got if pend.dim() == 1 else got[:, None],
+                           park[src], pend)
+
+    ovf = n_due > n_free
+    n_prom = torch.minimum(n_due, n_free)
+    used0 = (~free).sum().to(I32)
+    return s._replace(
+        pend_ts=scat(s.pend_ts, s.park_ts),
+        pend_te=scat(s.pend_te, s.park_te),
+        pend_mask=scat(s.pend_mask, s.park_mask),
+        park_ts=torch.where(promoted, T_INF, s.park_ts),
+        park_te=torch.where(promoted, T_INF, s.park_te),
+        park_mask=torch.where(promoted[:, None], 0, s.park_mask),
+        park_seq=torch.where(promoted, T_INF, s.park_seq),
+        n_promoted=s.n_promoted + n_prom,
+        overflow=s.overflow | ovf,
+        hw_pending=torch.maximum(s.hw_pending, torch.where(
+            ovf, K + 1, used0 + n_prom).to(I32)))
+
+
+def _due_parked(s: SchedulerState, t_now: int) -> torch.Tensor:
+    """0-d bool: some live queue entry starts by ``t_now``."""
+    return ((s.park_seq < T_INF) & (s.park_ts <= t_now)).any() & ~s.overflow
 
 
 def release_due(state: SchedulerState, t_now: int,
@@ -401,7 +516,14 @@ def release_due(state: SchedulerState, t_now: int,
     The deletions commute and the timeline is canonical, so deleting
     them RELEASE_CHUNK at a time equals deleting them one by one.
     Each pass is preceded by one host read of "anything still due?".
+    With a deferral queue, the parked reservations whose start has
+    arrived are promoted first (selected on the device, no read), so a
+    due end among them is released in the same call: the session's
+    ``tick``.
     """
+    if state.park_capacity:
+        state = _where_state(_due_parked(state, t_now),
+                             _promote_due(state, t_now), state)
     return _release_then(state, t_now, stats)[0]
 
 
@@ -409,10 +531,264 @@ def release_due(state: SchedulerState, t_now: int,
 _STEP_FIELDS = tuple(f for f in SchedulerState._fields
                      if f not in ("lane_valid", "rspec"))
 
+# the queue's integer columns, as one host read lays them out
+_QUEUE_COLS = ("park_seq", "park_ts", "park_te", "park_tr", "park_tdl",
+               "park_npe")
+
+
+def _read_queue(s: SchedulerState, stats: Optional[StreamStats],
+                flags: Sequence[torch.Tensor] = ()
+                ) -> Tuple[Dict[str, np.ndarray], List[int]]:
+    """The queue's columns, and 0-d ``flags``, in one host read."""
+    cols = torch.stack([getattr(s, f) for f in _QUEUE_COLS]).reshape(-1)
+    if flags:
+        cols = torch.cat([cols, torch.stack(list(flags)).to(I32)])
+    host = cols.cpu().numpy()
+    if stats is not None:
+        stats.sync()
+    Q = s.park_capacity
+    q = {f: host[k * Q:(k + 1) * Q] for k, f in enumerate(_QUEUE_COLS)}
+    return q, [int(v) for v in host[len(_QUEUE_COLS) * Q:]]
+
+
+def _fcfs(q: Dict[str, np.ndarray]) -> List[int]:
+    """Live queue slots in FCFS order (ascending sequence number)."""
+    seq = q["park_seq"]
+    return [int(i) for i in np.argsort(seq, kind="stable") if seq[i] < T_INF]
+
+
+def _park_demand(s: SchedulerState, i: int) -> Optional[torch.Tensor]:
+    """Demand tail of queue entry ``i`` (``None`` on R = 1 states)."""
+    return None if s.park_dem is None else s.park_dem[i]
+
+
+def _retry_parked(s: SchedulerState, t_now: int, *, n_pe: int,
+                  use_kernel: bool, stats: Optional[StreamStats]
+                  ) -> SchedulerState:
+    """EASY retry-on-release sweep: pull parked reservations earlier.
+
+    In FCFS order each live entry is lifted off the timeline,
+    re-searched with :func:`~repro_torch.core.search.replacement_search`
+    (First Fit: the earliest feasible start) and moved only to a
+    strictly earlier start, so the sweep never delays anybody, the head
+    included.  It runs after a cancel armed ``park_retry``: completions
+    free only past capacity.  The queue is read once; every iteration's
+    accept stays on the device.
+    """
+    q, _ = _read_queue(s, stats)
+    idx = torch.arange(s.park_capacity, device=s.park_seq.device)
+    for i in _fcfs(q):
+        ts, te = int(q["park_ts"][i]), int(q["park_te"][i])
+        t_du = te - ts
+        act = ~s.overflow
+        tl1, ovf1, nk1 = tl_lib.update(s.tl, ts, te, s.park_mask[i],
+                                       is_add=False, with_count=True)
+        res = search_lib.replacement_search(
+            tl1, int(q["park_tr"][i]), t_du, int(q["park_tdl"][i]),
+            int(q["park_npe"][i]), 0, t_now, n_pe=n_pe,
+            use_kernel=use_kernel, rspec=s.rspec,
+            demand_tail=_park_demand(s, i), valid_mask=s.lane_valid,
+            reject=False)
+        if stats is not None:
+            stats.retry_searches += 1
+        better = act & ~ovf1 & res.found & (res.t_s < ts)
+        new_ts = torch.where(better, res.t_s, ts)
+        new_mk = torch.where(better, res.pe_mask, s.park_mask[i])
+        tl2, ovf2, nk2 = tl_lib.update(tl1, new_ts, new_ts + t_du, new_mk,
+                                       is_add=True, with_count=True)
+        apply = act & ~ovf1 & ~ovf2
+        moved = apply & better
+        hit = (idx == i) & moved
+        s = s._replace(
+            tl=_where_tl(apply, tl2, s.tl),
+            park_ts=torch.where(hit, new_ts, s.park_ts),
+            park_te=torch.where(hit, new_ts + t_du, s.park_te),
+            park_mask=torch.where(hit[:, None], new_mk[None, :], s.park_mask),
+            n_moved=s.n_moved + moved.to(I32),
+            overflow=s.overflow | (act & (ovf1 | ovf2)),
+            hw_records=torch.maximum(s.hw_records, torch.where(
+                act, torch.maximum(nk1, nk2), 0).to(I32)))
+    return s
+
+
+def _queue_then(state: SchedulerState, t_now: int, bf: int,
+                stats: Optional[StreamStats], probe, *, n_pe: int,
+                use_kernel: bool
+                ) -> Tuple[SchedulerState, Optional[bool], bool]:
+    """Queue work and release of one backfilling admit step.
+
+    As the reference's one queue-work ``lax.cond``: when a live entry is
+    due, or (EASY) a cancel armed the retry latch and the queue holds
+    anything, promote the due entries, release, then run the retry
+    sweep if it is still armed and the queue still holds entries;
+    otherwise only release.  The latch is consumed either way.  The
+    queue's predicates come with the release loop's first flag, so a
+    step whose queue is idle reads exactly what a ``none`` step reads.
+    ``probe`` (indexed timelines) gives the early-reject predicate of
+    the state the search will see.  Returns that state, the predicate,
+    and whether two or more entries are live (EASY displacement needs
+    two).
+    """
+    easy = bf == BF_EASY
+    extra = [] if probe is None else [probe]
+
+    def head(s):
+        live = s.park_seq < T_INF
+        promote = _due_parked(s, t_now)
+        work = promote
+        if easy:
+            work = work | (s.park_retry & live.any() & ~s.overflow)
+        return [work, promote, s.park_retry, live.sum() >= 2] + [
+            p(s) for p in extra]
+
+    state, v = _release_then(state, t_now, stats, head, stop=lambda v: v[1])
+    work, promote, retry, two_live = (bool(x) for x in v[1:5])
+    reject = bool(v[5]) if probe is not None else None
+    if work:
+        if promote:
+            state = _promote_due(state, t_now)
+
+        def after(s):
+            live = s.park_seq < T_INF
+            sweep = s.park_retry & live.any() & ~s.overflow
+            return [sweep, live.sum() >= 2] + [p(s) for p in extra]
+
+        state, v = _release_then(state, t_now, stats, after)
+        sweep, two_live = easy and bool(v[1]), bool(v[2])
+        reject = bool(v[3]) if probe is not None else None
+        if sweep:
+            state = _retry_parked(state, t_now, n_pe=n_pe,
+                                  use_kernel=use_kernel, stats=stats)
+            if probe is not None:
+                reject = bool(_read(stats, [probe(state)])[0])
+    if retry:
+        state = state._replace(park_retry=torch.zeros_like(state.park_retry))
+    return state, reject, two_live
+
+
+def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
+              q: Dict[str, np.ndarray], *, n_pe: int, use_kernel: bool,
+              stats: Optional[StreamStats], demand: Optional[torch.Tensor]
+              ) -> Tuple[SchedulerState, search_lib.SearchResult]:
+    """EASY displacement: admit ``req`` by moving non-head reservations.
+
+    The transaction: lift every non-head queue reservation off the
+    timeline in one ``update_many``, place the request (its own policy,
+    its whole window) around the committed reservations and the head,
+    then re-place the lifted entries in FCFS order at their earliest
+    feasible start inside their own windows.  The request is admitted
+    only if every lifted entry fits again; otherwise every field rolls
+    back (``overflow`` and the high-water marks aside: an overflow
+    inside the transaction latches whatever the outcome, so the host's
+    grow-and-re-run stays deterministic).  The head and every committed
+    start are untouched by construction.  ``q`` is the queue as read
+    on the host; whether the request fits around the lifted entries is
+    read once, and the re-placements run only if it does (with it
+    unplaced, each of them would change nothing).  Returns the state
+    and the request's search result, ``found`` the transaction's
+    outcome.
+    """
+    t_a, t_r, t_du, t_dl, n_req = req
+    live = s.park_seq < T_INF
+    head_seq = torch.where(live, s.park_seq, T_INF).min()
+    nonhead = live & (s.park_seq != head_seq)
+    tl, ovf, hw = tl_lib.update_many(s.tl, s.park_ts, s.park_te,
+                                     s.park_mask, nonhead, is_add=False,
+                                     with_count=True)
+    tl = _where_tl(ovf, s.tl, tl)
+    res_r = search_lib.search(
+        tl, t_r, t_du, t_dl, n_req, policy_id, t_a, n_pe=n_pe,
+        use_kernel=use_kernel, rspec=s.rspec, demand_tail=demand,
+        valid_mask=s.lane_valid, reject=False)
+    if stats is not None:
+        stats.displace_searches += 1
+    # a t_e at the horizon sentinel would commit as a no-op record:
+    # rejected, as in the admit step
+    ok = res_r.found & ~ovf & (res_r.t_e < T_INF)
+    if not _read(stats, [ok])[0]:
+        return s._replace(overflow=s.overflow | ovf,
+                          hw_records=torch.maximum(s.hw_records, hw)), \
+            res_r._replace(found=ok)
+    tl2, o2, nk2 = tl_lib.update(tl, res_r.t_s, res_r.t_e, res_r.pe_mask,
+                                 is_add=True, with_count=True)
+    ovf = ovf | o2
+    tl = _where_tl(o2, tl, tl2)
+    hw = torch.maximum(hw, nk2)
+    idx = torch.arange(s.park_capacity, device=s.park_seq.device)
+    pts, pte, pmk = s.park_ts, s.park_te, s.park_mask
+    moved = torch.zeros((), dtype=I32, device=idx.device)
+    for i in _fcfs(q)[1:]:
+        ts = int(q["park_ts"][i])
+        du = int(q["park_te"][i]) - ts
+        act = ok & ~ovf
+        res = search_lib.replacement_search(
+            tl, int(q["park_tr"][i]), du, int(q["park_tdl"][i]),
+            int(q["park_npe"][i]), 0, t_a, n_pe=n_pe,
+            use_kernel=use_kernel, rspec=s.rspec,
+            demand_tail=_park_demand(s, i), valid_mask=s.lane_valid,
+            reject=False)
+        if stats is not None:
+            stats.displace_searches += 1
+        okp = act & res.found
+        t2, o2, nk = tl_lib.update(
+            tl, torch.where(okp, res.t_s, 0),
+            torch.where(okp, res.t_s + du, 1),
+            torch.where(okp, res.pe_mask, 0), is_add=True, with_count=True)
+        tl = _where_tl(okp & ~o2, t2, tl)
+        ovf = ovf | (okp & o2)
+        hw = torch.maximum(hw, torch.where(okp, nk, 0).to(I32))
+        ok = ok & (res.found | ~act)
+        hit = (idx == i) & okp
+        pts = torch.where(hit, res.t_s, pts)
+        pte = torch.where(hit, res.t_s + du, pte)
+        pmk = torch.where(hit[:, None], res.pe_mask[None, :], pmk)
+        moved = moved + (okp & (res.t_s != ts)).to(I32)
+    commit = ok & ~ovf
+    return s._replace(
+        tl=_where_tl(commit, tl, s.tl),
+        park_ts=torch.where(commit, pts, s.park_ts),
+        park_te=torch.where(commit, pte, s.park_te),
+        park_mask=torch.where(commit, pmk, s.park_mask),
+        n_moved=s.n_moved + torch.where(commit, moved, 0),
+        overflow=s.overflow | ovf,
+        hw_records=torch.maximum(s.hw_records, hw)), \
+        res_r._replace(found=commit)
+
+
+def _park_write(o: SchedulerState, do: torch.Tensor, t_s: torch.Tensor,
+                t_e: torch.Tensor, pe_mask: torch.Tensor, t_r: int,
+                t_dl: int, n_req: int, demand: Optional[torch.Tensor]
+                ) -> SchedulerState:
+    """Book an accepted, delayed request into the first free queue slot
+    (where ``do``); it keeps its window and demand for re-placement."""
+    free = o.park_seq == T_INF
+    hit = (torch.arange(o.park_capacity, device=free.device)
+           == first_true(free)) & do
+    live = (~free).sum().to(I32) + 1
+    out = o._replace(
+        park_ts=torch.where(hit, t_s, o.park_ts),
+        park_te=torch.where(hit, t_e, o.park_te),
+        park_mask=torch.where(hit[:, None], pe_mask[None, :], o.park_mask),
+        park_tr=torch.where(hit, t_r, o.park_tr),
+        park_tdl=torch.where(hit, t_dl, o.park_tdl),
+        park_npe=torch.where(hit, n_req, o.park_npe),
+        park_seq=torch.where(hit, o.park_next_seq, o.park_seq),
+        park_next_seq=o.park_next_seq + do.to(I32),
+        n_parked=o.n_parked + do.to(I32),
+        hw_parked=torch.where(do, torch.maximum(o.hw_parked, live),
+                              o.hw_parked))
+    if o.park_dem is not None:
+        row = (torch.zeros_like(o.park_dem[0]) if demand is None
+               else demand.to(I32))
+        out = out._replace(park_dem=torch.where(hit[:, None], row[None, :],
+                                                o.park_dem))
+    return out
+
 
 def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
-                policy_id: int, *, n_pe: int, auto_release: bool,
-                use_kernel: bool, stats: Optional[StreamStats],
+                policy_id: int, bf: int = BF_NONE, *, n_pe: int,
+                auto_release: bool, use_kernel: bool,
+                stats: Optional[StreamStats],
                 demand: Optional[torch.Tensor] = None
                 ) -> Tuple[SchedulerState, Decision]:
     t_a, t_r, t_du, t_dl, n_req = req
@@ -422,41 +798,84 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
             return search_lib.index_reject(
                 s.tl, t_r, t_du, t_dl, n_req, rspec=s.rspec,
                 demand_tail=demand, valid_mask=s.lane_valid)
+    # the queue works only where the reference's does: with
+    # auto-release (promotion goes through the pending buffer)
+    backfilling = bool(state.park_capacity) and auto_release
     reject = None
-    if auto_release:
-        state, reject = _release_then(state, t_a, stats, probe)
+    two_live = False
+    if backfilling:
+        state, reject, two_live = _queue_then(
+            state, t_a, bf, stats, probe, n_pe=n_pe, use_kernel=use_kernel)
+    elif auto_release:
+        state, v = _release_then(state, t_a, stats,
+                                 None if probe is None
+                                 else lambda s: [probe(s)])
+        reject = None if probe is None else bool(v[1])
     elif probe is not None:
-        reject = bool(probe(state))
-        if stats is not None:
-            stats.sync()
+        reject = bool(_read(stats, [probe(state)])[0])
     res = search_lib.search(state.tl, t_r, t_du, t_dl, n_req, policy_id,
                             t_a, n_pe=n_pe, use_kernel=use_kernel,
                             rspec=state.rspec, demand_tail=demand,
                             valid_mask=state.lane_valid, reject=reject,
                             stats=stats)
-    if reject:
+    if reject and stats is not None:
+        stats.early_rejects += 1
+    queue = None
+    if backfilling and bf == BF_EASY and two_live:
+        # EASY may displace when the search failed: that, and the
+        # queue's order for the transaction, cross in one read
+        q, (found_h, ovf_h) = _read_queue(state, stats,
+                                          [res.found, state.overflow])
+        if not (found_h or ovf_h):
+            queue = q
+    if reject and queue is None:
         # nothing is feasible: the commit below would select the old
         # state in every field, so it is skipped
-        if stats is not None:
-            stats.early_rejects += 1
         return state, _decision(res.found, res)
     # a win whose end reaches the horizon sentinel is rejected: the
     # update's T_INF guard would make its commit a silent no-op
     found = res.found & ~state.overflow & (res.t_e < T_INF)
+    if queue is not None:
+        if stats is not None:
+            stats.displacements += 1
+            stats.reject_displacements += bool(reject)
+        state, res = _displace(state, req, policy_id, queue, n_pe=n_pe,
+                               use_kernel=use_kernel, stats=stats,
+                               demand=demand)
+        found = res.found
     t_s, t_e, pe_mask = res.t_s, res.t_e, res.pe_mask
+    parks = None
+    if backfilling and bf != BF_NONE:
+        parks = (t_s > t_r) & (state.park_seq == T_INF).any()
 
     # ---- commit, computed unconditionally and selected by `found`;
     # the pending-release slot only with auto_release, as in the
     # reference (a caller that releases by hand keeps no ledger)
     s = state
-    new_tl, ovf, n_keep = tl_lib.update(s.tl, t_s, t_e, pe_mask,
-                                        is_add=True, with_count=True)
+    dev = s.pend_te.device
+    if queue is None:
+        new_tl, ovf, n_keep = tl_lib.update(s.tl, t_s, t_e, pe_mask,
+                                            is_add=True, with_count=True)
+    else:
+        # the displacement already placed the request; the merged
+        # timeline's record count is what a no-op update would report
+        new_tl, ovf = s.tl, torch.zeros((), dtype=torch.bool, device=dev)
+        n_keep = s.tl.n_valid()
     pend = {}
     if auto_release:
         free = s.pend_te == T_INF
         slot = first_true(free)
-        ovf = ovf | ~free.any()
-        wr = ~ovf
+        used = (~free).sum().to(I32) + 1
+        if parks is None:
+            ovf = ovf | ~free.any()
+            wr = ~ovf
+            hw_pending = torch.maximum(s.hw_pending, used)
+        else:
+            # a parked request takes a queue slot, not a pending one
+            ovf = ovf | (~parks & ~free.any())
+            wr = ~parks & ~ovf
+            hw_pending = torch.maximum(s.hw_pending,
+                                       torch.where(parks, 0, used))
 
         def put(x, v):
             y = x.index_put((slot.reshape(1),),
@@ -465,28 +884,31 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
 
         pend = dict(pend_ts=put(s.pend_ts, t_s), pend_te=put(s.pend_te, t_e),
                     pend_mask=put(s.pend_mask, pe_mask),
-                    hw_pending=torch.maximum(
-                        s.hw_pending, (~free).sum().to(I32) + 1))
+                    hw_pending=hw_pending)
     committed = s._replace(
         # an overflowing update returns a truncated timeline: keep the
         # pre-commit one so the re-run starts from consistent data
-        tl=_where_tl(ovf, s.tl, new_tl),
+        tl=new_tl if queue is not None else _where_tl(ovf, s.tl, new_tl),
         n_accepted=s.n_accepted + torch.where(ovf, 0, 1).to(I32),
         overflow=s.overflow | ovf,
         hw_records=torch.maximum(s.hw_records, n_keep), **pend)
+    if parks is not None:
+        committed = _park_write(committed, parks & ~ovf, t_s, t_e, pe_mask,
+                                t_r, t_dl, n_req, demand)
     state = _where_state(found, committed, state)
-    return state, _decision(found & ~state.overflow, res)
+    return state, _decision(found & ~state.overflow, res, parks)
 
 
-def _decision(accepted: torch.Tensor,
-              res: search_lib.SearchResult) -> Decision:
+def _decision(accepted: torch.Tensor, res: search_lib.SearchResult,
+              parks: Optional[torch.Tensor] = None) -> Decision:
     return Decision(
         accepted=accepted,
         t_s=torch.where(accepted, res.t_s, -1),
         t_e=torch.where(accepted, res.t_e, -1),
         pe_mask=torch.where(accepted, res.pe_mask, 0),
         n_free=res.n_free, t_begin=res.t_begin, t_end=res.t_end,
-        parked=torch.zeros_like(accepted))
+        parked=torch.zeros_like(accepted) if parks is None
+        else accepted & parks)
 
 
 def _policy_id(policy) -> int:
@@ -495,24 +917,27 @@ def _policy_id(policy) -> int:
     return policy_index(policy)
 
 
-def admit(state: SchedulerState, req, policy, *, n_pe: int,
-          auto_release: bool = True, use_kernel: bool = True,
+def admit(state: SchedulerState, req, policy, backfill=BF_NONE, *,
+          n_pe: int, auto_release: bool = True, use_kernel: bool = True,
           stats: Optional[StreamStats] = None
           ) -> Tuple[SchedulerState, Decision]:
-    """One fused admission step: release due -> search -> commit.
+    """One fused admission step: release due -> queue work -> search ->
+    commit (or park).
 
     ``req`` is an :class:`ARRequest` or a :func:`request_struct`.
     ``auto_release=False`` skips the release pass for callers that
-    manage completions themselves.
+    manage completions themselves.  ``backfill`` (any spelling of
+    :func:`as_backfill_id`) matters only on a state with a deferral
+    queue.
     """
     return _admit_impl(state, _field_tuple(req), _policy_id(policy),
-                       n_pe=n_pe, auto_release=auto_release,
-                       use_kernel=use_kernel, stats=stats,
-                       demand=request_demand(state, req))
+                       as_backfill_id(backfill), n_pe=n_pe,
+                       auto_release=auto_release, use_kernel=use_kernel,
+                       stats=stats, demand=request_demand(state, req))
 
 
-def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
-                 n_pe: int, auto_release: bool = True,
+def admit_stream(state: SchedulerState, batch: RequestBatch, policy,
+                 backfill=BF_NONE, *, n_pe: int, auto_release: bool = True,
                  use_kernel: bool = True,
                  stats: Optional[StreamStats] = None
                  ) -> Tuple[SchedulerState, Decision]:
@@ -522,6 +947,7 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
     search takes them as kernel arguments.
     """
     pid = _policy_id(policy)
+    bf = as_backfill_id(backfill)
     demand = batch.demand if state.rspec is not None else None
     if demand is not None and tuple(demand.shape) != (
             batch.t_a.shape[0], state.rspec.R - 1):
@@ -534,7 +960,7 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
     decisions: List[Decision] = []
     for i, row in enumerate(rows):
         state, dec = _admit_impl(
-            state, tuple(int(x) for x in row), pid, n_pe=n_pe,
+            state, tuple(int(x) for x in row), pid, bf, n_pe=n_pe,
             auto_release=auto_release, use_kernel=use_kernel, stats=stats,
             demand=None if demand is None else demand[i])
         decisions.append(dec)
@@ -551,8 +977,8 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy, *,
 
 
 def admit_stream_donated(state: SchedulerState, batch: RequestBatch,
-                         policy, *, n_pe: int, auto_release: bool = True,
-                         use_kernel: bool = True,
+                         policy, backfill=BF_NONE, *, n_pe: int,
+                         auto_release: bool = True, use_kernel: bool = True,
                          stats: Optional[StreamStats] = None
                          ) -> Tuple[SchedulerState, Decision]:
     """:func:`admit_stream` with the reference's latched rollback.
@@ -569,7 +995,7 @@ def admit_stream_donated(state: SchedulerState, batch: RequestBatch,
       latch and the run's high-water marks, so the caller can grow once
       (:func:`grow_rollback`) and re-run it.
     """
-    out, dec = admit_stream(state, batch, policy, n_pe=n_pe,
+    out, dec = admit_stream(state, batch, policy, backfill, n_pe=n_pe,
                             auto_release=auto_release,
                             use_kernel=use_kernel, stats=stats)
     ovf = state.overflow | out.overflow
@@ -637,7 +1063,8 @@ def grow_rollback(state: SchedulerState,
 
 
 def admit_stream_grow(state: SchedulerState, batch: RequestBatch, policy,
-                      *, n_pe: int, auto_release: bool = True,
+                      *, n_pe: int, backfill=BF_NONE,
+                      auto_release: bool = True,
                       use_kernel: bool = True,
                       max_growths: int = MAX_DOUBLINGS,
                       stats: Optional[StreamStats] = None,
@@ -651,12 +1078,14 @@ def admit_stream_grow(state: SchedulerState, batch: RequestBatch, policy,
     ``donate=True`` runs :func:`admit_stream_donated` (the reference's
     donated path): retries grow the rolled-back state, and a terminal
     overflow raises :class:`GrowthError` carrying it.  Decisions are
-    the same either way.
+    the same either way.  ``backfill`` is the deferral mode (it matters
+    on a state with a queue, which growth never resizes).
     """
     fn = admit_stream_donated if donate else admit_stream
+    bf = as_backfill_id(backfill)
     start = state
     for attempt in range(max_growths + 1):
-        out, dec = fn(start, batch, policy, n_pe=n_pe,
+        out, dec = fn(start, batch, policy, bf, n_pe=n_pe,
                       auto_release=auto_release, use_kernel=use_kernel,
                       stats=stats)
         if stats is not None:
@@ -676,14 +1105,34 @@ def admit_stream_grow(state: SchedulerState, batch: RequestBatch, policy,
         f"pending {int(out.hw_pending)})", state=out if donate else None)
 
 
+def admit_stream_auto(state: SchedulerState, batch: RequestBatch, policy,
+                      *, n_pe: int, backfill=BF_NONE,
+                      auto_release: bool = True, use_kernel: bool = True
+                      ) -> Tuple[SchedulerState, Decision]:
+    """Deprecated alias of :func:`admit_stream_grow`.
+
+    Use :class:`repro_torch.api.ReservationService` (a session's
+    ``offer`` streams fixed-shape chunks), or :func:`admit_stream_grow`
+    for a one-shot batch.
+    """
+    warnings.warn(
+        "admit_stream_auto is deprecated: open a repro_torch.api."
+        "ReservationService session and use Session.offer(requests) "
+        "(or admit_stream_grow for a one-shot batch)",
+        DeprecationWarning, stacklevel=2)
+    return admit_stream_grow(state, batch, policy, n_pe=n_pe,
+                             backfill=backfill, auto_release=auto_release,
+                             use_kernel=use_kernel)
+
+
 def admit_one(state: SchedulerState, req: ARRequest, policy: Policy, *,
-              n_pe: int, auto_release: bool = True,
+              n_pe: int, backfill=BF_NONE, auto_release: bool = True,
               use_kernel: bool = True
               ) -> Tuple[SchedulerState, Optional[Allocation]]:
     """Single fused admission with growth retry; host-typed result."""
     start = state
     for attempt in range(MAX_DOUBLINGS + 1):
-        out, dec = admit(start, req, policy, n_pe=n_pe,
+        out, dec = admit(start, req, policy, backfill, n_pe=n_pe,
                          auto_release=auto_release, use_kernel=use_kernel)
         if not bool(out.overflow):
             return out, decision_to_allocation(dec)
@@ -735,6 +1184,12 @@ def cancel_step(state: SchedulerState, t_s: int, t_e: int,
     match = ((state.pend_ts == t_s) & (state.pend_te == t_e)
              & (state.pend_mask == mask[None, :]).all(dim=1))
     found = match.any()
+    if state.park_capacity:
+        # a parked (deferral-queue) reservation is cancellable too
+        pmatch = ((state.park_ts == t_s) & (state.park_te == t_e)
+                  & (state.park_mask == mask[None, :]).all(dim=1)
+                  & (state.park_seq < T_INF))
+        found = found | pmatch.any()
     ok = found if require_pending else torch.ones((), dtype=torch.bool,
                                                   device=dev)
     ok = ok & ~state.overflow
@@ -743,14 +1198,25 @@ def cancel_step(state: SchedulerState, t_s: int, t_e: int,
     ovf = ovf & ok
     do = ok & ~ovf
     clear = match & (torch.cumsum(match, dim=0) == 1) & do  # first match
-    return state._replace(
+    out = state._replace(
         tl=_where_tl(do, new_tl, state.tl),
         pend_ts=torch.where(clear, T_INF, state.pend_ts),
         pend_te=torch.where(clear, T_INF, state.pend_te),
         pend_mask=torch.where(clear[:, None], 0, state.pend_mask),
         overflow=state.overflow | ovf,
         hw_records=torch.maximum(state.hw_records,
-                                 torch.where(ok, n_keep, 0))), do
+                                 torch.where(ok, n_keep, 0)))
+    if state.park_capacity:
+        pclear = pmatch & (torch.cumsum(pmatch, dim=0) == 1) & do
+        out = out._replace(
+            park_ts=torch.where(pclear, T_INF, out.park_ts),
+            park_te=torch.where(pclear, T_INF, out.park_te),
+            park_mask=torch.where(pclear[:, None], 0, out.park_mask),
+            park_seq=torch.where(pclear, T_INF, out.park_seq),
+            # a withdrawal frees future capacity: arm the EASY retry
+            # sweep for the next admit step
+            park_retry=out.park_retry | do)
+    return out, do
 
 
 def cancel_one(state: SchedulerState, t_s: int, t_e: int,
@@ -790,25 +1256,48 @@ def cancel_many_step(state: SchedulerState, t_s: torch.Tensor,
               & (state.pend_te[None, :] == t_e[:, None])
               & (state.pend_mask[None, :, :] == masks[:, None, :]).all(
                   dim=2))                                        # [K, P]
-    found = pmatch.any(dim=1)
+    pfound = pmatch.any(dim=1)
+    found = pfound
+    if state.park_capacity:
+        kmatch = ((state.park_ts[None, :] == t_s[:, None])
+                  & (state.park_te[None, :] == t_e[:, None])
+                  & (state.park_mask[None, :, :] == masks[:, None, :]).all(
+                      dim=2)
+                  & (state.park_seq[None, :] < T_INF))           # [K, Q]
+        kfound = kmatch.any(dim=1)
+        found = found | kfound
     ok = found if require_pending else torch.ones((K,), dtype=torch.bool,
                                                   device=dev)
     ok = ok & active & ~state.overflow
     new_tl, ovf, n_keep = tl_lib.update_many(
         state.tl, t_s, t_e, masks, ok, is_add=False, with_count=True)
     do = ok & ~ovf
-    slot = pmatch.to(torch.int32).argmax(dim=1)                  # first
-    hit = torch.zeros((P + 1,), dtype=torch.bool, device=dev)
-    hit[torch.where(do & found, slot, P)] = True
-    clear = hit[:P]
-    return state._replace(
+
+    def first_hits(m, hit_rows, n):
+        # slots of each row's first match, for the rows that hit
+        slot = m.to(torch.int32).argmax(dim=1)
+        hit = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+        hit[torch.where(hit_rows, slot, n)] = True
+        return hit[:n]
+
+    clear = first_hits(pmatch, do & pfound, P)
+    out = state._replace(
         tl=_where_tl(ovf, state.tl, new_tl),
         pend_ts=torch.where(clear, T_INF, state.pend_ts),
         pend_te=torch.where(clear, T_INF, state.pend_te),
         pend_mask=torch.where(clear[:, None], 0, state.pend_mask),
         overflow=state.overflow | ovf,
         hw_records=torch.maximum(state.hw_records, torch.where(
-            ok.any(), n_keep, 0))), do
+            ok.any(), n_keep, 0)))
+    if state.park_capacity:
+        pclear = first_hits(kmatch, do & kfound, state.park_capacity)
+        out = out._replace(
+            park_ts=torch.where(pclear, T_INF, out.park_ts),
+            park_te=torch.where(pclear, T_INF, out.park_te),
+            park_mask=torch.where(pclear[:, None], 0, out.park_mask),
+            park_seq=torch.where(pclear, T_INF, out.park_seq),
+            park_retry=out.park_retry | do.any())
+    return out, do
 
 
 def cancel_many(state: SchedulerState, entries, *,
@@ -862,6 +1351,34 @@ def cancel_many(state: SchedulerState, entries, *,
     raise GrowthError(
         f"cancel_many still overflowing after {max_growths + 1} attempts "
         f"(last tried capacity {start.tl.capacity})")
+
+
+def parked_entries(state: SchedulerState) -> List[dict]:
+    """Host view of the deferral queue in FCFS order.
+
+    One dict per live entry: the reservation (``t_s``/``t_e``/
+    ``pe_ids``), the window it can still be re-placed in (``t_r``/
+    ``t_dl``/``n_pe``), its sequence number, and on multi-resource
+    states its full ``demand``.  The first entry is the head of queue
+    (protected under EASY).  Empty without a queue.
+    """
+    if not state.park_capacity:
+        return []
+    q, _ = _read_queue(state, None)
+    masks = state.park_mask.cpu().numpy()
+    dem = None if state.park_dem is None else state.park_dem.cpu().numpy()
+    out = []
+    for i in _fcfs(q):
+        entry = dict(
+            seq=int(q["park_seq"][i]), t_s=int(q["park_ts"][i]),
+            t_e=int(q["park_te"][i]), t_r=int(q["park_tr"][i]),
+            t_dl=int(q["park_tdl"][i]), n_pe=int(q["park_npe"][i]),
+            pe_ids=mask32_to_ids(masks[i]))
+        if dem is not None:
+            entry["demand"] = (entry["n_pe"],) + tuple(int(x)
+                                                        for x in dem[i])
+        out.append(entry)
+    return out
 
 
 def mask32_to_ids(mask32) -> Tuple[int, ...]:

@@ -13,8 +13,10 @@ engine multi-resource: PE ids become global bit ids across planes, and
 requests carry their ``demand`` vectors; ``index_tile`` attaches the
 availability index.
 
-``make_scheduler`` is the reference's deprecated factory, kept as a
-shim over the service API.
+``make_scheduler`` and ``DeviceScheduler`` are the reference's
+deprecated entry points, kept as shims over the service API.
+``park_capacity`` sizes the state's backfilling deferral queue (the
+service's sessions pass the mode).
 """
 from __future__ import annotations
 
@@ -36,16 +38,18 @@ class DeviceEngine:
 
     def __init__(self, n_pe: int, capacity: int = 256,
                  use_kernel: bool = True, pending_capacity: int = 256,
-                 device: DeviceLike = None, *, rspec=None,
-                 live_units=None, index_tile: Optional[int] = None):
+                 device: DeviceLike = None, *, park_capacity: int = 0,
+                 rspec=None, live_units=None,
+                 index_tile: Optional[int] = None):
         self.n_pe = n_pe
         self.use_kernel = use_kernel
         # valid-record count for the search bucket; None = stale
         # (recounted on the next search)
         self._n_valid: Optional[int] = 0
         self.state = tl_lib.init_state(capacity, n_pe, pending_capacity,
-                                       device=device, rspec=rspec,
-                                       live_units=live_units,
+                                       device=device,
+                                       park_capacity=park_capacity,
+                                       rspec=rspec, live_units=live_units,
                                        index_tile=index_tile)
 
     @property
@@ -161,6 +165,25 @@ class DeviceEngine:
         occ = self.tl.occ.cpu().numpy()
         return [(int(t), frozenset(batch_lib.mask32_to_ids(row)))
                 for t, row in zip(times, occ) if t < T_INF]
+
+
+class DeviceScheduler(DeviceEngine):
+    """Deprecated alias of :class:`DeviceEngine`.
+
+    Open a :class:`repro_torch.api.ReservationService` session instead:
+    it has the same three operations plus the streaming verbs, and
+    ``session.engine`` is the underlying :class:`DeviceEngine`.
+    """
+
+    def __init__(self, *args, **kwargs):
+        warnings.warn(
+            "DeviceScheduler is deprecated: use repro_torch.api."
+            "ReservationService(ServiceConfig(n_pe=..., "
+            "engine='device')).session(); the session has the same "
+            "three operations plus offer/tick/cancel, and "
+            "session.engine exposes the raw DeviceEngine",
+            DeprecationWarning, stacklevel=2)
+        super().__init__(*args, **kwargs)
 
 
 ENGINES = {

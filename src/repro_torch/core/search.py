@@ -355,3 +355,25 @@ def search(tl: Timeline, t_r: int, t_du: int, t_dl: int, n_req: int,
 
 
 find_allocation = search
+
+
+def replacement_search(tl: Timeline, t_r: int, t_du: int, t_dl: int,
+                       n_req: int, policy_id: int, t_now: int, *, n_pe: int,
+                       use_kernel: bool = True, rspec=None,
+                       demand_tail: Optional[torch.Tensor] = None,
+                       valid_mask: Optional[torch.Tensor] = None,
+                       reject: Optional[bool] = None,
+                       stats=None) -> SearchResult:
+    """The backfill feasibility check: re-place a parked reservation.
+
+    :func:`search` with the window clamped to what is still reachable:
+    candidates start at ``max(t_r, t_now)``, so a deferral-queue entry
+    is only re-placed at a start it could really make.  A live parked
+    reservation satisfies ``t_now < t_s <= t_dl - t_du``, so the clamped
+    window is never empty.  Used by the EASY retry sweep and the
+    displacement transaction (:mod:`repro_torch.core.batch`).
+    """
+    return search(tl, max(int(t_r), int(t_now)), t_du, t_dl, n_req,
+                  policy_id, t_now, n_pe=n_pe, use_kernel=use_kernel,
+                  rspec=rspec, demand_tail=demand_tail,
+                  valid_mask=valid_mask, reject=reject, stats=stats)

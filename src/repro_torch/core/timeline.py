@@ -121,6 +121,29 @@ class SchedulerState(NamedTuple):
     overflow: torch.Tensor    # bool
     hw_records: torch.Tensor  # int32: max records any update needed
     hw_pending: torch.Tensor  # int32: max pending slots needed
+    # the backfilling deferral queue of Q entries, all None when Q == 0
+    # (then no step touches it): accepted-but-delayed reservations hold
+    # their mark here (start / end / mask occupy the timeline like any
+    # committed one) with the window to re-place them in and an FCFS
+    # sequence number; ``park_seq == T_INF`` marks a free slot and the
+    # smallest live one is the head of queue
+    park_ts: Optional[torch.Tensor] = None    # int32[Q] parked starts
+    park_te: Optional[torch.Tensor] = None    # int32[Q] parked ends
+    park_mask: Optional[torch.Tensor] = None  # int32[Q, W] parked masks
+    park_tr: Optional[torch.Tensor] = None    # int32[Q] ready times
+    park_tdl: Optional[torch.Tensor] = None   # int32[Q] deadlines
+    park_npe: Optional[torch.Tensor] = None   # int32[Q] PEs requested
+    park_seq: Optional[torch.Tensor] = None   # int32[Q]; T_INF = free
+    # bool: a cancel freed future capacity; the next EASY admit step
+    # runs the retry sweep once
+    park_retry: Optional[torch.Tensor] = None
+    park_next_seq: Optional[torch.Tensor] = None  # int32: next sequence
+    n_parked: Optional[torch.Tensor] = None    # int32: lifetime parks
+    n_promoted: Optional[torch.Tensor] = None  # int32: lifetime promotions
+    n_moved: Optional[torch.Tensor] = None     # int32: lifetime moves
+    hw_parked: Optional[torch.Tensor] = None   # int32: max live entries
+    # int32[Q, R-1] secondary-plane demands of parked requests (R > 1)
+    park_dem: Optional[torch.Tensor] = None
     # multi-resource layout, None on single-resource states:
     # ``lane_valid`` is the packed valid-unit mask of this lane (a
     # heterogeneous machine size shrinks it below the spec's padded
@@ -131,6 +154,37 @@ class SchedulerState(NamedTuple):
     @property
     def pending_capacity(self) -> int:
         return self.pend_te.shape[0]
+
+    @property
+    def park_capacity(self) -> int:
+        return 0 if self.park_seq is None else self.park_seq.shape[0]
+
+
+#: The deferral queue's fields (``park_dem`` only on R > 1 states).
+PARK_FIELDS = ("park_ts", "park_te", "park_mask", "park_tr", "park_tdl",
+               "park_npe", "park_seq", "park_retry", "park_next_seq",
+               "n_parked", "n_promoted", "n_moved", "hw_parked", "park_dem")
+
+
+def _init_queue(Q: int, W: int, rspec, dev: torch.device) -> Dict[str, Any]:
+    """An empty deferral queue of ``Q`` entries (nothing when Q == 0)."""
+    if Q == 0:
+        return {}
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=I32, device=dev)
+
+    out = dict(
+        park_ts=full((Q,), T_INF), park_te=full((Q,), T_INF),
+        park_mask=full((Q, W), 0), park_tr=full((Q,), 0),
+        park_tdl=full((Q,), 0), park_npe=full((Q,), 0),
+        park_seq=full((Q,), T_INF),
+        park_retry=torch.zeros((), dtype=torch.bool, device=dev),
+        **{f: full((), 0) for f in ("park_next_seq", "n_parked",
+                                    "n_promoted", "n_moved", "hw_parked")})
+    if rspec is not None and rspec.R > 1:
+        out["park_dem"] = full((Q, rspec.R - 1), 0)
+    return out
 
 
 def empty(capacity: int, n_pe: int, device: DeviceLike = None,
@@ -165,11 +219,13 @@ def _reindex(tl: Timeline, ispec) -> Timeline:
 
 
 def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
-               device: DeviceLike = None, *, rspec=None,
-               live_units: Optional[Sequence[int]] = None,
+               device: DeviceLike = None, *, park_capacity: int = 0,
+               rspec=None, live_units: Optional[Sequence[int]] = None,
                index_tile: Optional[int] = None) -> SchedulerState:
     """Fresh all-free scheduler state on ``device`` (``None``: cuda).
 
+    ``park_capacity`` sizes the backfilling deferral queue; the default
+    0 leaves it out, and no step then does any queue work.
     ``rspec`` (a :class:`~repro_torch.core.resources.ResourceSpec` with
     ``units[0] == n_pe``) switches to the multi-resource layout: the
     occupancy and every reservation mask widen to ``rspec.total_words``
@@ -207,7 +263,8 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
         n_accepted=zero(), n_released=zero(),
         overflow=torch.zeros((), dtype=torch.bool, device=dev),
         hw_records=zero(), hw_pending=zero(),
-        lane_valid=lane_valid, rspec=rspec)
+        lane_valid=lane_valid, rspec=rspec,
+        **_init_queue(park_capacity, W, rspec, dev))
 
 
 def grow(tl: Timeline, new_capacity: int) -> Timeline:
@@ -227,7 +284,11 @@ def grow_state(state: SchedulerState,
                new_capacity: Optional[int] = None,
                new_pending_capacity: Optional[int] = None
                ) -> SchedulerState:
-    """Growth of the timeline and/or the pending buffer."""
+    """Growth of the timeline and/or the pending buffer.
+
+    The deferral queue never grows: a full queue commits delayed
+    requests immovably instead, as under ``none``.
+    """
     out = state
     if new_capacity is not None:
         out = out._replace(tl=grow(out.tl, new_capacity))
@@ -498,6 +559,13 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
         out["idx_occ"] = words_lib.to_uint32(tl.idx_occ.cpu().numpy())
         out["idx_minfree"] = tl.idx_minfree.cpu().numpy()
         out["idx_maxfree"] = tl.idx_maxfree.cpu().numpy()
+    for f in PARK_FIELDS:
+        x = getattr(state, f)
+        if x is not None:
+            a = x.cpu().numpy()
+            out[f] = (words_lib.to_uint32(a) if f == "park_mask"
+                      else np.asarray(a, bool if f == "park_retry"
+                                      else np.int32))
     return out
 
 
@@ -513,6 +581,9 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
     state also needs ``lane_valid`` and its ``rspec``; an indexed one
     ``idx_occ`` (uint32), ``idx_minfree``, ``idx_maxfree`` and its
     ``ispec`` (an :class:`~repro_torch.core.availindex.IndexSpec`).
+    The deferral queue comes with its ``park_*`` arrays and counters
+    (a queue of 0 entries, as the reference's states without one carry,
+    is left out).
     """
     if (rspec is None) != (arrays.get("lane_valid") is None):
         raise ValueError("a multi-resource state needs both rspec and "
@@ -535,6 +606,16 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
         tl = tl._replace(idx_occ=words("idx_occ"),
                          idx_minfree=i32("idx_minfree"),
                          idx_maxfree=i32("idx_maxfree"), ispec=ispec)
+    queue = {}
+    if np.asarray(arrays.get("park_seq", ())).size:
+        for f in PARK_FIELDS:
+            if f == "park_mask":
+                queue[f] = words(f)
+            elif f == "park_retry":
+                queue[f] = torch.from_numpy(
+                    np.array(arrays[f], dtype=bool)).to(dev)
+            elif arrays.get(f) is not None:
+                queue[f] = i32(f)
     return SchedulerState(
         tl=tl,
         pend_ts=i32("pend_ts"), pend_te=i32("pend_te"),
@@ -543,4 +624,4 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
             np.array(arrays["overflow"], dtype=bool)).to(dev),
         lane_valid=None if rspec is None else words("lane_valid"),
         rspec=rspec,
-        **{f: i32(f).reshape(()) for f in _SCALARS})
+        **{f: i32(f).reshape(()) for f in _SCALARS}, **queue)

@@ -40,13 +40,32 @@ class BackfillMode(str, enum.Enum):
     reservations never move (decision-identical to ``NONE``); under
     ``EASY`` only the head of the queue binds, so later reservations
     may be pulled earlier or displaced inside their deadline windows.
-    The port's device path runs ``NONE`` only; the host oracle
-    (:class:`repro_torch.core.hostsched.BackfillOracle`) runs all three.
+    The device path (:mod:`repro_torch.core.batch`) and the host oracle
+    (:class:`repro_torch.core.hostsched.BackfillOracle`) run all three.
     """
 
     NONE = "none"
     EASY = "easy"
     CONSERVATIVE = "conservative"
+
+
+BACKFILL_MODES: Tuple[BackfillMode, ...] = tuple(BackfillMode)
+BACKFILL_IDS = {m: i for i, m in enumerate(BACKFILL_MODES)}
+
+
+def backfill_index(mode) -> int:
+    """Any mode spelling -> its integer id (none=0, easy=1,
+    conservative=2); an integer id is range-checked."""
+    if isinstance(mode, str) and not isinstance(mode, BackfillMode):
+        mode = BackfillMode(mode)
+    if isinstance(mode, BackfillMode):
+        return BACKFILL_IDS[mode]
+    mode = int(mode)
+    if not 0 <= mode < len(BACKFILL_MODES):
+        raise ValueError(
+            f"backfill id {mode} out of range; valid ids are "
+            f"{dict((m.value, i) for m, i in BACKFILL_IDS.items())}")
+    return mode
 
 
 @dataclasses.dataclass(frozen=True)

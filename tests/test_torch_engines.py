@@ -4,7 +4,9 @@ Twin of ``tests/test_core_engines.py``: the paper's worked example
 (Figure 1 / Section 4.2) on the list, host and device engines made by
 ``make_scheduler`` (which warns that it is deprecated), and a random
 walk where all three make the decisions of the reference's literal list
-engine under every policy.
+engine under every policy.  Then the deprecated shims (``make_scheduler``,
+``DeviceScheduler``, ``admit_stream_auto``) against the first three
+tests of ``tests/test_deprecations.py``.
 """
 import dataclasses
 import random
@@ -15,9 +17,12 @@ from repro.core.listsched import ListScheduler as RefList
 from repro.core.types import ARRequest as RefRequest
 from repro.core.types import Policy as RefPolicy
 from repro_torch.api import ServiceConfig
+from repro_torch.core import batch as pt_batch
+from repro_torch.core import timeline as pt_tl
 from repro_torch.core.hostsched import HostScheduler
 from repro_torch.core.listsched import ListScheduler
-from repro_torch.core.scheduler import DeviceEngine, make_scheduler
+from repro_torch.core.scheduler import (DeviceEngine, DeviceScheduler,
+                                        make_scheduler)
 from repro_torch.core.types import ALL_POLICIES, ARRequest, Policy, T_INF
 
 
@@ -138,3 +143,49 @@ def test_make_scheduler_kwargs():
                                                             None)
     cfg = ServiceConfig.from_engine_kwargs(10, "host", candidate_chunk=8)
     assert cfg.engine_kwargs == {"candidate_chunk": 8}
+
+
+# ---- the deprecation shims: twins of the first three tests of
+# tests/test_deprecations.py
+
+def test_make_scheduler_warns_for_every_engine():
+    for engine in ("host", "list", "device"):
+        kw = dict(device="cpu") if engine == "device" else {}
+        with pytest.warns(DeprecationWarning,
+                          match="make_scheduler is deprecated"):
+            eng = make_scheduler(8, engine, **kw)
+        assert eng is not None
+
+
+def test_device_scheduler_class_warns_once_per_construction():
+    with pytest.warns(DeprecationWarning,
+                      match="DeviceScheduler is deprecated") as rec:
+        sched = DeviceScheduler(capacity=16, n_pe=8, device="cpu")
+    assert sum(issubclass(w.category, DeprecationWarning)
+               for w in rec) == 1
+    assert isinstance(sched, DeviceEngine)
+    # the shim still schedules
+    req = ARRequest(t_a=0, t_r=0, t_du=5, t_dl=20, n_pe=2)
+    assert sched.find_allocation(req, Policy.FF) is not None
+
+
+def test_admit_stream_auto_warns_and_forwards():
+    state = pt_tl.init_state(16, 8, 16, device="cpu")
+    batch = pt_batch.requests_to_batch(
+        [ARRequest(t_a=0, t_r=0, t_du=5, t_dl=20, n_pe=2)], "cpu")
+    with pytest.warns(DeprecationWarning,
+                      match="admit_stream_auto is deprecated"):
+        _, dec = pt_batch.admit_stream_auto(state, batch, Policy.FF, n_pe=8)
+    assert bool(dec.accepted[0])
+    # it forwards the backfill mode as admit_stream_grow takes it
+    jobs = [ARRequest(t_a=0, t_r=0, t_du=10, t_dl=30, n_pe=8),
+            ARRequest(t_a=1, t_r=1, t_du=5, t_dl=40, n_pe=8)]
+    state = pt_tl.init_state(16, 8, 16, device="cpu", park_capacity=4)
+    batch = pt_batch.requests_to_batch(jobs, "cpu")
+    with pytest.warns(DeprecationWarning):
+        out, dec = pt_batch.admit_stream_auto(state, batch, Policy.FF,
+                                              n_pe=8, backfill="easy")
+    want_out, want = pt_batch.admit_stream_grow(state, batch, Policy.FF,
+                                                n_pe=8, backfill="easy")
+    assert dec.parked.tolist() == want.parked.tolist() == [False, True]
+    assert pt_batch.parked_entries(out) == pt_batch.parked_entries(want_out)

@@ -489,3 +489,64 @@ def test_pruned_start_cases_match_reference_select(units):
             assert (int(row[3]), bool(row[7])) == (int(best), bool(found)), \
                 (case.label, pid)
             assert int(row[4]) == int(rects.n_free[int(best)])
+
+
+@pytest.mark.parametrize("mode", ["easy", "conservative"])
+def test_backfill_indexed_stream_matches_reference(mode):
+    """Backfilling on an indexed timeline (after
+    ``tests/test_availindex.py``): every Decision field and the queue
+    equal the index-free run's and the reference's indexed run's."""
+    jobs = _jobs(80, 32, seed=7, slack_max=80)
+    runs = {}
+    for tile in (None, 16):
+        st = pt_tl.init_state(64, 32, 256, device="cpu", park_capacity=8,
+                              index_tile=tile)
+        runs[tile] = pt_batch.admit_stream_grow(
+            st, pt_batch.requests_to_batch(jobs, "cpu"), Policy.PE_W,
+            n_pe=32, backfill=mode)
+    rst = ref_tl.init_state(64, 32, 256, park_capacity=8, index_tile=16)
+    rst, rdec = ref_batch.admit_stream_grow(
+        rst, ref_batch.requests_to_batch(
+            [RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe)
+             for j in jobs]), Policy.PE_W, n_pe=32, backfill=mode)
+    assert_decisions_equal(runs[16][1], rdec, "on")
+    assert_decisions_equal(runs[None][1], rdec, "off")
+    np.testing.assert_array_equal(runs[16][1].parked.numpy(),
+                                  np.asarray(rdec.parked))
+    assert pt_batch.parked_entries(runs[16][0]) == \
+        pt_batch.parked_entries(runs[None][0]) == \
+        ref_batch.parked_entries(rst)
+    assert_index_equal(runs[16][0].tl, rst.tl)
+    assert int(runs[16][0].n_parked) > 0
+
+
+def test_early_rejected_request_admitted_by_displacement():
+    """With one-record tiles the index proves the last request
+    infeasible, yet EASY admits it by displacing a parked entry: the
+    early reject must not skip the transaction."""
+    jobs = [ARRequest(t_a=0, t_r=0, t_du=10, t_dl=30, n_pe=4),
+            ARRequest(t_a=1, t_r=1, t_du=5, t_dl=40, n_pe=4),
+            ARRequest(t_a=2, t_r=2, t_du=5, t_dl=60, n_pe=4),
+            ARRequest(t_a=3, t_r=3, t_du=5, t_dl=20, n_pe=4)]
+    decs = {}
+    for tile in (None, 1):
+        stats = pt_batch.StreamStats()
+        st = pt_tl.init_state(16, 4, 16, device="cpu", park_capacity=4,
+                              index_tile=tile)
+        out, dec = pt_batch.admit_stream_grow(
+            st, pt_batch.requests_to_batch(jobs, "cpu"), Policy.FF, n_pe=4,
+            backfill="easy", stats=stats)
+        decs[tile] = dec
+        assert dec.accepted.tolist() == [True] * 4
+        assert dec.t_s.tolist() == [0, 10, 15, 15]
+        assert int(out.n_moved) == 1
+        assert stats.displacements == 1
+    assert stats.early_rejects == 1 and stats.reject_displacements == 1
+    rst = ref_tl.init_state(16, 4, 16, park_capacity=4, index_tile=1)
+    rst, rdec = ref_batch.admit_stream_grow(
+        rst, ref_batch.requests_to_batch(
+            [RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe)
+             for j in jobs]), Policy.FF, n_pe=4, backfill="easy")
+    assert_decisions_equal(decs[1], rdec, "on")
+    assert_decisions_equal(decs[None], rdec, "off")
+    assert pt_batch.parked_entries(out) == ref_batch.parked_entries(rst)

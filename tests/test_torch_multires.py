@@ -508,3 +508,58 @@ def test_backfill_oracle_cancel_matches_reference():
                                 t_dl=j.t_dl + 3000) for j in jobs[:20]]
     assert ours.run(more) == theirs.run(_ref_jobs(more))
     assert ours.moves == theirs.moves and ours.records() == theirs.records()
+
+
+_BF_STATE_FIELDS = ("pend_ts", "pend_te", "pend_mask", "n_accepted",
+                    "n_released", "overflow", "hw_records", "hw_pending",
+                    "lane_valid", "park_ts", "park_te", "park_mask",
+                    "park_tr", "park_tdl", "park_npe", "park_seq",
+                    "park_retry", "park_next_seq", "n_parked", "n_promoted",
+                    "n_moved", "hw_parked", "park_dem")
+
+
+@pytest.mark.parametrize("mode", ["none", "easy", "conservative"])
+def test_backfill_mr_matches_reference_and_oracle(mode):
+    """Backfilling at R = 3 (after ``tests/test_multires.py``), on the
+    kernel path and the plain one: decisions, parked flags and every
+    state array (``park_dem`` included) equal the reference's, and the
+    queue (with each entry's ``demand``), records and counters equal
+    ``MultiResourceOracle``'s."""
+    units = (32, 4, 8)
+    spec, ref_spec = ResourceSpec(units), ref_res.ResourceSpec(units)
+    jobs = _random_jobs(80, spec, seed=11)
+    for policy in (Policy.FF, Policy.PEDU_W):
+        rstate = ref_tl.init_state(256, 32, 256, park_capacity=8,
+                                   rspec=ref_spec)
+        rout, rdec = ref_batch.admit_stream_grow(
+            rstate, ref_batch.requests_to_batch(_ref_jobs(jobs),
+                                                extra_demand=2),
+            policy, n_pe=32, backfill=mode)
+        oracle = pt_host.MultiResourceOracle(spec, policy, mode,
+                                             park_capacity=8)
+        want = oracle.run(jobs)
+        if mode != "none":
+            assert oracle.n_parked > 0
+        for use_kernel in (True, False):
+            state = pt_tl.init_state(256, 32, 256, device="cpu",
+                                     park_capacity=8, rspec=spec)
+            out, dec = pt_batch.admit_stream_grow(
+                state, pt_batch.requests_to_batch(jobs, "cpu", 2), policy,
+                n_pe=32, backfill=mode, use_kernel=use_kernel)
+            for f in ref_batch.Decision._fields:
+                got = getattr(dec, f).numpy()
+                if f == "pe_mask":
+                    got = pt_words.to_uint32(got)
+                np.testing.assert_array_equal(
+                    got, np.asarray(getattr(rdec, f)), err_msg=f)
+            got = pt_tl.state_to_numpy(out)
+            for k in _BF_STATE_FIELDS:
+                np.testing.assert_array_equal(
+                    got[k], np.asarray(getattr(rout, k)), err_msg=k)
+            assert want == [(bool(a), int(t)) for a, t in
+                            zip(dec.accepted, dec.t_s)]
+            assert pt_batch.parked_entries(out) == oracle.pending() == \
+                ref_batch.parked_entries(rout)
+            assert (int(out.n_parked), int(out.n_promoted),
+                    int(out.n_moved)) == (oracle.n_parked,
+                                          oracle.n_promoted, oracle.n_moved)

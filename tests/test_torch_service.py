@@ -23,6 +23,8 @@ from repro.core.types import ARRequest as RefRequest
 from repro_torch.api import ReservationService, ServiceConfig
 from repro_torch.api import service as pt_service
 from repro_torch.core import batch as pt_batch
+from repro_torch.core import hostsched as pt_host
+from repro_torch.core.resources import ResourceSpec
 from repro_torch.core.types import ARRequest, Policy
 
 # counters and geometry both services report
@@ -255,7 +257,8 @@ def test_config_validation_matches_reference(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(lanes=2), "A12"), (dict(n_partitions=2), "A15"),
-    (dict(backfill="easy"), "A11"), (dict(backfill="conservative"), "A11"),
+    (dict(lanes=2, backfill=("easy", "none")), "A12"),
+    (dict(n_partitions=2, chunk_size=None, backfill="conservative"), "A15"),
     (dict(tenants=object()), "A14"),
     (dict(lanes=2, machine_sizes=(8, 6)), "A12"),
 ])
@@ -371,6 +374,53 @@ def test_pipelined_terminal_growth_error_restages_the_ring():
     # the session stays usable on the rolled-back state
     assert ours.tick(10**6) == theirs.tick(10**6)
     assert ours.records() == theirs.records()
+
+
+@pytest.mark.parametrize("backfill", ["none", "easy"])
+def test_pipelined_terminal_growth_error_restages_the_ring_mr(backfill):
+    """The restage above on a multi-resource session (the reference
+    cannot run it: its restage reads ``demand1`` off the batch): the
+    ring holds the R = 1 session's rows plus each request's demand
+    columns, and re-offered on a larger session it decides as
+    ``MultiResourceOracle``."""
+    units = (64, 4, 64)
+    jobs = [ARRequest(i, i, 5000, i + 5000, 1,
+                      demand=(1, i % 2, i % 5)) for i in range(30)]
+    kw = dict(n_pe=64, capacity=4, pending_capacity=4, max_growths=1,
+              chunk_size=16, ring_capacity=64, donate=True,
+              backfill=backfill, device="cpu")
+    rings = {}
+    for spec in ((64,), units):
+        mr = len(spec) > 1
+        sess = ReservationService(ServiceConfig(
+            resources=spec if mr else None, **kw)).session()
+        offered = jobs if mr else [dataclasses.replace(j, demand=None)
+                                   for j in jobs]
+        first = sess.offer(offered[:2])
+        second = sess.offer(offered[2:], flush=False)
+        with pytest.raises(pt_batch.GrowthError, match="overflowing"):
+            second.allocations()
+        assert [a is not None for a in first.allocations()] == [True, True]
+        assert second.allocations() == [] and sess.pending() == []
+        ring = sess._backend.ring
+        rings[mr] = (_ring_rows(ring), ring.last_popped_t_a, ring._fields)
+    rows, lta, fields = rings[True]
+    assert fields[5:] == ("demand1", "demand2")
+    assert len(rows) == 28 and lta == rings[False][1]
+    assert [r[:5] for r in rows] == rings[False][0]
+    assert [r[5:] for r in rows] == [j.demand[1:] for j in jobs[2:]]
+    # the restaged requests, offered again where they fit
+    staged = [ARRequest(*r[:5], demand=(r[4],) + r[5:]) for r in rows]
+    big = ReservationService(ServiceConfig(
+        resources=units, **dict(kw, capacity=64, pending_capacity=64,
+                                max_growths=8))).session()
+    got = [(a is not None, a.t_s if a else -1) for a in
+           big.offer(jobs[:2] + staged).allocations()]
+    oracle = pt_host.MultiResourceOracle(ResourceSpec(units), Policy.PE_W,
+                                         backfill)
+    assert got == oracle.run(jobs[:2] + staged)
+    assert big.records() == oracle.records()
+    assert big.pending() == oracle.pending()
 
 
 def test_cancel_and_cancel_many_match_reference():
