@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--n-jobs 2000] [--n-event-loop 300]
-                          [--n-session 10000]
+                          [--n-session 5000]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -27,7 +27,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
    ``WorkloadParams(n_jobs=2000, seed=0)``, PE_W; the paper's 10,000
    jobs with ``--n-jobs 10000``, cut by default to keep the run short
-   now that phase 6 drives a 10,000-job session) on the card, its
+   now that phase 6 drives a 5,000-job session) on the card, its
    decisions, slowdowns and busy area held against the host event loop;
    then the per-operation event loop ``simulate(engine="device")`` on
    the stream's first jobs, held against the host loop; then the
@@ -79,7 +79,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    whole early reject (``search._rejected``, one kernel a call);
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
-   chunk_size=64, ring_capacity=256))`` on the 10,000-job paper stream
+   chunk_size=64, ring_capacity=256))`` on 5,000 jobs of the paper stream
+   (``--n-session 10000`` for the 10,000 of the paper; cut for the run's
+   time)
    stamped with half-intensity secondary demands, offered in pieces of
    100 and flushed; decisions and records held against the port's
    ``MultiResourceOracle``; one ``availscan_select_mr`` launch per admit
@@ -97,7 +99,21 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    ``cancel``, ``cancel_many`` with a repeat, ``snapshot``/``restore``
    and ``tick`` on 300 paper jobs against ``BackfillOracle`` (mode
    none); ``engine="host"`` (500 jobs) and ``engine="list"`` (200 jobs)
-   sessions against the device session.
+   sessions against the device session;
+6b. backfilling (after phase 6): ``none``, conservative and EASY on the
+   paper stream against ``BackfillOracle``, an EASY session cancelling
+   its queue's tail, EASY at R = 4 and with the index, 300 EASY steps
+   profiled;
+6c. tenancy (after phase 6b): the paper stream with ``tenant = i % 4``,
+   quotas of half of tenants 0 and 2's offered PE-seconds, a live cap of
+   6 on tenant 1 and weights (1, 4, 2, 1) under EASY against
+   ``TenantOracle`` (decisions, records, queue and every telemetry field
+   bit for bit; both gates must bite); a neutral table (equal weights,
+   no limits) identical to the tenancy-free EASY, ``none``, R = 4 and
+   tile-16 runs, host syncs included; a pipelined ``auto_release=False``
+   session that reaps (grace 300) after each of 40 offers against the
+   oracle, then 20 idle ``metrics(tenant=i)`` polls that read nothing;
+   300 EASY steps profiled with tenants off and on.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -1907,21 +1923,26 @@ def _state_records(state):
                             state.tl.occ.cpu().numpy()) if t < T_INF]
 
 
-def _bf_stream(jobs, dev, mode, *, rspec=None, index_tile=None):
+def _bf_stream(jobs, dev, mode, *, rspec=None, index_tile=None,
+               tenants=None):
     """``admit_stream_grow`` of ``jobs`` under ``mode`` on the card (PE_W,
     capacity 128, 256 pending slots, a queue of ``BF_QUEUE`` entries; no
-    queue under ``none``, as on the main path); launches counted."""
+    queue under ``none``, as on the main path; ``tenants`` a TenantSpec
+    whose table rides the state); launches counted."""
     import torch
     from repro_torch.core import batch as B
     from repro_torch.core import timeline as T
     from repro_torch.core.types import Policy
     from repro_torch.kernels import availscan as K
+    from repro_torch.tenancy import init_table
 
-    state = T.init_state(128, 1024, 256, device=dev,
-                         park_capacity=0 if mode == "none" else BF_QUEUE,
-                         rspec=rspec, index_tile=index_tile)
+    Q = 0 if mode == "none" else BF_QUEUE
+    table = None if tenants is None else init_table(tenants, 256, Q, dev)
+    state = T.init_state(128, 1024, 256, device=dev, park_capacity=Q,
+                         rspec=rspec, index_tile=index_tile, tenants=table)
     batch = B.requests_to_batch(jobs, dev,
-                                0 if rspec is None else rspec.R - 1)
+                                0 if rspec is None else rspec.R - 1,
+                                with_tenant=tenants is not None)
     stats = B.StreamStats()
     torch.cuda.synchronize()
     K.reset_launches()
@@ -2103,7 +2124,7 @@ def backfill_session(jobs, dev, rows: dict) -> None:
           f"displacement searches")
 
 
-def backfill_mr(jobs_mr, dev, rows: dict) -> None:
+def backfill_mr(jobs_mr, dev, rows: dict) -> dict:
     """EASY on the stamped paper stream at R = 4, held against
     ``MultiResourceOracle``."""
     from repro_torch.core.hostsched import MultiResourceOracle
@@ -2125,9 +2146,10 @@ def backfill_mr(jobs_mr, dev, rows: dict) -> None:
     print(f"backfill R = 4: accepted {sum(a for a, _ in run['trace'])}, "
           f"parked {int(out.n_parked)}, moved {int(out.n_moved)}; identical "
           f"to MultiResourceOracle")
+    return run
 
 
-def backfill_indexed(jobs, easy, dev, rows: dict) -> None:
+def backfill_indexed(jobs, easy, dev, rows: dict) -> dict:
     """EASY with the availability index (tile 16): every Decision field
     and the queue equal the index-free run's."""
     import torch
@@ -2150,6 +2172,7 @@ def backfill_indexed(jobs, easy, dev, rows: dict) -> None:
     print(f"backfill indexed: identical to the index-free EASY run; "
           f"{st.early_rejects} early rejects, {st.reject_displacements} of "
           f"them followed by a displacement")
+    return run
 
 
 def backfill_profile(jobs, dev, n_steps: int = 300) -> None:
@@ -2203,6 +2226,282 @@ def backfill_profile(jobs, dev, n_steps: int = 300) -> None:
           f"syncs none {syncs['none']}, EASY {syncs['easy']}")
 
 
+# ---------------------------------------------------------------------------
+# multi-tenant admission: the quota gate, fair share, reaping, telemetry
+# ---------------------------------------------------------------------------
+
+N_TENANTS = 4              # tenant = i % 4, as benchmarks/bench_tenancy.py
+TN_GRACE = 300             # the reaping session's grace window (seconds)
+
+
+def tenanted(jobs):
+    """The stream with ``tenant = i % N_TENANTS``."""
+    return [dataclasses.replace(j, tenant=i % N_TENANTS)
+            for i, j in enumerate(jobs)]
+
+
+def tenant_spec(jobs, weights=(1.0, 4.0, 2.0, 1.0), grace=None):
+    """The slice's spec: tenants 0 and 2 may use half of the PE-seconds
+    they offer on this stream, tenant 1 holds at most 6 reservations."""
+    from repro_torch.tenancy import TenantSpec
+    offered = [0.0] * N_TENANTS
+    for j in jobs:
+        offered[j.tenant] += j.n_pe * j.t_du
+    return TenantSpec(weights=weights,
+                      quotas=(offered[0] / 2, None, offered[2] / 2, None),
+                      max_live=(None, 6, None, None), grace=grace)
+
+
+def _hold_table(label, table, accounts) -> None:
+    """Every telemetry field of a device table against the oracle's
+    accounts, bit for bit, and its ownership columns against ``live``."""
+    from repro_torch.tenancy import snapshot
+    got, want = snapshot(table), accounts.snapshot()
+    for f, v in want.items():
+        if not np.array_equal(np.asarray(got[f]), np.asarray(v)) or \
+                np.asarray(got[f]).dtype != np.asarray(v).dtype:
+            fail(f"{label}: tenant table field {f} {got[f]} differs from "
+                 f"the oracle's {v}")
+    owners = np.concatenate([table.pend_tenant.cpu().numpy(),
+                             table.park_tenant.cpu().numpy()])
+    held = np.bincount(owners[owners >= 0], minlength=N_TENANTS)
+    if not np.array_equal(held, got["live"]):
+        fail(f"{label}: owned slots {held} vs live {got['live']}")
+
+
+def _same_run(label, run, base) -> None:
+    """A tenanted run against the same stream's tenancy-free run: every
+    Decision field, records, queue (owners stripped), queue counters and
+    host syncs."""
+    import torch
+    from repro_torch.core.batch import parked_entries
+    for f in base["dec"]._fields:
+        if not torch.equal(getattr(run["dec"], f), getattr(base["dec"], f)):
+            fail(f"{label}: Decision.{f} differs from the tenancy-free run")
+    out, ref = run["out"], base["out"]
+    if _state_records(out) != _state_records(ref):
+        fail(f"{label}: records differ from the tenancy-free run")
+    strip = [{k: v for k, v in e.items() if k not in ("tenant", "t_a")}
+             for e in parked_entries(out)]
+    if strip != parked_entries(ref):
+        fail(f"{label}: the queue differs from the tenancy-free run")
+    if out.park_capacity and (int(out.n_parked), int(out.n_promoted),
+                              int(out.n_moved)) != (
+            int(ref.n_parked), int(ref.n_promoted), int(ref.n_moved)):
+        fail(f"{label}: queue counters differ from the tenancy-free run")
+    st, st0 = run["stats"], base["stats"]
+    if st.host_syncs != st0.host_syncs:
+        fail(f"{label}: {st.host_syncs} host syncs against the "
+             f"tenancy-free run's {st0.host_syncs}")
+
+
+def tenancy_streams(jobs, bf, dev, rows: dict) -> None:
+    """EASY on the tenanted paper stream with quotas, a live cap and
+    skewed weights, held against ``TenantOracle``; the same limits with
+    equal weights for the fair share's effect."""
+    from repro_torch.core.hostsched import TenantOracle
+    from repro_torch.core.types import Policy
+
+    n = len(jobs)
+    spec = tenant_spec(jobs)
+    run = _bf_stream(jobs, dev, "easy", tenants=spec)
+    oracle = TenantOracle(1024, Policy.PE_W, "easy", spec,
+                          park_capacity=BF_QUEUE)
+    _hold_bf("tenancy EASY", run, oracle, jobs, "availscan_select")
+    table = run["out"].tenants
+    _hold_table("tenancy EASY", table, oracle.accounts)
+    q = table.n_quota_rejected.cpu().numpy()
+    if not (q[0] and q[2] and q[1]):
+        fail(f"tenancy EASY: gated rejections per tenant {q}: the quotas "
+             f"of tenants 0 and 2 and the cap of tenant 1 must all bite")
+    flat = _bf_stream(jobs, dev, "easy", tenants=tenant_spec(
+        jobs, weights=(1.0,) * N_TENANTS))
+    n_diff = sum(a != b for a, b in zip(run["trace"], flat["trace"]))
+    rows["availscan_select"]["launches_tenancy"] = {
+        "easy": run["launches"]["availscan_select"],
+        "easy_equal_weights": flat["launches"]["availscan_select"]}
+    print(_bf_line("tenancy EASY", run, n))
+    print(_bf_line("backfill EASY (no tenants, same stream)", bf["easy"], n))
+    m = {f: getattr(table, f).cpu().numpy().tolist() for f in (
+        "n_accepted", "n_rejected", "n_quota_rejected", "n_parked")}
+    print(f"tenancy EASY: quotas {spec.quotas}, max_live {spec.max_live}, "
+          f"weights {spec.weights}: per tenant {m}; used "
+          f"{table.used.cpu().numpy().tolist()}; identical to TenantOracle "
+          f"(decisions, parked, records, queue with tenant/t_a, every "
+          f"table field); {n_diff} of {n} decisions differ from the same "
+          f"limits with equal weights")
+
+
+def tenancy_neutral(jobs, plain, bf, dev, rows: dict) -> None:
+    """Four equal weights and no limits: identical to the tenancy-free
+    runs (EASY, ``none``, R = 4, index tile 16), host syncs included."""
+    from repro_torch.tenancy import TenantSpec
+
+    spec = TenantSpec(weights=(1.0,) * N_TENANTS)
+    n = len(jobs)
+    cases = (("easy", dict(), bf["easy"], "availscan_select"),
+             ("none", dict(), bf["none"], "availscan_select"),
+             ("easy", dict(rspec=_mr_spec()), bf["mr"], "availscan_select_mr"),
+             ("easy", dict(index_tile=16), bf["indexed"],
+              "availscan_select"))
+    out = {}
+    for mode, kw, base, select in cases:
+        label = (f"tenancy neutral {mode}"
+                 + (" R = 4" if "rspec" in kw else "")
+                 + (" tile 16" if "index_tile" in kw else ""))
+        js = stamp(jobs, MR_UNITS) if "rspec" in kw else jobs
+        run = _bf_stream(js, dev, mode, tenants=spec, **kw)
+        _same_run(label, run, base)
+        st = run["stats"]
+        if run["launches"][select] != _searches(st):
+            fail(f"{label}: {run['launches'][select]} {select} launches for "
+                 f"{_searches(st)} searches")
+        if "index_tile" in kw:
+            if run["launches"]["availscan"] != st.early_rejects:
+                fail(f"{label}: {run['launches']['availscan']} availscan "
+                     f"launches for {st.early_rejects} early rejects")
+            rows["availscan"]["launches_tenancy_indexed"] = \
+                run["launches"]["availscan"]
+        if mode == "none" and run["trace"] != plain.decisions:
+            fail(f"{label}: decisions differ from the main path")
+        out[label] = run["launches"][select]
+        print(_bf_line(label, run, n) + f"; identical to the tenancy-free "
+              f"run ({base['stats'].host_syncs / n:.3f} syncs per request "
+              f"there)")
+    rows["availscan_select"]["launches_tenancy"].update(
+        {k: v for k, v in out.items() if "R = 4" not in k})
+    rows["availscan_select_mr"]["launches_tenancy"] = {
+        k: v for k, v in out.items() if "R = 4" in k}
+
+
+def _mr_spec():
+    from repro_torch.core.resources import ResourceSpec
+    return ResourceSpec(MR_UNITS)
+
+
+def tenancy_session(jobs, dev, rows: dict) -> None:
+    """A pipelined tenanted session with ``auto_release=False`` that reaps
+    after each offer, against ``TenantOracle``; then idle telemetry
+    polls, which must read nothing."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.api import service as S
+    from repro_torch.core.hostsched import TenantOracle
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    n_offers, size = BF_OFFERS
+    jobs = jobs[:n_offers * size]
+    spec = tenant_spec(jobs, grace=TN_GRACE)
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, policy=Policy.PE_W, capacity=128, pending_capacity=256,
+        chunk_size=64, ring_capacity=256, auto_release=False, tenants=spec,
+        device=dev)).session()
+    oracle = TenantOracle(1024, Policy.PE_W, "none", spec,
+                          auto_release=False)
+    got, want, reaped = [], [], []
+    K.reset_launches()
+    wall = 0.0
+    for k in range(n_offers):
+        piece = jobs[k * size:(k + 1) * size]
+        t0 = time.perf_counter()
+        res = sess.offer(piece)
+        got += _decisions([res])[1]
+        r = sess.tick(piece[-1].t_a)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        want += [oracle.admit(j)[:2] for j in piece]
+        if r != oracle.reap(piece[-1].t_a):
+            fail(f"tenancy session: reaped {r} after offer {k}, the oracle "
+                 f"{oracle.n_reaped - sum(reaped)}")
+        reaped.append(r)
+    launches = K.LAUNCHES["availscan_select"]
+    if got != want:
+        fail(f"tenancy session: decisions differ from the oracle "
+             f"{_first_diff(got, want)}")
+    if sess.records() != oracle.records():
+        fail("tenancy session: records differ from the oracle's")
+    _hold_table("tenancy session", sess._backend._state.tenants,
+                oracle.accounts)
+    m = sess.metrics()
+    if m["reaped"] != oracle.n_reaped or not oracle.n_reaped:
+        fail(f"tenancy session: reaped {m['reaped']}, oracle "
+             f"{oracle.n_reaped}")
+    st = sess._backend.stats
+    if launches != _searches(st):
+        fail(f"tenancy session: {launches} select launches for "
+             f"{_searches(st)} searches")
+    refreshes = []
+    real = S._StreamBackend._refresh_dev_metrics
+    sess._backend._refresh_dev_metrics = \
+        lambda: refreshes.append(1) or real(sess._backend)
+    syncs = st.host_syncs
+    for i in range(20):
+        v = sess.metrics(tenant=i % N_TENANTS)
+    if refreshes or st.host_syncs != syncs:
+        fail(f"tenancy session: 20 idle polls refreshed {len(refreshes)} "
+             f"times, {st.host_syncs - syncs} host syncs")
+    rows["availscan_select"]["launches_tenancy"]["session"] = launches
+    n = len(jobs)
+    print(f"tenancy session (pipelined, chunks of 64, auto_release=False, "
+          f"grace {TN_GRACE}): {n_offers} offers of {size}, a tick after "
+          f"each: accepted {sum(a for a, _ in got)}, reaped {m['reaped']} "
+          f"(n_reaped {m['tenants']['n_reaped'].tolist()}, live "
+          f"{m['tenants']['live'].tolist()}); identical to TenantOracle; "
+          f"{n / wall:.1f} requests/s over offer + tick, host syncs "
+          f"{st.host_syncs} = {st.host_syncs / n:.3f} per request, select "
+          f"launches {launches} = {st.steps} steps - {st.early_rejects} "
+          f"early rejects; 20 idle metrics(tenant=i) polls: 0 refreshes, "
+          f"0 host syncs (tenant 3: live {v['live']}, acc_ewma "
+          f"{v['acc_ewma']})")
+
+
+def tenancy_profile(jobs, dev, n_steps: int = 300) -> None:
+    """Kernels per tenanted EASY step in a :func:`profiled_window`, next
+    to the same steps without tenants."""
+    import torch
+    from repro_torch.core import batch as B
+    from repro_torch.core import timeline as T
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.tenancy import init_table
+
+    few = jobs[:n_steps]
+    spec = tenant_spec(jobs)
+
+    def stream(stats=None, tenants=True):
+        table = init_table(spec, 256, BF_QUEUE, dev) if tenants else None
+        state = T.init_state(128, 1024, 256, device=dev,
+                             park_capacity=BF_QUEUE, tenants=table)
+        return B.admit_stream(state, B.requests_to_batch(
+            few, dev, with_tenant=tenants), Policy.PE_W, "easy", n_pe=1024,
+            stats=stats)
+
+    for tenants in (False, True):
+        stream(tenants=tenants)                                   # warm
+        torch.cuda.synchronize()
+        stats = B.StreamStats()
+        K.reset_launches()
+        with profiled_window() as prof:
+            t0 = time.perf_counter()
+            out, _ = stream(stats, tenants)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if K.LAUNCHES["availscan_select"] != _searches(stats):
+            fail(f"tenancy profile: {K.LAUNCHES['availscan_select']} "
+                 f"select launches for {_searches(stats)} searches")
+        events = profiled_events(prof)
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        n_kernels = sum(e.count for e in events)
+        print(f"profiled {n_steps} EASY steps, tenants "
+              f"{'on' if tenants else 'off'}: wall {wall:.3f} s "
+              f"({wall / n_steps * 1e3:.3f} ms/step, profiler on), device "
+              f"busy {busy_s:.4f} s, idle share {1 - busy_s / wall:.4f}, "
+              f"{n_kernels / n_steps:.1f} kernels/step, "
+              f"{stats.host_syncs / n_steps:.3f} host syncs/step, "
+              f"{_searches(stats) / n_steps:.3f} searches/step")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2211,7 +2510,7 @@ def main(argv=None) -> int:
                     "the indexed stream's)")
     ap.add_argument("--n-event-loop", type=int, default=300,
                     help="jobs for the per-operation event loops")
-    ap.add_argument("--n-session", type=int, default=10_000,
+    ap.add_argument("--n-session", type=int, default=5_000,
                     help="jobs for the multi-resource session")
     args = ap.parse_args(argv)
 
@@ -2284,10 +2583,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     bf = backfill_streams(jobs, plain, dev, rows)
     backfill_session(jobs, dev, rows)
-    backfill_mr(stamp(jobs, MR_UNITS), dev, rows)
-    backfill_indexed(jobs, bf["easy"], dev, rows)
+    bf["mr"] = backfill_mr(stamp(jobs, MR_UNITS), dev, rows)
+    bf["indexed"] = backfill_indexed(jobs, bf["easy"], dev, rows)
     backfill_profile(jobs, dev)
     print(f"backfill phases took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tjobs = tenanted(jobs)
+    tenancy_streams(tjobs, bf, dev, rows)
+    tenancy_neutral(tjobs, plain, bf, dev, rows)
+    tenancy_session(tjobs, dev, rows)
+    tenancy_profile(tjobs, dev)
+    print(f"tenancy phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pipelined_paths(jobs_mr, dev, rows)

@@ -8,8 +8,8 @@ does, and adds ``device``.  ``donate`` keeps its name and default but
 not its mechanism: PyTorch has no buffer donation, so the field only
 selects the reference's pipelined offer (see ``ServiceConfig``).  A
 session runs one device timeline, or one of the host engines; fields
-that ask for more (ensemble lanes, partitions, tenants) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+that ask for more (ensemble lanes, partitions, per-lane tenant specs)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -83,6 +83,13 @@ class ServiceConfig:
         Attaches the availability index (tiles of ``index_tile``
         records, a power of two dividing ``capacity``): early rejects
         and candidate pruning, with identical decisions.
+    ``tenants``
+        A :class:`~repro_torch.tenancy.TenantSpec`: requests carry a
+        ``tenant`` id, each tenant's quota and live cap gate its
+        admissions, the deferral queue ranks by weighted fair share,
+        ``metrics(tenant=i)`` reports the tenant's telemetry, and with
+        ``auto_release=False`` and a ``grace`` window ``tick`` reaps
+        overdue reservations.
     ``device``
         Where the session's state lives; ``None`` means cuda (raising
         without a card).
@@ -161,6 +168,7 @@ class ServiceConfig:
         if self.capacity < 2 or self.pending_capacity < 1:
             raise ValueError("capacity >= 2 and pending_capacity >= 1")
         self._check_backfill()
+        self._check_tenants()
         self._check_resources()
         if self.index_tile is not None:
             it = int(self.index_tile)
@@ -216,6 +224,49 @@ class ServiceConfig:
                 raise ValueError(
                     "backfill_queue must be >= 1 when backfilling")
 
+    def _check_tenants(self) -> None:
+        """The reference's tenant validation, at construction."""
+        if self.tenants is None:
+            return
+        from repro_torch.tenancy import TenantSpec
+        tn = self.tenants
+        if isinstance(tn, (list, tuple)):
+            tn = tuple(tn)
+            object.__setattr__(self, "tenants", tn)
+            if self.n_partitions > 1:
+                raise ValueError(
+                    "partition lanes share one tenant spec; pass a single "
+                    "TenantSpec (per-lane tuples are for ensemble "
+                    "sessions)")
+            if len(tn) != self.lanes:
+                raise ValueError(
+                    f"{len(tn)} tenant specs for {self.lanes} lanes (a "
+                    f"tuple gives one spec per ensemble lane; use None "
+                    f"for single-tenant lanes)")
+            bad = [type(s).__name__ for s in tn
+                   if s is not None and not isinstance(s, TenantSpec)]
+            if bad:
+                raise ValueError(
+                    f"tenants tuple entries must be TenantSpec or None, "
+                    f"got {bad}")
+            specs = [s for s in tn if s is not None]
+        elif isinstance(tn, TenantSpec):
+            specs = [tn]
+        else:
+            raise ValueError(
+                f"tenants must be a TenantSpec (or a per-lane tuple of "
+                f"TenantSpec/None), got {type(tn).__name__}")
+        if self.engine != "device":
+            raise ValueError(
+                "tenancy lives in the device state; use engine='device'")
+        for s in specs:
+            if s.n_tenants > self.pending_capacity:
+                raise ValueError(
+                    f"max tenants ({s.n_tenants}) exceeds the "
+                    f"pending-queue size (pending_capacity="
+                    f"{self.pending_capacity}); every tenant must be "
+                    f"able to hold at least one live reservation")
+
     def _check_resources(self) -> None:
         if self.resources is not None:
             rs = tuple(int(x) for x in self.resources)
@@ -264,8 +315,9 @@ class ServiceConfig:
         """Valid settings the port does not run yet."""
         for on, what, item in (
                 (self.lanes > 1, "lanes > 1", "A12"),
-                (self.n_partitions > 1, "n_partitions > 1", "A15"),
-                (self.tenants is not None, "tenants", "A14")):
+                (isinstance(self.tenants, tuple),
+                 "a per-lane tenants tuple", "A12"),
+                (self.n_partitions > 1, "n_partitions > 1", "A15")):
             if on:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP {item}); the "
@@ -296,6 +348,11 @@ class ServiceConfig:
             return None
         spec = self.rspec
         return tuple((m,) + spec.units[1:] for m in self.machine_sizes)
+
+    @property
+    def tenancy(self) -> bool:
+        """Whether sessions carry a tenant table."""
+        return self.tenants is not None
 
     @property
     def backfilling(self) -> bool:

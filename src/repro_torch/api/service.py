@@ -12,7 +12,9 @@ The port's copy of ``repro/api/service.py`` for one-lane sessions.  A
     callers group their arrivals.  ``chunk_size=None`` admits each
     offer as one batch.
 ``tick(t)``
-    Release every pending reservation ending by ``t``.
+    Release every pending reservation ending by ``t`` (with
+    ``auto_release=False`` on a multi-tenant session with a ``grace``
+    window: reap those overdue past ``t_e + grace``).
 ``cancel(...)`` / ``cancel_many(...)``
     Withdraw committed reservations (on auto-release sessions an
     unknown or already released one returns ``False``).
@@ -23,7 +25,9 @@ The port's copy of ``repro/api/service.py`` for one-lane sessions.  A
     The backfilling deferral queue, FCFS order.
 ``metrics()``
     Admission counters, growths, capacities, ring geometry, the host
-    syncs the session paid and, when backfilling, the queue's counters.
+    syncs the session paid, when backfilling the queue's counters, and
+    on multi-tenant sessions the per-tenant telemetry (``tenants``;
+    ``metrics(tenant=i)`` is one tenant's view).
 
 Capacity overflow grows once to the high-water mark the failed
 dispatch recorded and re-runs that chunk, so chunked decisions equal a
@@ -55,6 +59,7 @@ from repro_torch.core import words as words_lib
 from repro_torch.core.batch import Decision, RequestBatch, RequestRing
 from repro_torch.core.scheduler import DeviceEngine, _make_engine
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
+from repro_torch.tenancy import telemetry
 
 
 class OfferResult:
@@ -194,7 +199,7 @@ class Session:
         self.service = service
         self.config = service.config
         self._counters = dict(offered=0, accepted=0, released=0,
-                              cancelled=0, chunks=0, growths=0,
+                              reaped=0, cancelled=0, chunks=0, growths=0,
                               one_shot_scans=0)
         self._backend = _make_backend(self.config, self._counters)
 
@@ -230,7 +235,10 @@ class Session:
 
         A session with ``auto_release=False`` leaves release to the
         caller (``cancel`` / ``delete_allocation``) and releases
-        nothing here.
+        nothing here; a multi-tenant one with a ``grace`` window reaps
+        instead the reservations still held past ``t_e + grace``,
+        charging their tenants (returns how many, counted in
+        ``metrics()["reaped"]``).
         """
         return self._backend.tick(t)
 
@@ -294,8 +302,15 @@ class Session:
         """
         return self._backend.pending(lane)
 
-    def metrics(self) -> Dict[str, Any]:
-        """Admission counters plus capacity, ring and host-sync figures."""
+    def metrics(self, tenant: Optional[int] = None) -> Dict[str, Any]:
+        """Admission counters plus capacity, ring and host-sync figures.
+
+        On multi-tenant sessions ``"tenants"`` holds the per-tenant
+        telemetry arrays, read in the same transfer as the other
+        state-derived counters and cached until the state changes, so
+        polling an idle session reads nothing.  ``metrics(tenant=i)``
+        returns tenant ``i``'s scalar view.
+        """
         # backend first: it folds the deferred accepted count in
         backend = self._backend.metrics()
         out = dict(self._counters)
@@ -305,6 +320,13 @@ class Session:
                    n_partitions=self.config.n_partitions,
                    chunk_size=self.config.chunk_size,
                    backfill=self.config.backfill)
+        if tenant is not None:
+            snap = out.get("tenants")
+            if snap is None:
+                raise ValueError(
+                    "metrics(tenant=...) needs a multi-tenant session "
+                    "(set ServiceConfig.tenants)")
+            return telemetry.tenant_view(snap, tenant)
         return out
 
     # -- the paper's three operations -----------------------------------
@@ -432,13 +454,16 @@ class _StreamBackend(_BackendBase):
             pending_capacity=cfg.pending_capacity, device=cfg.device,
             park_capacity=cfg.park_capacity, rspec=cfg.rspec,
             live_units=mu[0] if mu is not None else None,
-            index_tile=cfg.index_tile)
+            index_tile=cfg.index_tile, tenants=cfg.tenants)
         self._rspec = cfg.rspec
+        self._n_tenants = cfg.tenants.n_tenants if cfg.tenancy else 0
+        self._grace = cfg.tenants.grace if cfg.tenancy else None
         self._bf = batch_lib.BF_NONE if not cfg.backfilling else \
             batch_lib.as_backfill_id(cfg.backfill)
         self.device = self.engine.tl.device
         self.ring = (RequestRing(cfg.ring_capacity,
-                                 extra_demand=cfg.extra_demand)
+                                 extra_demand=cfg.extra_demand,
+                                 with_tenant=cfg.tenancy)
                      if cfg.chunk_size else None)
         # host syncs, admit steps and release passes of every dispatch
         self.stats = batch_lib.StreamStats()
@@ -535,12 +560,14 @@ class _StreamBackend(_BackendBase):
                     "sequences")
             return self._one_shot(requests, requests.t_a.shape[0], pid)
         reqs = list(requests)
+        self._check_tenants(reqs)
         _check_demands(self._rspec, reqs)
         if self.ring is None:
             if not reqs:
                 return _empty_result()
             batch = batch_lib.requests_to_batch(
-                reqs, self.device, extra_demand=self.cfg.extra_demand)
+                reqs, self.device, extra_demand=self.cfg.extra_demand,
+                with_tenant=self.cfg.tenancy)
             return self._one_shot(batch, len(reqs), pid)
         batch_lib.check_arrival_order(reqs, self.ring.last_t_a)
         self.counters["offered"] += len(reqs)
@@ -548,6 +575,15 @@ class _StreamBackend(_BackendBase):
             return self._offer_pipelined(reqs, pid, flush)
         self._drain_inflight()
         return self._offer_eager(reqs, pid, flush)
+
+    def _check_tenants(self, reqs) -> None:
+        if self._n_tenants:
+            for r in reqs:
+                if r.tenant >= self._n_tenants:
+                    raise ValueError(
+                        f"request tenant {r.tenant} out of range "
+                        f"[0, {self._n_tenants}) for this session's "
+                        f"TenantSpec")
 
     def _one_shot(self, batch: RequestBatch, n: int, pid: int
                   ) -> OfferResult:
@@ -752,6 +788,8 @@ class _StreamBackend(_BackendBase):
         for batch, valid in zip(batches[k:], valids[k:]):
             cols = {f: getattr(batch, f).cpu().numpy()
                     for f in batch_lib.REQ_FIELDS}
+            if batch.tenant is not None:
+                cols["tenant"] = batch.tenant.cpu().numpy()
             if batch.demand is not None:
                 dem = batch.demand.cpu().numpy()
                 for r in range(dem.shape[1]):
@@ -767,7 +805,7 @@ class _StreamBackend(_BackendBase):
 
     def tick(self, t: int) -> int:
         if not self.cfg.auto_release:
-            return 0
+            return self._reap(t)
         self._drain_inflight()
         before_rel = int(self._state.n_released)
         before = self._capacities()
@@ -780,6 +818,28 @@ class _StreamBackend(_BackendBase):
         released = int(state.n_released) - before_rel
         self.counters["released"] += released
         return released
+
+    def _reap(self, t: int) -> int:
+        """Overdue reaping: with ``auto_release=False`` the caller owns
+        release, but a multi-tenant session with a ``grace`` window
+        deletes the reservations held past ``t_e + grace`` and charges
+        them to their tenants (``n_reaped``).  An auto-release session
+        never reaps: its ``tick`` already released everything ending by
+        ``t``, earlier than ``t - grace``."""
+        if self._grace is None:
+            return 0
+        self._drain_inflight()
+        before_rel = int(self._state.n_released)
+        before = self._capacities()
+        state = batch_lib.reap_until(self._state, t, self._grace,
+                                     max_growths=self.growth_budget,
+                                     stats=self.stats)
+        self._grow_guard(before, (state.tl.capacity,
+                                  state.pending_capacity))
+        self._state = state
+        reaped = int(state.n_released) - before_rel
+        self.counters["reaped"] += reaped
+        return reaped
 
     def _mask(self, pe_ids) -> torch.Tensor:
         limit = None if self._rspec is not None else self.cfg.n_pe
@@ -834,18 +894,27 @@ class _StreamBackend(_BackendBase):
             self.ring.restore(ring_snap)
 
     def _refresh_dev_metrics(self) -> None:
-        """One host read of every state-derived counter."""
+        """One host read of every state-derived counter (the tenant
+        table's telemetry included)."""
         s = self._state
         n_pending = (s.pend_te != T_INF).sum()
-        if not self.cfg.backfilling:
+        if not self.cfg.backfilling and s.tenants is None:
             self._dev_metrics = dict(n_pending=int(n_pending))
             return
-        vals = dict(n_pending=n_pending.to(torch.int32),
-                    n_parked_now=(s.park_seq != T_INF).sum().to(torch.int32),
-                    n_parked=s.n_parked, n_promoted=s.n_promoted,
-                    n_moved=s.n_moved)
-        host = torch.stack(list(vals.values())).cpu().tolist()
+        vals = dict(n_pending=n_pending.to(torch.int32))
+        if self.cfg.backfilling:
+            vals.update(
+                n_parked_now=(s.park_seq != T_INF).sum().to(torch.int32),
+                n_parked=s.n_parked, n_promoted=s.n_promoted,
+                n_moved=s.n_moved)
+        flat = torch.stack(list(vals.values()))
+        if s.tenants is not None:
+            flat = torch.cat([flat, telemetry.pack(s.tenants)])
+        host = flat.cpu().numpy()
         self._dev_metrics = dict(zip(vals, (int(v) for v in host)))
+        if s.tenants is not None:
+            self._dev_metrics["tenants"] = telemetry.unpack(
+                host[len(vals):], s.tenants.n_tenants)
 
     def metrics(self) -> Dict[str, Any]:
         # an idle poll (nothing in flight, nothing deferred, the cache

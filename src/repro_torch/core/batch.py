@@ -50,6 +50,23 @@ early reject (it never changes an answer, and the loops use only
 iteration; a displacement reads once more whether the request itself
 fits around the lifted entries.  Every accept or rollback inside them
 stays on the device.
+
+Tenancy.  A state with a tenant table (``state.tenants``) admits each
+request on behalf of its tenant (the batch's ``tenant`` column).  After
+the queue work and before the search, the quota gate decides on the
+device whether the tenant may hold one more reservation of this size;
+the host reads that flag with the release loop's last flag (or, with
+``auto_release=False``, in the one read of the step), and a gated
+request is rewritten never-feasible (``n_pe + 1`` PEs in a one-second
+window at its arrival) and searched as such, as the reference does, so
+every ``Decision`` field equals the reference's.  The deferral queue's
+sweeps and promotion rank by the weighted fair-share key
+(:func:`repro_torch.tenancy.table.fair_key`) instead of FCFS, which
+equal weights leave unchanged; the host computes the same float32 keys
+from the queue read it already makes.  The per-tenant accounting
+(usage, live count, counters, EWMAs) is tensor code after the commit,
+with nothing read back.  Releases, reaping (:func:`reap_until`) and
+cancels return ownership and decrement the owner's live count.
 """
 from __future__ import annotations
 
@@ -65,6 +82,7 @@ from repro_torch.core import timeline as tl_lib
 from repro_torch.core import words as words_lib
 from repro_torch.core.policies import first_true, policy_index
 from repro_torch.core.timeline import I32, SchedulerState
+from repro_torch.tenancy import table as tenancy_lib
 from repro_torch.core.types import (
     Allocation,
     ARRequest,
@@ -107,9 +125,10 @@ def as_backfill_id(backfill) -> int:
 class RequestBatch(NamedTuple):
     """Struct-of-tensors AR request stream, sorted by arrival time.
 
-    ``demand`` is the optional multi-resource column: int32[N, R-1]
-    secondary-plane demands (plane 0 is ``n_pe``); ``None`` for
-    single-resource streams.
+    ``tenant`` is the optional ownership column of multi-tenant
+    streams (int32[N]); ``demand`` the optional multi-resource column:
+    int32[N, R-1] secondary-plane demands (plane 0 is ``n_pe``).  Both
+    are ``None`` where unused.
     """
 
     t_a: torch.Tensor   # int32[N]
@@ -117,6 +136,7 @@ class RequestBatch(NamedTuple):
     t_du: torch.Tensor
     t_dl: torch.Tensor
     n_pe: torch.Tensor
+    tenant: Optional[torch.Tensor] = None  # int32[N]
     demand: Optional[torch.Tensor] = None  # int32[N, R-1]
 
 
@@ -187,13 +207,15 @@ def _demand_fields(extra_demand: int) -> Tuple[str, ...]:
 
 def _fields_to_batch(fields: Dict[str, np.ndarray],
                      device: torch.device) -> RequestBatch:
-    """Host columns (with any ``demand<k>``) -> a RequestBatch on device.
+    """Host columns (with any ``tenant`` / ``demand<k>``) -> a
+    RequestBatch on device.
 
-    The five request columns cross in one copy; the demand columns
-    stack along a trailing axis into the int32[N, R-1] tail (``None``
-    without any).
+    The five request columns, and the tenant column, cross in one copy;
+    the demand columns stack along a trailing axis into the
+    int32[N, R-1] tail (``None`` without any).
     """
-    cols = np.stack([np.asarray(fields[f], np.int32) for f in REQ_FIELDS])
+    names = REQ_FIELDS + (("tenant",) if "tenant" in fields else ())
+    cols = np.stack([np.asarray(fields[f], np.int32) for f in names])
     t = torch.from_numpy(cols).to(device)
     dcols = sorted((k for k in fields if k.startswith("demand")),
                    key=lambda k: int(k[len("demand"):]))
@@ -202,27 +224,38 @@ def _fields_to_batch(fields: Dict[str, np.ndarray],
         demand = torch.from_numpy(np.stack(
             [np.asarray(fields[k], np.int32) for k in dcols],
             axis=-1)).to(device)
-    return RequestBatch(*t, demand=demand)
+    return RequestBatch(*t[:5], tenant=t[5] if len(names) > 5 else None,
+                        demand=demand)
+
+
+def _stage_fields(with_tenant: bool, extra_demand: int) -> Tuple[str, ...]:
+    """Staging column names: the request, its tenant, its demand tail."""
+    return (REQ_FIELDS + (("tenant",) if with_tenant else ())
+            + _demand_fields(extra_demand))
 
 
 def requests_to_batch(jobs: Sequence[ARRequest], device: DeviceLike = None,
-                      extra_demand: int = 0) -> RequestBatch:
+                      extra_demand: int = 0, *, with_tenant: bool = False
+                      ) -> RequestBatch:
     """Pack host requests into the device struct-of-tensors layout.
 
     ``extra_demand`` (= R - 1) adds the multi-resource demand column;
-    requests without a demand vector stage zeros there.
+    requests without a demand vector stage zeros there.  ``with_tenant``
+    adds the tenant column.
     """
     dev = resolve_device(device)
-    names = REQ_FIELDS + _demand_fields(extra_demand)
+    names = _stage_fields(with_tenant, extra_demand)
     fields = {f: np.array([_req_field(j, f) for j in jobs], np.int32)
               for f in names}
     return _fields_to_batch(fields, dev)
 
 
 def request_struct(req: ARRequest, extra_demand: int = 0,
-                   device: DeviceLike = None) -> RequestBatch:
+                   device: DeviceLike = None, *, with_tenant: bool = False
+                   ) -> RequestBatch:
     """A single request as 0-d tensors (demand int32[R-1]) for :func:`admit`."""
-    b = requests_to_batch([req], device, extra_demand)
+    b = requests_to_batch([req], device, extra_demand,
+                          with_tenant=with_tenant)
     return RequestBatch(*(None if x is None else x[0] for x in b))
 
 
@@ -256,14 +289,17 @@ class RequestRing:
     Arriving requests are staged in host numpy storage and leave as
     fixed-shape device chunks via :meth:`pop_chunk`, so every chunk has
     the same shapes however the arrivals are grouped.  Slots are reused
-    modulo ``capacity``; a full ring rejects the push.
+    modulo ``capacity``; a full ring rejects the push.  ``with_tenant``
+    stages the tenant column (filler carries tenant 0, and is never
+    charged: the admit step knows it by its ``n_pe + 1`` ask).
     """
 
-    def __init__(self, capacity: int, extra_demand: int = 0):
+    def __init__(self, capacity: int, extra_demand: int = 0, *,
+                 with_tenant: bool = False):
         if capacity < 1:
             raise ValueError("ring capacity must be >= 1")
         self.capacity = capacity
-        self._fields = REQ_FIELDS + _demand_fields(extra_demand)
+        self._fields = _stage_fields(with_tenant, extra_demand)
         self._buf = {f: np.zeros(capacity, np.int32) for f in self._fields}
         self._head = 0          # index of the oldest staged request
         self.count = 0          # staged (not yet popped) requests
@@ -366,8 +402,21 @@ def request_demand(state: SchedulerState, req) -> Optional[torch.Tensor]:
     return torch.tensor(tail, dtype=I32).to(dev)
 
 
-def _release_chunk(s: SchedulerState, t_now: int) -> SchedulerState:
-    """Delete up to RELEASE_CHUNK due reservations in one update_many."""
+def _tenant_dec(tn, freed: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
+    """int32[T]: how many of the ``freed`` slots each tenant owned."""
+    hit = (freed & (owner >= 0)).to(I32)
+    return torch.zeros_like(tn.live).scatter_add(
+        0, owner.clamp(0, tn.n_tenants - 1).to(torch.int64), hit)
+
+
+def _release_chunk(s: SchedulerState, t_now: int,
+                   reap: bool = False) -> SchedulerState:
+    """Delete up to RELEASE_CHUNK due reservations in one update_many.
+
+    On a tenanted state the freed slots return to unowned and their
+    owners' live counts drop; ``reap`` also charges them to the owners'
+    ``n_reaped`` (overdue reaping, :func:`reap_until`).
+    """
     CH = min(RELEASE_CHUNK, s.pending_capacity)
     W = s.pend_mask.shape[1]
     dev = s.pend_te.device
@@ -391,7 +440,7 @@ def _release_chunk(s: SchedulerState, t_now: int) -> SchedulerState:
         gather(s.pend_mask, W), act[:CH], is_add=False, with_count=True)
     # slots are freed even on overflow so the loop always progresses;
     # an overflowed stream is re-run anyway
-    return s._replace(
+    out = s._replace(
         tl=_where_tl(ovf, s.tl, new_tl),
         pend_ts=torch.where(chosen, T_INF, s.pend_ts),
         pend_te=torch.where(chosen, T_INF, s.pend_te),
@@ -400,6 +449,15 @@ def _release_chunk(s: SchedulerState, t_now: int) -> SchedulerState:
             ovf, 0, chosen.sum()).to(I32),
         overflow=s.overflow | ovf,
         hw_records=torch.maximum(s.hw_records, n_keep))
+    tn = s.tenants
+    if tn is not None:
+        dec = _tenant_dec(tn, chosen, tn.pend_tenant)
+        upd = dict(live=tn.live - dec,
+                   pend_tenant=torch.where(chosen, -1, tn.pend_tenant))
+        if reap:
+            upd["n_reaped"] = tn.n_reaped + dec
+        out = out._replace(tenants=tn._replace(**upd))
+    return out
 
 
 def _where_tl(pred, if_true: tl_lib.Timeline,
@@ -411,12 +469,22 @@ def _where_tl(pred, if_true: tl_lib.Timeline,
         if getattr(if_true, f) is not None})
 
 
+def _where_table(pred, if_true, if_false):
+    """Field-wise select of two tenant tables; a field both share (the
+    configuration, or whatever the step left alone) is kept as is."""
+    return if_true._replace(**{
+        f: torch.where(pred, a, b)
+        for f, a, b in zip(if_true._fields, if_true, if_false) if a is not b})
+
+
 def _where_state(pred, if_true: SchedulerState,
                  if_false: SchedulerState) -> SchedulerState:
     """Field-wise select of two states of one layout (a state without a
-    deferral queue has ``None`` there, and nothing is selected)."""
+    deferral queue or a tenant table has ``None`` there, and nothing is
+    selected)."""
+    pick = {"tl": _where_tl, "tenants": _where_table}
     return if_true._replace(**{
-        f: (_where_tl if f == "tl" else torch.where)(
+        f: pick.get(f, torch.where)(
             pred, getattr(if_true, f), getattr(if_false, f))
         for f in _STEP_FIELDS if getattr(if_true, f) is not None})
 
@@ -435,8 +503,8 @@ def _read(stats: Optional[StreamStats], xs: List[torch.Tensor]) -> List[int]:
 
 
 def _release_then(state: SchedulerState, t_now: int,
-                  stats: Optional[StreamStats], probe=None, stop=None
-                  ) -> Tuple[SchedulerState, List[int]]:
+                  stats: Optional[StreamStats], probe=None, stop=None,
+                  reap: bool = False) -> Tuple[SchedulerState, List[int]]:
     """:func:`release_due`, reading ``probe(state)`` with every flag.
 
     ``probe`` maps the state to a list of 0-d device values, computed
@@ -444,14 +512,14 @@ def _release_then(state: SchedulerState, t_now: int,
     Returns the state and the last read, ``[due, *probe]``: the reading
     that comes with the last flag (nothing due) is of the released
     state.  A read for which ``stop(values)`` holds ends the loop before
-    the release it announces.
+    the release it announces.  ``reap`` charges the releases as reaped.
     """
     while True:
         due = (state.pend_te <= t_now).any() & ~state.overflow
         vals = _read(stats, [due] + ([] if probe is None else probe(state)))
         if not vals[0] or (stop is not None and stop(vals)):
             return state, vals
-        state = _release_chunk(state, t_now)
+        state = _release_chunk(state, t_now, reap)
         if stats is not None:
             stats.release_passes += 1
 
@@ -463,18 +531,30 @@ def _promote_due(s: SchedulerState, t_now: int) -> SchedulerState:
     the pending-release buffer, freeing its queue slot.  All due entries
     promote in one pass: the k-th due entry in FCFS order takes the k-th
     free pending slot in index order, so the pending arrays equal the
-    reference's, not just the records.  More due entries than free
+    reference's, not just the records.  A tenanted state ranks by the
+    fair-share key instead (higher first, sequence breaking ties) and
+    moves each entry's owner with it.  More due entries than free
     slots latch ``overflow`` (``hw_pending`` K + 1).  The caller gates
     it: the pass assumes something is due and nothing has overflowed.
     """
     K = s.pending_capacity
+    tn = s.tenants
     due = (s.park_seq < T_INF) & (s.park_ts <= t_now)
     free = s.pend_te == T_INF
     n_free = free.sum().to(I32)
     n_due = due.sum().to(I32)
     seq = torch.where(due, s.park_seq, T_INF)
-    # FCFS rank among due entries (sequence numbers are unique)
-    rank = ((seq[None, :] < seq[:, None]) & due[None, :]).sum(dim=1)
+    if tn is None:
+        # FCFS rank among due entries (sequence numbers are unique)
+        rank = ((seq[None, :] < seq[:, None]) & due[None, :]).sum(dim=1)
+    else:
+        # due entries strictly ahead: a higher key, or an equal key and
+        # an earlier sequence number
+        key = tenancy_lib.fair_key(tn, t_now)
+        ahead = due[None, :] & ((key[None, :] > key[:, None])
+                                | ((key[None, :] == key[:, None])
+                                   & (seq[None, :] < seq[:, None])))
+        rank = ahead.sum(dim=1)
     promoted = due & (rank < n_free)
     frank = torch.cumsum(free, dim=0) - 1
     # take[q, k]: queue entry q goes to pending slot k
@@ -490,6 +570,13 @@ def _promote_due(s: SchedulerState, t_now: int) -> SchedulerState:
     ovf = n_due > n_free
     n_prom = torch.minimum(n_due, n_free)
     used0 = (~free).sum().to(I32)
+    if tn is not None:
+        # ownership follows the reservation; freed queue slots return
+        # to unowned
+        s = s._replace(tenants=tn._replace(
+            pend_tenant=scat(tn.pend_tenant, tn.park_tenant),
+            park_tenant=torch.where(promoted, -1, tn.park_tenant),
+            park_ta=torch.where(promoted, 0, tn.park_ta)))
     return s._replace(
         pend_ts=scat(s.pend_ts, s.park_ts),
         pend_te=scat(s.pend_te, s.park_te),
@@ -536,25 +623,64 @@ _QUEUE_COLS = ("park_seq", "park_ts", "park_te", "park_tr", "park_tdl",
                "park_npe")
 
 
+# a tenanted queue adds its owners and arrival stamps (the fair key's
+# inputs), and the table's weights as their float32 bits
+_TENANT_COLS = ("park_tenant", "park_ta")
+
+
 def _read_queue(s: SchedulerState, stats: Optional[StreamStats],
                 flags: Sequence[torch.Tensor] = ()
                 ) -> Tuple[Dict[str, np.ndarray], List[int]]:
     """The queue's columns, and 0-d ``flags``, in one host read."""
-    cols = torch.stack([getattr(s, f) for f in _QUEUE_COLS]).reshape(-1)
+    tn = s.tenants
+    parts = [getattr(s, f) for f in _QUEUE_COLS]
+    if tn is not None:
+        parts += [getattr(tn, f) for f in _TENANT_COLS]
+    cols = torch.stack(parts).reshape(-1)
+    if tn is not None:
+        cols = torch.cat([cols, tn.weight.view(I32)])
     if flags:
         cols = torch.cat([cols, torch.stack(list(flags)).to(I32)])
     host = cols.cpu().numpy()
     if stats is not None:
         stats.sync()
     Q = s.park_capacity
-    q = {f: host[k * Q:(k + 1) * Q] for k, f in enumerate(_QUEUE_COLS)}
-    return q, [int(v) for v in host[len(_QUEUE_COLS) * Q:]]
+    names = _QUEUE_COLS + (_TENANT_COLS if tn is not None else ())
+    q = {f: host[k * Q:(k + 1) * Q] for k, f in enumerate(names)}
+    k = len(names) * Q
+    if tn is not None:
+        q["weight"] = host[k:k + tn.n_tenants].view(np.float32)
+        k += tn.n_tenants
+    return q, [int(v) for v in host[k:]]
 
 
 def _fcfs(q: Dict[str, np.ndarray]) -> List[int]:
     """Live queue slots in FCFS order (ascending sequence number)."""
     seq = q["park_seq"]
     return [int(i) for i in np.argsort(seq, kind="stable") if seq[i] < T_INF]
+
+
+def _order(q: Dict[str, np.ndarray], t_now: int) -> List[int]:
+    """Live queue slots in service order at ``t_now``.
+
+    FCFS; on a tenanted queue the fair-share key decides, highest first
+    and the sequence number breaking ties, with the device's float32
+    product (:func:`~repro_torch.tenancy.table.fair_key`).  Keys do not
+    change inside a sweep, so this order is the reference's choice of
+    the next entry at every iteration.
+    """
+    live = _fcfs(q)
+    if "weight" not in q:
+        return live
+    w = q["weight"]
+    T = w.shape[0]
+
+    def rank(i):
+        tid = min(max(int(q["park_tenant"][i]), 0), T - 1)
+        wait = np.float32(np.int32(t_now) - np.int32(q["park_ta"][i]))
+        return (-np.float32(w[tid] * wait), int(q["park_seq"][i]))
+
+    return sorted(live, key=rank)
 
 
 def _park_demand(s: SchedulerState, i: int) -> Optional[torch.Tensor]:
@@ -567,8 +693,9 @@ def _retry_parked(s: SchedulerState, t_now: int, *, n_pe: int,
                   ) -> SchedulerState:
     """EASY retry-on-release sweep: pull parked reservations earlier.
 
-    In FCFS order each live entry is lifted off the timeline,
-    re-searched with :func:`~repro_torch.core.search.replacement_search`
+    In service order (:func:`_order`) each live entry is lifted off the
+    timeline, re-searched with
+    :func:`~repro_torch.core.search.replacement_search`
     (First Fit: the earliest feasible start) and moved only to a
     strictly earlier start, so the sweep never delays anybody, the head
     included.  It runs after a cancel armed ``park_retry``: completions
@@ -577,7 +704,7 @@ def _retry_parked(s: SchedulerState, t_now: int, *, n_pe: int,
     """
     q, _ = _read_queue(s, stats)
     idx = torch.arange(s.park_capacity, device=s.park_seq.device)
-    for i in _fcfs(q):
+    for i in _order(q, t_now):
         ts, te = int(q["park_ts"][i]), int(q["park_te"][i])
         t_du = te - ts
         act = ~s.overflow
@@ -611,10 +738,26 @@ def _retry_parked(s: SchedulerState, t_now: int, *, n_pe: int,
     return s
 
 
+def _probes(gate, probe) -> list:
+    """The step's predicates read with the release flags: the quota gate
+    (tenanted states), then the early reject (indexed timelines)."""
+    return [p for p in (gate, probe) if p is not None]
+
+
+def _split(vals: Sequence[int], gate, probe
+           ) -> Tuple[Optional[bool], Optional[bool]]:
+    """``(within, reject)`` from the values :func:`_probes` read."""
+    it = iter(vals)
+    within = bool(next(it)) if gate is not None else None
+    reject = bool(next(it)) if probe is not None else None
+    return within, reject
+
+
 def _queue_then(state: SchedulerState, t_now: int, bf: int,
-                stats: Optional[StreamStats], probe, *, n_pe: int,
+                stats: Optional[StreamStats], gate, probe, *, n_pe: int,
                 use_kernel: bool
-                ) -> Tuple[SchedulerState, Optional[bool], bool]:
+                ) -> Tuple[SchedulerState, Optional[bool], Optional[bool],
+                           bool]:
     """Queue work and release of one backfilling admit step.
 
     As the reference's one queue-work ``lax.cond``: when a live entry is
@@ -624,13 +767,16 @@ def _queue_then(state: SchedulerState, t_now: int, bf: int,
     otherwise only release.  The latch is consumed either way.  The
     queue's predicates come with the release loop's first flag, so a
     step whose queue is idle reads exactly what a ``none`` step reads.
-    ``probe`` (indexed timelines) gives the early-reject predicate of
-    the state the search will see.  Returns that state, the predicate,
-    and whether two or more entries are live (EASY displacement needs
-    two).
+    ``gate`` (tenanted states) gives the quota gate and ``probe``
+    (indexed timelines) the early-reject predicate of the state the
+    search will see; both ride on the release loop's reads.  The retry
+    sweep changes no tenant's usage or live count, so the gate read
+    before it stands; the early reject is read again after it.  Returns
+    that state, the gate and the predicate, and whether two or more
+    entries are live (EASY displacement needs two).
     """
     easy = bf == BF_EASY
-    extra = [] if probe is None else [probe]
+    extra = _probes(gate, probe)
 
     def head(s):
         live = s.park_seq < T_INF
@@ -643,7 +789,7 @@ def _queue_then(state: SchedulerState, t_now: int, bf: int,
 
     state, v = _release_then(state, t_now, stats, head, stop=lambda v: v[1])
     work, promote, retry, two_live = (bool(x) for x in v[1:5])
-    reject = bool(v[5]) if probe is not None else None
+    within, reject = _split(v[5:], gate, probe)
     if work:
         if promote:
             state = _promote_due(state, t_now)
@@ -655,7 +801,7 @@ def _queue_then(state: SchedulerState, t_now: int, bf: int,
 
         state, v = _release_then(state, t_now, stats, after)
         sweep, two_live = easy and bool(v[1]), bool(v[2])
-        reject = bool(v[3]) if probe is not None else None
+        within, reject = _split(v[3:], gate, probe)
         if sweep:
             state = _retry_parked(state, t_now, n_pe=n_pe,
                                   use_kernel=use_kernel, stats=stats)
@@ -663,7 +809,7 @@ def _queue_then(state: SchedulerState, t_now: int, bf: int,
                 reject = bool(_read(stats, [probe(state)])[0])
     if retry:
         state = state._replace(park_retry=torch.zeros_like(state.park_retry))
-    return state, reject, two_live
+    return state, within, reject, two_live
 
 
 def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
@@ -675,8 +821,10 @@ def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
     The transaction: lift every non-head queue reservation off the
     timeline in one ``update_many``, place the request (its own policy,
     its whole window) around the committed reservations and the head,
-    then re-place the lifted entries in FCFS order at their earliest
-    feasible start inside their own windows.  The request is admitted
+    then re-place the lifted entries in service order (:func:`_order`:
+    FCFS, or the fair-share key's on a tenanted queue, whose head is
+    then the entry with the highest key) at their earliest feasible
+    start inside their own windows.  The request is admitted
     only if every lifted entry fits again; otherwise every field rolls
     back (``overflow`` and the high-water marks aside: an overflow
     inside the transaction latches whatever the outcome, so the host's
@@ -689,8 +837,12 @@ def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
     outcome.
     """
     t_a, t_r, t_du, t_dl, n_req = req
+    order = _order(q, t_a)
     live = s.park_seq < T_INF
-    head_seq = torch.where(live, s.park_seq, T_INF).min()
+    if s.tenants is None:
+        head_seq = torch.where(live, s.park_seq, T_INF).min()
+    else:
+        head_seq = int(q["park_seq"][order[0]])
     nonhead = live & (s.park_seq != head_seq)
     tl, ovf, hw = tl_lib.update_many(s.tl, s.park_ts, s.park_te,
                                      s.park_mask, nonhead, is_add=False,
@@ -717,7 +869,7 @@ def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
     idx = torch.arange(s.park_capacity, device=s.park_seq.device)
     pts, pte, pmk = s.park_ts, s.park_te, s.park_mask
     moved = torch.zeros((), dtype=I32, device=idx.device)
-    for i in _fcfs(q)[1:]:
+    for i in order[1:]:
         ts = int(q["park_ts"][i])
         du = int(q["park_te"][i]) - ts
         act = ok & ~ovf
@@ -757,10 +909,12 @@ def _displace(s: SchedulerState, req: Tuple[int, ...], policy_id: int,
 
 def _park_write(o: SchedulerState, do: torch.Tensor, t_s: torch.Tensor,
                 t_e: torch.Tensor, pe_mask: torch.Tensor, t_r: int,
-                t_dl: int, n_req: int, demand: Optional[torch.Tensor]
-                ) -> SchedulerState:
+                t_dl: int, n_req: int, demand: Optional[torch.Tensor],
+                tid: int = 0, t_a: int = 0) -> SchedulerState:
     """Book an accepted, delayed request into the first free queue slot
-    (where ``do``); it keeps its window and demand for re-placement."""
+    (where ``do``); it keeps its window and demand for re-placement, and
+    on a tenanted state its owner ``tid`` and arrival ``t_a`` (the fair
+    key's wait starts there)."""
     free = o.park_seq == T_INF
     hit = (torch.arange(o.park_capacity, device=free.device)
            == first_true(free)) & do
@@ -782,14 +936,93 @@ def _park_write(o: SchedulerState, do: torch.Tensor, t_s: torch.Tensor,
                else demand.to(I32))
         out = out._replace(park_dem=torch.where(hit[:, None], row[None, :],
                                                 o.park_dem))
+    tn = o.tenants
+    if tn is not None:
+        out = out._replace(tenants=tn._replace(
+            park_tenant=torch.where(hit, tid, tn.park_tenant),
+            park_ta=torch.where(hit, t_a, tn.park_ta)))
     return out
+
+
+def _occ_frac(s: SchedulerState, t: int, n_pe: int) -> torch.Tensor:
+    """float32: the busy share of the PEs (plane 0 only) at instant ``t``.
+
+    The division is by a tensor on the device: CUDA divides by a Python
+    number through its reciprocal, which can differ in the last bit.
+    """
+    row = tl_lib.occupancy_at(s.tl, t)
+    if s.rspec is not None:
+        row = row[s.rspec.plane_slice(0)]
+    busy = words_lib.popcount(row).sum().to(torch.float32)
+    return busy / torch.full((), float(n_pe), dtype=torch.float32,
+                             device=busy.device)
+
+
+def _set_col(x: torch.Tensor, i: int, v: torch.Tensor) -> torch.Tensor:
+    """``x`` with column ``i`` of its last axis replaced by ``v``."""
+    return torch.cat([x[..., :i], v[..., None], x[..., i + 1:]], dim=-1)
+
+
+def _account(s: SchedulerState, tid: int, found: torch.Tensor,
+             parks: Optional[torch.Tensor], blocked: bool,
+             occ_frac: torch.Tensor, t_e: torch.Tensor,
+             req: Tuple[int, ...]) -> SchedulerState:
+    """Charge one real request to tenant ``tid`` (no host read).
+
+    ``found`` and ``s`` are the step's outcome and committed state;
+    ``req`` is the request as offered (a gated one's rewrite aside), so
+    the slowdown sample is ``f32(t_e - t_r) / f32(t_du)`` of the
+    original.  An overflowed step charges nothing: it is re-run.  The
+    EWMAs round as pinned in :mod:`repro_torch.tenancy.table`.
+    """
+    t_a, t_r, t_du, t_dl, n_req = req
+    tn = s.tenants
+    dev = tn.used.device
+    ok = ~s.overflow
+    acc = found & ok
+    rej = (ok & ~acc).to(I32)
+    acc_i = acc.to(I32)
+    prk = (torch.zeros_like(acc_i) if parks is None
+           else (acc & parks).to(I32))
+    inc = torch.stack([acc_i, acc_i, rej,
+                       rej if blocked else torch.zeros_like(rej), prk])
+    cnt = torch.stack([tn.live, tn.n_accepted, tn.n_rejected,
+                       tn.n_quota_rejected, tn.n_parked])
+    live, n_acc, n_rej, n_qrej, n_prk = _set_col(
+        cnt, tid, cnt[:, tid] + inc).unbind(0)
+    a = tn.alpha
+    oma = 1.0 - a
+    a64, oma64 = a.double(), oma.double()
+
+    def fma(p, q, r):
+        # p * q + r with one float32 rounding; p * q is exact in float64
+        return (p.double() * q + r.double()).to(torch.float32)
+
+    acc_x = acc.to(torch.float32)
+    new_acc = fma(acc_x, a64, tn.acc_ewma[tid] * oma)
+    slow_x = (t_e - t_r).to(torch.float32) / torch.full(
+        (), float(t_du), dtype=torch.float32, device=dev)
+    new_slow = fma(slow_x, a64, tn.slow_ewma[tid] * oma)
+    new_occ = fma(tn.occ_ewma, oma64, occ_frac * a)
+    dem = float(np.float32(n_req) * np.float32(t_du))
+    used = tn.used[tid]
+    col = torch.stack([torch.where(acc, used + dem, used),
+                       torch.where(ok, new_acc, tn.acc_ewma[tid]),
+                       torch.where(acc, new_slow, tn.slow_ewma[tid])])
+    fl = torch.stack([tn.used, tn.acc_ewma, tn.slow_ewma])
+    used_v, acc_v, slow_v = _set_col(fl, tid, col).unbind(0)
+    return s._replace(tenants=tn._replace(
+        used=used_v, live=live, n_accepted=n_acc, n_rejected=n_rej,
+        n_quota_rejected=n_qrej, n_parked=n_prk, acc_ewma=acc_v,
+        slow_ewma=slow_v,
+        occ_ewma=torch.where(ok, new_occ, tn.occ_ewma)))
 
 
 def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
                 policy_id: int, bf: int = BF_NONE, *, n_pe: int,
                 auto_release: bool, use_kernel: bool,
                 stats: Optional[StreamStats],
-                demand: Optional[torch.Tensor] = None
+                demand: Optional[torch.Tensor] = None, tenant: int = 0
                 ) -> Tuple[SchedulerState, Decision]:
     t_a, t_r, t_du, t_dl, n_req = req
     probe = None
@@ -798,21 +1031,49 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
             return search_lib.index_reject(
                 s.tl, t_r, t_du, t_dl, n_req, rspec=s.rspec,
                 demand_tail=demand, valid_mask=s.lane_valid)
+    # the quota gate: filler (n_pe + 1 PEs) belongs to no tenant and is
+    # neither gated nor charged
+    gate = None
+    tid = 0
+    real = state.tenants is not None and n_req <= n_pe
+    if real:
+        tid = min(max(int(tenant), 0), state.tenants.n_tenants - 1)
+        ask = float(np.float32(n_req) * np.float32(t_du))
+
+        def gate(s):
+            tn = s.tenants
+            return ((tn.used[tid] + ask <= tn.quota[tid])
+                    & (tn.live[tid] < tn.max_live[tid]))
     # the queue works only where the reference's does: with
     # auto-release (promotion goes through the pending buffer)
     backfilling = bool(state.park_capacity) and auto_release
-    reject = None
+    within = reject = None
     two_live = False
     if backfilling:
-        state, reject, two_live = _queue_then(
-            state, t_a, bf, stats, probe, n_pe=n_pe, use_kernel=use_kernel)
+        state, within, reject, two_live = _queue_then(
+            state, t_a, bf, stats, gate, probe, n_pe=n_pe,
+            use_kernel=use_kernel)
     elif auto_release:
+        extra = _probes(gate, probe)
         state, v = _release_then(state, t_a, stats,
-                                 None if probe is None
-                                 else lambda s: [probe(s)])
-        reject = None if probe is None else bool(v[1])
-    elif probe is not None:
-        reject = bool(_read(stats, [probe(state)])[0])
+                                 (lambda s: [p(s) for p in extra])
+                                 if extra else None)
+        within, reject = _split(v[1:], gate, probe)
+    elif gate is not None or probe is not None:
+        # no release loop to ride on: the step's one read
+        within, reject = _split(
+            _read(stats, [p(state) for p in _probes(gate, probe)]),
+            gate, probe)
+    blocked = real and not within
+    occ_frac = _occ_frac(state, t_a, n_pe) if real else None
+    if blocked:
+        # an over-quota request is searched as a never-feasible one, as
+        # the reference rewrites it (``req`` keeps the offered request,
+        # which the accounting charges); asking for n_pe + 1 PEs, it is
+        # rejected by summary_reject's capacity proof on any index
+        t_r, t_du, t_dl, n_req = t_a, 1, t_a + 1, n_pe + 1
+        if probe is not None:
+            reject = True
     res = search_lib.search(state.tl, t_r, t_du, t_dl, n_req, policy_id,
                             t_a, n_pe=n_pe, use_kernel=use_kernel,
                             rspec=state.rspec, demand_tail=demand,
@@ -821,16 +1082,21 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
     if reject and stats is not None:
         stats.early_rejects += 1
     queue = None
-    if backfilling and bf == BF_EASY and two_live:
+    if backfilling and bf == BF_EASY and two_live and not blocked:
         # EASY may displace when the search failed: that, and the
-        # queue's order for the transaction, cross in one read
+        # queue's order for the transaction, cross in one read (a gated
+        # request never displaces)
         q, (found_h, ovf_h) = _read_queue(state, stats,
                                           [res.found, state.overflow])
         if not (found_h or ovf_h):
             queue = q
     if reject and queue is None:
         # nothing is feasible: the commit below would select the old
-        # state in every field, so it is skipped
+        # state in every field, so it is skipped (the tenant is still
+        # charged a rejection)
+        if real:
+            state = _account(state, tid, res.found, None, blocked,
+                             occ_frac, res.t_e, req)
         return state, _decision(res.found, res)
     # a win whose end reaches the horizon sentinel is rejected: the
     # update's T_INF guard would make its commit a silent no-op
@@ -849,8 +1115,9 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
         parks = (t_s > t_r) & (state.park_seq == T_INF).any()
 
     # ---- commit, computed unconditionally and selected by `found`;
-    # the pending-release slot only with auto_release, as in the
-    # reference (a caller that releases by hand keeps no ledger)
+    # the pending-release slot only with auto_release or a tenant table,
+    # as in the reference (a caller that releases by hand keeps no
+    # ledger, unless reaping and cancels need one)
     s = state
     dev = s.pend_te.device
     if queue is None:
@@ -862,7 +1129,7 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
         new_tl, ovf = s.tl, torch.zeros((), dtype=torch.bool, device=dev)
         n_keep = s.tl.n_valid()
     pend = {}
-    if auto_release:
+    if auto_release or s.tenants is not None:
         free = s.pend_te == T_INF
         slot = first_true(free)
         used = (~free).sum().to(I32) + 1
@@ -885,6 +1152,10 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
         pend = dict(pend_ts=put(s.pend_ts, t_s), pend_te=put(s.pend_te, t_e),
                     pend_mask=put(s.pend_mask, pe_mask),
                     hw_pending=hw_pending)
+        if s.tenants is not None:
+            pend["tenants"] = s.tenants._replace(pend_tenant=put(
+                s.tenants.pend_tenant,
+                torch.full((), tid, dtype=I32, device=dev)))
     committed = s._replace(
         # an overflowing update returns a truncated timeline: keep the
         # pre-commit one so the re-run starts from consistent data
@@ -894,8 +1165,11 @@ def _admit_impl(state: SchedulerState, req: Tuple[int, ...],
         hw_records=torch.maximum(s.hw_records, n_keep), **pend)
     if parks is not None:
         committed = _park_write(committed, parks & ~ovf, t_s, t_e, pe_mask,
-                                t_r, t_dl, n_req, demand)
+                                t_r, t_dl, n_req, demand, tid, t_a)
     state = _where_state(found, committed, state)
+    if real:
+        state = _account(state, tid, found, parks, blocked, occ_frac, t_e,
+                         req)
     return state, _decision(found & ~state.overflow, res, parks)
 
 
@@ -928,12 +1202,14 @@ def admit(state: SchedulerState, req, policy, backfill=BF_NONE, *,
     ``auto_release=False`` skips the release pass for callers that
     manage completions themselves.  ``backfill`` (any spelling of
     :func:`as_backfill_id`) matters only on a state with a deferral
-    queue.
+    queue; the request's ``tenant`` only on a tenanted state.
     """
+    tenant = getattr(req, "tenant", None)
     return _admit_impl(state, _field_tuple(req), _policy_id(policy),
                        as_backfill_id(backfill), n_pe=n_pe,
                        auto_release=auto_release, use_kernel=use_kernel,
-                       stats=stats, demand=request_demand(state, req))
+                       stats=stats, demand=request_demand(state, req),
+                       tenant=0 if tenant is None else int(tenant))
 
 
 def admit_stream(state: SchedulerState, batch: RequestBatch, policy,
@@ -944,7 +1220,8 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy,
     """Admit an arrival-ordered stream; decisions stacked ``[N]``.
 
     The request fields cross to the host once, up front: every step's
-    search takes them as kernel arguments.
+    search takes them as kernel arguments.  On a tenanted state the
+    tenant column crosses with them (a batch without one is tenant 0's).
     """
     pid = _policy_id(policy)
     bf = as_backfill_id(backfill)
@@ -953,16 +1230,20 @@ def admit_stream(state: SchedulerState, batch: RequestBatch, policy,
             batch.t_a.shape[0], state.rspec.R - 1):
         raise ValueError(f"demand column {tuple(demand.shape)} does not "
                          f"match the spec's {state.rspec.R - 1} planes")
-    rows = torch.stack([getattr(batch, f) for f in REQ_FIELDS]
-                       ).cpu().numpy().T
+    cols = [getattr(batch, f) for f in REQ_FIELDS]
+    if state.tenants is not None:
+        cols.append(torch.zeros_like(batch.t_a) if batch.tenant is None
+                    else batch.tenant.to(I32))
+    rows = torch.stack(cols).cpu().numpy().T
     if stats is not None:
         stats.sync()
     decisions: List[Decision] = []
     for i, row in enumerate(rows):
         state, dec = _admit_impl(
-            state, tuple(int(x) for x in row), pid, bf, n_pe=n_pe,
+            state, tuple(int(x) for x in row[:5]), pid, bf, n_pe=n_pe,
             auto_release=auto_release, use_kernel=use_kernel, stats=stats,
-            demand=None if demand is None else demand[i])
+            demand=None if demand is None else demand[i],
+            tenant=int(row[5]) if len(row) > 5 else 0)
         decisions.append(dec)
     if stats is not None:
         stats.steps += len(rows)
@@ -1168,6 +1449,40 @@ def release_until(state: SchedulerState, t_now: int, *,
         f"attempts (last tried capacity {start.tl.capacity})")
 
 
+def reap_step(state: SchedulerState, t_now: int, grace: int,
+              stats: Optional[StreamStats] = None) -> SchedulerState:
+    """Delete the reservations overdue past the tenant grace window.
+
+    A reservation is overdue at ``t_now`` iff ``t_e + grace <= t_now``,
+    i.e. ``t_e <= t_now - grace``: reaping is the release loop at the
+    shifted cutoff, each freed slot also charged to its owner's
+    ``n_reaped``.  No promotion runs first.  Meant for sessions that
+    track completions themselves (``auto_release=False``): with
+    auto-release every reservation is released at ``t_e``.
+    """
+    return _release_then(state, int(t_now) - int(grace), stats,
+                         reap=True)[0]
+
+
+def reap_until(state: SchedulerState, t_now: int, grace: int, *,
+               max_growths: int = MAX_DOUBLINGS,
+               stats: Optional[StreamStats] = None) -> SchedulerState:
+    """:func:`reap_step` with overflow growth (a deletion can split a
+    merged record); as :func:`release_until`."""
+    start = state
+    for attempt in range(max_growths + 1):
+        out = reap_step(start, t_now, grace, stats)
+        if stats is not None:
+            stats.sync()
+        if not bool(out.overflow):
+            return out
+        if attempt < max_growths:
+            start = _grown(start, out, stats)
+    raise GrowthError(
+        f"reap_until still overflowing after {max_growths + 1} "
+        f"attempts (last tried capacity {start.tl.capacity})")
+
+
 def cancel_step(state: SchedulerState, t_s: int, t_e: int,
                 mask: torch.Tensor, *, require_pending: bool = True
                 ) -> Tuple[SchedulerState, torch.Tensor]:
@@ -1206,6 +1521,7 @@ def cancel_step(state: SchedulerState, t_s: int, t_e: int,
         overflow=state.overflow | ovf,
         hw_records=torch.maximum(state.hw_records,
                                  torch.where(ok, n_keep, 0)))
+    pclear = None
     if state.park_capacity:
         pclear = pmatch & (torch.cumsum(pmatch, dim=0) == 1) & do
         out = out._replace(
@@ -1216,7 +1532,23 @@ def cancel_step(state: SchedulerState, t_s: int, t_e: int,
             # a withdrawal frees future capacity: arm the EASY retry
             # sweep for the next admit step
             park_retry=out.park_retry | do)
-    return out, do
+    return _disown(out, clear, pclear), do
+
+
+def _disown(out: SchedulerState, clear: torch.Tensor,
+            pclear: Optional[torch.Tensor]) -> SchedulerState:
+    """Return the cancelled slots of a tenanted state to unowned and
+    drop their owners' live counts (pending ``clear``, queue ``pclear``)."""
+    tn = out.tenants
+    if tn is None:
+        return out
+    live = tn.live - _tenant_dec(tn, clear, tn.pend_tenant)
+    upd = dict(pend_tenant=torch.where(clear, -1, tn.pend_tenant))
+    if pclear is not None:
+        live = live - _tenant_dec(tn, pclear, tn.park_tenant)
+        upd.update(park_tenant=torch.where(pclear, -1, tn.park_tenant),
+                   park_ta=torch.where(pclear, 0, tn.park_ta))
+    return out._replace(tenants=tn._replace(live=live, **upd))
 
 
 def cancel_one(state: SchedulerState, t_s: int, t_e: int,
@@ -1289,6 +1621,7 @@ def cancel_many_step(state: SchedulerState, t_s: torch.Tensor,
         overflow=state.overflow | ovf,
         hw_records=torch.maximum(state.hw_records, torch.where(
             ok.any(), n_keep, 0)))
+    pclear = None
     if state.park_capacity:
         pclear = first_hits(kmatch, do & kfound, state.park_capacity)
         out = out._replace(
@@ -1297,7 +1630,7 @@ def cancel_many_step(state: SchedulerState, t_s: torch.Tensor,
             park_mask=torch.where(pclear[:, None], 0, out.park_mask),
             park_seq=torch.where(pclear, T_INF, out.park_seq),
             park_retry=out.park_retry | do.any())
-    return out, do
+    return _disown(out, clear, pclear), do
 
 
 def cancel_many(state: SchedulerState, entries, *,
@@ -1358,9 +1691,11 @@ def parked_entries(state: SchedulerState) -> List[dict]:
 
     One dict per live entry: the reservation (``t_s``/``t_e``/
     ``pe_ids``), the window it can still be re-placed in (``t_r``/
-    ``t_dl``/``n_pe``), its sequence number, and on multi-resource
-    states its full ``demand``.  The first entry is the head of queue
-    (protected under EASY).  Empty without a queue.
+    ``t_dl``/``n_pe``), its sequence number, on multi-resource states
+    its full ``demand``, and on tenanted states its ``tenant`` and
+    arrival ``t_a``.  Without tenants the first entry is the head of
+    queue (protected under EASY); with them the head is the entry with
+    the highest fair-share key.  Empty without a queue.
     """
     if not state.park_capacity:
         return []
@@ -1377,6 +1712,9 @@ def parked_entries(state: SchedulerState) -> List[dict]:
         if dem is not None:
             entry["demand"] = (entry["n_pe"],) + tuple(int(x)
                                                         for x in dem[i])
+        if "weight" in q:
+            entry["tenant"] = int(q["park_tenant"][i])
+            entry["t_a"] = int(q["park_ta"][i])
         out.append(entry)
     return out
 

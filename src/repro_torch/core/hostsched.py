@@ -7,7 +7,8 @@ card's decisions against it (``cross_check=True``) on a machine that
 has no JAX.  :class:`MultiResourceOracle` is the same for
 multi-resource sessions: the event loop of the admit step (with the
 backfilling modes of :class:`BackfillOracle`) over a
-:class:`MultiHostScheduler` timeline in the device's global bit space.
+:class:`MultiHostScheduler` timeline in the device's global bit space,
+and :class:`TenantOracle` for multi-tenant ones.
 
 Representation
 --------------
@@ -30,6 +31,7 @@ from repro_torch.core.types import (
     Rectangle,
     T_INF,
 )
+from repro_torch.tenancy.table import HostTenantAccounts
 
 _WORD = 64
 
@@ -598,6 +600,103 @@ class BackfillOracle:
 
     def records(self):
         return self.sched.records()
+
+
+class TenantOracle(BackfillOracle):
+    """Host event-loop oracle of the multi-tenant admit step.
+
+    :class:`BackfillOracle` with the four tenancy hooks filled in and
+    the accounting of :class:`repro_torch.tenancy.HostTenantAccounts`
+    (the device's float32 roundings, so the counters and EWMAs are bit
+    for bit): the quota gate runs after the queue work and before the
+    search, the queue sweeps rank by the weighted fair-share key, and
+    :meth:`reap` deletes the completions overdue past ``t_e + grace``,
+    charging their owners.  ``auto_release=False`` mirrors a session
+    that releases nothing on arrival (mode ``none``): reservations then
+    leave only by :meth:`reap` or :meth:`cancel`.
+    """
+
+    def __init__(self, n_pe: int, policy: Policy, mode, spec,
+                 park_capacity: int = 8, auto_release: bool = True):
+        super().__init__(n_pe, policy, mode, park_capacity)
+        if not auto_release and self.mode != BackfillMode.NONE:
+            raise ValueError("backfilling needs auto_release")
+        self.spec = spec
+        self.accounts = HostTenantAccounts(spec)
+        self.grace = spec.grace
+        self.auto_release = auto_release
+        self.n_reaped = 0
+
+    # -- the tenancy hooks ---------------------------------------------
+    def _order_key(self, entry: dict, t_now: int) -> tuple:
+        # the device's fair key: highest weight * wait first, then seq
+        key = self.accounts.key(entry.get("tenant", 0), entry["t_a"], t_now)
+        return (-key, entry["seq"])
+
+    def _tenant_of(self, req: ARRequest) -> int:
+        return int(req.tenant)
+
+    def _on_release(self, tenant: int) -> None:
+        self.accounts.release(tenant)
+
+    def _on_reap(self, tenant: int) -> None:
+        self.accounts.reap(tenant)
+
+    def _release_due(self, t_now: int) -> None:
+        if self.auto_release:
+            super()._release_due(t_now)
+
+    # -- gated admission -----------------------------------------------
+    def admit(self, req: ARRequest) -> Tuple[bool, int, bool]:
+        t_now = req.t_a
+        # the queue work precedes the gate; the base admit then finds
+        # nothing new due and the retry latch consumed
+        self._promote_due(t_now)
+        self._release_due(t_now)
+        if self.mode == BackfillMode.EASY and self.parked \
+                and self.retry_flag:
+            self._retry_parked(t_now)
+        self.retry_flag = False
+        # occupancy after the queue work, as the device samples it
+        occ_frac = (np.float32(popcount(self.sched._busy_row_at(t_now)))
+                    / np.float32(self.n_pe))
+        tid = self.accounts.clip_tid(self._tenant_of(req))
+        if not self.accounts.allowed(tid, req.n_pe, req.t_du):
+            self.accounts.record(tid, accepted=False, blocked=True,
+                                 parked=False, occ_frac=occ_frac)
+            return False, -1, False
+        accepted, t_s, parked = super().admit(req)
+        self.accounts.record(
+            tid, accepted=accepted, blocked=False, parked=parked,
+            occ_frac=occ_frac, t_e=(t_s + req.t_du) if accepted else -1,
+            t_r=req.t_r, t_du=req.t_du, n_pe=req.n_pe)
+        return accepted, t_s, parked
+
+    def reap(self, t_now: int) -> int:
+        """Delete reservations overdue past ``t_e + grace`` (no
+        promotion first); returns how many."""
+        if self.grace is None:
+            return 0
+        cutoff = t_now - self.grace
+        reaped = 0
+        while self.completions and self.completions[0][0] <= cutoff:
+            t_e, _, t_s, ids, tenant = heapq.heappop(self.completions)
+            self.sched.delete_allocation(t_s, t_e, list(ids))
+            self._on_reap(tenant)
+            reaped += 1
+        self.n_reaped += reaped
+        return reaped
+
+    def pending(self) -> List[dict]:
+        """FCFS queue view with each entry's ``tenant`` and ``t_a``, as
+        :func:`repro_torch.core.batch.parked_entries` on a tenanted
+        state."""
+        by_seq = {p["seq"]: p for p in self.parked}
+        out = super().pending()
+        for d in out:
+            d["tenant"] = by_seq[d["seq"]]["tenant"]
+            d["t_a"] = by_seq[d["seq"]]["t_a"]
+        return out
 
 
 class MultiResourceOracle(BackfillOracle):

@@ -16,7 +16,8 @@ availability index.
 ``make_scheduler`` and ``DeviceScheduler`` are the reference's
 deprecated entry points, kept as shims over the service API.
 ``park_capacity`` sizes the state's backfilling deferral queue (the
-service's sessions pass the mode).
+service's sessions pass the mode); ``tenants`` (a
+:class:`~repro_torch.tenancy.TenantSpec`) attaches a tenant table.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.core.listsched import ListScheduler
 from repro_torch.core.policies import policy_index
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
 from repro_torch.device import DeviceLike
+from repro_torch.tenancy import init_table
 
 
 class DeviceEngine:
@@ -40,17 +42,22 @@ class DeviceEngine:
                  use_kernel: bool = True, pending_capacity: int = 256,
                  device: DeviceLike = None, *, park_capacity: int = 0,
                  rspec=None, live_units=None,
-                 index_tile: Optional[int] = None):
+                 index_tile: Optional[int] = None, tenants=None):
         self.n_pe = n_pe
         self.use_kernel = use_kernel
         # valid-record count for the search bucket; None = stale
         # (recounted on the next search)
         self._n_valid: Optional[int] = 0
+        table = None
+        if tenants is not None:
+            table = init_table(tenants, pending_capacity, park_capacity,
+                               device)
         self.state = tl_lib.init_state(capacity, n_pe, pending_capacity,
                                        device=device,
                                        park_capacity=park_capacity,
                                        rspec=rspec, live_units=live_units,
-                                       index_tile=index_tile)
+                                       index_tile=index_tile,
+                                       tenants=table)
 
     @property
     def tl(self) -> tl_lib.Timeline:

@@ -40,6 +40,7 @@ from repro_torch.core import words as words_lib
 from repro_torch.core.types import T_INF
 from repro_torch.core.words import n_words, pack_bits, unpack_bits
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tenancy.table import FLOAT_FIELDS, TenantTable, grow_table
 
 __all__ = [
     "Timeline", "SchedulerState", "n_words", "next_pow2", "empty",
@@ -144,6 +145,9 @@ class SchedulerState(NamedTuple):
     hw_parked: Optional[torch.Tensor] = None   # int32: max live entries
     # int32[Q, R-1] secondary-plane demands of parked requests (R > 1)
     park_dem: Optional[torch.Tensor] = None
+    # the multi-tenant table (a repro_torch.tenancy.TenantTable); None
+    # without tenancy, and then no step touches it
+    tenants: Optional[Any] = None
     # multi-resource layout, None on single-resource states:
     # ``lane_valid`` is the packed valid-unit mask of this lane (a
     # heterogeneous machine size shrinks it below the spec's padded
@@ -221,7 +225,8 @@ def _reindex(tl: Timeline, ispec) -> Timeline:
 def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
                device: DeviceLike = None, *, park_capacity: int = 0,
                rspec=None, live_units: Optional[Sequence[int]] = None,
-               index_tile: Optional[int] = None) -> SchedulerState:
+               index_tile: Optional[int] = None,
+               tenants: Optional[Any] = None) -> SchedulerState:
     """Fresh all-free scheduler state on ``device`` (``None``: cuda).
 
     ``park_capacity`` sizes the backfilling deferral queue; the default
@@ -232,6 +237,8 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
     words, and ``live_units`` optionally shrinks this lane's live units
     per plane (heterogeneous machine sizes).  ``index_tile`` (a power
     of two dividing ``capacity``) attaches the availability index.
+    ``tenants`` attaches a :class:`~repro_torch.tenancy.TenantTable`
+    sized for these buffers (:func:`~repro_torch.tenancy.init_table`).
     """
     if rspec is not None and rspec.n_pe != n_pe:
         raise ValueError(
@@ -263,7 +270,7 @@ def init_state(capacity: int, n_pe: int, pending_capacity: int = 256,
         n_accepted=zero(), n_released=zero(),
         overflow=torch.zeros((), dtype=torch.bool, device=dev),
         hw_records=zero(), hw_pending=zero(),
-        lane_valid=lane_valid, rspec=rspec,
+        lane_valid=lane_valid, rspec=rspec, tenants=tenants,
         **_init_queue(park_capacity, W, rspec, dev))
 
 
@@ -287,7 +294,8 @@ def grow_state(state: SchedulerState,
     """Growth of the timeline and/or the pending buffer.
 
     The deferral queue never grows: a full queue commits delayed
-    requests immovably instead, as under ``none``.
+    requests immovably instead, as under ``none``.  A tenant table's
+    pending ownership column grows with the buffer (new slots unowned).
     """
     out = state
     if new_capacity is not None:
@@ -305,6 +313,9 @@ def grow_state(state: SchedulerState,
             pend_te=torch.cat([out.pend_te, fill]),
             pend_mask=torch.cat([out.pend_mask, torch.zeros(
                 (pad, out.pend_mask.shape[1]), dtype=I32, device=dev)]))
+        if out.tenants is not None:
+            out = out._replace(tenants=grow_table(out.tenants,
+                                                  new_pending_capacity))
     return out
 
 
@@ -539,7 +550,8 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
     Occupancy and masks come back as ``uint32`` like the reference's
     ``SchedulerState``; scalars as 0-d arrays.  Multi-resource states
     add ``lane_valid`` (uint32), indexed ones the three summaries
-    (``idx_occ`` as uint32).
+    (``idx_occ`` as uint32), tenanted ones ``tenants``: a dict of the
+    table's 17 fields under their names.
     """
     out = {
         "times": state.tl.times.cpu().numpy(),
@@ -566,6 +578,9 @@ def state_to_numpy(state: SchedulerState) -> Dict[str, np.ndarray]:
             out[f] = (words_lib.to_uint32(a) if f == "park_mask"
                       else np.asarray(a, bool if f == "park_retry"
                                       else np.int32))
+    if state.tenants is not None:
+        out["tenants"] = {f: getattr(state.tenants, f).cpu().numpy()
+                          for f in state.tenants._fields}
     return out
 
 
@@ -583,7 +598,8 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
     ``ispec`` (an :class:`~repro_torch.core.availindex.IndexSpec`).
     The deferral queue comes with its ``park_*`` arrays and counters
     (a queue of 0 entries, as the reference's states without one carry,
-    is left out).
+    is left out), and a tenant table with ``tenants`` (a dict of its
+    fields under their names).
     """
     if (rspec is None) != (arrays.get("lane_valid") is None):
         raise ValueError("a multi-resource state needs both rspec and "
@@ -616,8 +632,15 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
                     np.array(arrays[f], dtype=bool)).to(dev)
             elif arrays.get(f) is not None:
                 queue[f] = i32(f)
+    tenants = None
+    if arrays.get("tenants") is not None:
+        tn = arrays["tenants"]
+        tenants = TenantTable(**{
+            f: torch.from_numpy(np.array(tn[f], dtype=np.float32 if f in
+                                         FLOAT_FIELDS else np.int32)).to(dev)
+            for f in TenantTable._fields})
     return SchedulerState(
-        tl=tl,
+        tl=tl, tenants=tenants,
         pend_ts=i32("pend_ts"), pend_te=i32("pend_te"),
         pend_mask=words("pend_mask"),
         overflow=torch.from_numpy(

@@ -78,6 +78,8 @@ class ARRequest:
       t_du: duration on the current cluster.
       t_dl: deadline, ``t_dl >= t_r + t_du``.
       n_pe: number of processing elements required.
+      tenant: owning tenant id on multi-tenant sessions; ignored when
+            tenancy is off.
       demand: optional full per-resource demand vector for
             multi-resource sessions (keyword only); ``demand[0]`` must
             equal ``n_pe``, and the session's
@@ -90,6 +92,7 @@ class ARRequest:
     t_du: int
     t_dl: int
     n_pe: int
+    tenant: int = 0
     demand: Optional[Tuple[int, ...]] = dataclasses.field(
         default=None, kw_only=True)
 
@@ -104,6 +107,8 @@ class ARRequest:
                 f"{self.t_r + self.t_du}")
         if self.n_pe <= 0:
             raise ValueError(f"n_pe={self.n_pe} must be positive")
+        if self.tenant < 0:
+            raise ValueError(f"tenant={self.tenant} must be >= 0")
         if self.demand is not None:
             d = tuple(int(x) for x in self.demand)
             if not d or d[0] != self.n_pe:

@@ -28,6 +28,7 @@ from repro_torch.core import timeline as pt_tl
 from repro_torch.core import words as pt_words
 from repro_torch.core.hostsched import BackfillOracle
 from repro_torch.core.types import ALL_POLICIES, ARRequest, Policy, T_INF
+from repro_torch.tenancy import TenantSpec
 
 N_PE = 16
 SIZES = dict(u_low=2.0, u_med=3.0, u_hi=4.0)
@@ -414,9 +415,12 @@ def test_backfill_config_one_lane_accepted_and_wider_refused():
     for kw, item in ((dict(lanes=2, backfill=("easy", "none")), "A12"),
                      (dict(n_partitions=2, chunk_size=None,
                            backfill="easy"), "A15"),
-                     (dict(tenants=object(), backfill="easy"), "A14")):
+                     (dict(tenants=(TenantSpec(),), backfill="easy"),
+                      "A12")):
         with pytest.raises(NotImplementedError, match=item):
             ServiceConfig(n_pe=8, **kw)
+    with pytest.raises(ValueError, match="must be a TenantSpec"):
+        ServiceConfig(n_pe=8, tenants=object(), backfill="easy")
     for kw in (dict(backfill="aggressive"),
                dict(engine="host", backfill="easy"),
                dict(backfill="easy", auto_release=False),

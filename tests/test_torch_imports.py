@@ -20,6 +20,7 @@ from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy
 from repro_torch.kernels import availscan, ops
 from repro_torch.sim import run_policies, simulate, simulate_batched
+from repro_torch.tenancy import TenantSpec, init_table
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -33,6 +34,8 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.availscan" in mods and len(mods) >= 15
+    assert {"repro_torch.tenancy", "repro_torch.tenancy.table",
+            "repro_torch.tenancy.telemetry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -108,6 +111,14 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: simulate_batched([job], 8, Policy.FF, index_tile=16),
         lambda: simulate_batched([job], 8, Policy.FF,
                                  cross_check_engine="list"),
+        lambda: init_table(TenantSpec(weights=(1.0, 2.0)), 16, 4),
+        lambda: init_table(TenantSpec(), 16, 0, device=None),
+        lambda: scheduler.DeviceEngine(8, tenants=TenantSpec()),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, tenants=TenantSpec(weights=(1.0, 1.0)))).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, tenants=TenantSpec(grace=5), auto_release=False,
+            backfill="none")).session(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -117,6 +128,7 @@ def test_entry_points_without_a_device_raise_when_no_card():
         scheduler.make_scheduler(8)
     # asking for the CPU works
     assert timeline.init_state(16, 8, device="cpu").tl.capacity == 16
+    assert init_table(TenantSpec(), 16, 4, "cpu").pend_tenant.shape == (16,)
 
 
 def test_host_engines_run_only_when_named():

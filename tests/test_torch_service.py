@@ -20,12 +20,14 @@ from repro.api import ReservationService as RefService
 from repro.api import ServiceConfig as RefConfig
 from repro.core import batch as ref_batch
 from repro.core.types import ARRequest as RefRequest
+from repro.tenancy import TenantSpec as RefTenantSpec
 from repro_torch.api import ReservationService, ServiceConfig
 from repro_torch.api import service as pt_service
 from repro_torch.core import batch as pt_batch
 from repro_torch.core import hostsched as pt_host
 from repro_torch.core.resources import ResourceSpec
 from repro_torch.core.types import ARRequest, Policy
+from repro_torch.tenancy import TenantSpec
 
 # counters and geometry both services report
 METRICS = ("offered", "accepted", "released", "chunks", "growths",
@@ -52,7 +54,7 @@ def _jobs(n, units, seed):
 
 
 def _ref(jobs):
-    return [RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe,
+    return [RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe, j.tenant,
                        demand=j.demand) for j in jobs]
 
 
@@ -259,8 +261,10 @@ def test_config_validation_matches_reference(kw):
     (dict(lanes=2), "A12"), (dict(n_partitions=2), "A15"),
     (dict(lanes=2, backfill=("easy", "none")), "A12"),
     (dict(n_partitions=2, chunk_size=None, backfill="conservative"), "A15"),
-    (dict(tenants=object()), "A14"),
+    (dict(tenants=(TenantSpec(weights=(1.0, 2.0)),)), "A12"),
     (dict(lanes=2, machine_sizes=(8, 6)), "A12"),
+    (dict(n_partitions=2, chunk_size=None, auto_release=False,
+          tenants=TenantSpec(weights=(1.0, 2.0))), "A15"),
 ])
 def test_settings_not_ported_yet_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -350,10 +354,12 @@ def test_pipelined_and_eager_count_growths_as_the_reference_does():
 def test_pipelined_terminal_growth_error_restages_the_ring():
     """Growth runs out while the drain replays: the error surfaces on
     the first result read, the earlier offer stands, and the undecided
-    requests are back in the ring in the reference's order."""
+    requests are back in the ring in the reference's order (on a
+    multi-tenant session with their tenant column)."""
     jobs = [ARRequest(i, i, 5000, i + 5000, 1) for i in range(30)]
     kw = dict(n_pe=64, capacity=4, pending_capacity=4, max_growths=1,
               chunk_size=16, ring_capacity=64)
+    batch_fields = pt_batch.REQ_FIELDS
     ours, theirs = _sessions(donate=True, **kw)
     first = (ours.offer(jobs[:2]), theirs.offer(_ref(jobs[:2])))
     second = (ours.offer(jobs[2:], flush=False),
@@ -374,6 +380,26 @@ def test_pipelined_terminal_growth_error_restages_the_ring():
     # the session stays usable on the rolled-back state
     assert ours.tick(10**6) == theirs.tick(10**6)
     assert ours.records() == theirs.records()
+    # a multi-tenant session restages each request's tenant column too
+    spec = TenantSpec(weights=(1.0, 2.0, 1.0))
+    ours = ReservationService(ServiceConfig(
+        device="cpu", donate=True, tenants=spec, **kw)).session()
+    theirs = RefService(RefConfig(donate=True, tenants=RefTenantSpec(
+        weights=spec.weights), **kw)).session()
+    tjobs = [dataclasses.replace(j, tenant=i % 3) for i, j in enumerate(jobs)]
+    ours.offer(tjobs[:2]), theirs.offer(_ref(tjobs[:2]))
+    second = (ours.offer(tjobs[2:], flush=False),
+              theirs.offer(_ref(tjobs[2:]), flush=False))
+    with pytest.raises(pt_batch.GrowthError, match="overflowing"):
+        second[0].allocations()
+    with pytest.raises(ref_batch.GrowthError, match="overflowing"):
+        second[1].allocations()
+    ring, ref_ring = ours._backend.ring, theirs._backend.ring
+    assert ring._fields == ref_ring._fields == batch_fields + ("tenant",)
+    assert _ring_rows(ring) == _ring_rows(ref_ring)
+    assert [r[5] for r in _ring_rows(ring)] == [i % 3 for i in range(2, 30)]
+    assert ours.metrics()["tenants"]["live"].tolist() == \
+        theirs.metrics()["tenants"]["live"].tolist()
 
 
 @pytest.mark.parametrize("backfill", ["none", "easy"])
