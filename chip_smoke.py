@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--n-jobs 2000] [--n-event-loop 300]
-                          [--n-session 5000]
+                          [--n-session 2000]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -27,7 +27,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
    ``WorkloadParams(n_jobs=2000, seed=0)``, PE_W; the paper's 10,000
    jobs with ``--n-jobs 10000``, cut by default to keep the run short
-   now that phase 6 drives a 5,000-job session) on the card, its
+   now that phase 6 drives a 2,000-job session) on the card, its
    decisions, slowdowns and busy area held against the host event loop;
    then the per-operation event loop ``simulate(engine="device")`` on
    the stream's first jobs, held against the host loop; then the
@@ -79,7 +79,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    whole early reject (``search._rejected``, one kernel a call);
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
-   chunk_size=64, ring_capacity=256))`` on 5,000 jobs of the paper stream
+   chunk_size=64, ring_capacity=256))`` on 2,000 jobs of the paper stream
    (``--n-session 10000`` for the 10,000 of the paper; cut for the run's
    time)
    stamped with half-intensity secondary demands, offered in pieces of
@@ -113,7 +113,23 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    tile-16 runs, host syncs included; a pipelined ``auto_release=False``
    session that reaps (grace 300) after each of 40 offers against the
    oracle, then 20 idle ``metrics(tenant=i)`` polls that read nothing;
-   300 EASY steps profiled with tenants off and on.
+   300 EASY steps profiled with tenants off and on;
+6d. ensemble (after phase 6c): ``simulate_grid`` at 1024 PEs with the
+   paper's ``WorkloadParams``, every cell held against its host oracle:
+   ``grid_paper`` (7 policies x arrival factors 0.75 / 1.0 / 1.25, seed
+   0, flexibility 3, 300 jobs a cell; the paper's claims on it; then 3
+   of its cells profiled: kernels and host syncs per lane step),
+   ``grid_backfill`` (PE_W, DU_B, FF x none / easy / conservative, 200
+   jobs, a queue of 8; conservative decides as none), ``grid_mixes`` (a
+   tenant-mix axis with the skewed 4-tenant spec against
+   ``TenantOracle``, a resource-mix axis on (1024, 128, 64, 256) against
+   ``MultiResourceOracle``); then ``ensemble_session``: a pipelined
+   ``lanes=3`` session with machine sizes 1024 / 768 / 512 and policies
+   PE_W / FF / DU_B, each lane held against a one-lane session, a
+   ``tick``, a ``cancel`` on lane 1 and a snapshot / restore / re-offer;
+   and a ``lanes=2`` session with ``tenants=(spec, None)`` and
+   ``auto_release=False`` that reaps on the spec's lane only.  Each
+   path's select launches equal its lane steps' searches.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -2502,6 +2518,339 @@ def tenancy_profile(jobs, dev, n_steps: int = 300) -> None:
               f"{_searches(stats) / n_steps:.3f} searches/step")
 
 
+GRID_LOADS = (0.75, 1.0, 1.25)   # the grid's arrival factors (Figs. 4-5)
+GRID_JOBS = 300                  # jobs per paper-grid cell (paper: 10,000)
+GRID_BF_JOBS = 200               # jobs per backfill / mix grid cell
+ENS_SIZES = (1024, 768, 512)     # the ensemble session's machine sizes
+ENS_OFFERS = (10, 60)            # its offers x requests per lane
+
+
+def _grid_run(label, spec, dev, rows, kernel: str, **run):
+    """``simulate_grid`` of ``spec`` on the card, cross-checked against
+    the host oracles, launches counted; one select launch per step."""
+    import torch
+    from repro_torch.kernels import availscan as K
+    from repro_torch.sim import simulate_grid
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = simulate_grid(spec, capacity=128, pending_capacity=256,
+                        device=dev, record_decisions=True, **run)
+    launches = dict(K.LAUNCHES)
+    total = time.perf_counter() - t0
+    m = res.metrics
+    searches = (m["steps"] - m["early_rejects"]
+                + m.get("retry_searches", 0) + m.get("displace_searches", 0))
+    if launches[kernel] != searches or not launches[kernel]:
+        fail(f"{label}: {launches[kernel]} {kernel} launches for "
+             f"{searches} searches")
+    n_req = int(res.n_jobs.sum())
+    print(f"{label}: {res.n_cells} cells x {spec.n_jobs} jobs at "
+          f"{spec.n_pe} PEs, accepted {int(res.n_accepted.sum())}/{n_req}; "
+          f"identical to the host oracles in every cell (the call "
+          f"{total:.1f} s with them); grid {res.wall_seconds:.3f} s = "
+          f"{res.cells_per_sec:.3f} cells/s = "
+          f"{n_req / res.wall_seconds:.1f} requests/s; {m['steps']} lane "
+          f"steps, {kernel} launches {launches[kernel]}, host syncs "
+          f"{m['host_syncs']} = {m['host_syncs'] / m['steps']:.3f} per lane "
+          f"step, growths {m['growths']}, capacity {m['capacity']}")
+    rows[kernel].setdefault("launches_grid", {})[label] = launches[kernel]
+    return res
+
+
+def grid_paper(dev, rows: dict) -> None:
+    """The Section-6 matrix at the paper's width: 7 policies x 3 loads,
+    one seed, 300 jobs a cell, held against the host event loop, and
+    the paper's claims on it."""
+    from repro_torch.core.types import ALL_POLICIES, Policy
+    from repro_torch.sim import GridSpec, WorkloadParams
+
+    spec = GridSpec(policies=ALL_POLICIES, arrival_factors=GRID_LOADS,
+                    seeds=(0,), flex_factors=(3.0,), base=WorkloadParams(),
+                    n_pe=1024, n_jobs=GRID_JOBS)
+    res = _grid_run("grid_paper", spec, dev, rows, "availscan_select",
+                    cross_check=True)
+    acc, sd = res.policy_acceptance(), res.policy_slowdown()
+    for p in res.policies:
+        print(f"  {p:7s} acceptance {acc[p]:.4f} slowdown {sd[p]:.4f}")
+    if acc[Policy.PE_W.value] < max(acc.values()) - 0.01:
+        fail(f"grid_paper: PE_W acceptance {acc['PE_W']:.4f} not within "
+             f"0.01 of the best {max(acc.values()):.4f}")
+    if sd[Policy.FF.value] != min(sd.values()):
+        fail(f"grid_paper: FF slowdown {sd['FF']:.4f} is not the lowest")
+    print("grid_paper: PE_W within 0.01 of the best acceptance, FF the "
+          "lowest slowdown")
+
+
+def grid_profile(dev, n_jobs: int = GRID_JOBS) -> None:
+    """Kernels, host syncs and the device's idle share per lane step: a
+    3-lane grid (PE_W, FF, DU_B) of ``grid_paper``'s cells, ``n_jobs``
+    jobs a lane from an empty timeline as :func:`profile_steps` runs
+    them, in a counted :func:`profiled_window`."""
+    import torch
+    from repro_torch.core.types import Policy
+    from repro_torch.sim import GridSpec, WorkloadParams, simulate_grid
+
+    spec = GridSpec(policies=(Policy.PE_W, Policy.FF, Policy.DU_B),
+                    arrival_factors=(1.0,), seeds=(0,), flex_factors=(3.0,),
+                    base=WorkloadParams(), n_pe=1024, n_jobs=n_jobs)
+    simulate_grid(spec, device=dev)                             # warm
+    torch.cuda.synchronize()
+    with profiled_window() as prof:
+        t0 = time.perf_counter()
+        res = simulate_grid(spec, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = profiled_events(prof)
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    n_kernels = sum(e.count for e in events)
+    steps = res.metrics["steps"]
+    print(f"profiled grid ({res.n_cells} lanes x {n_jobs} jobs): wall "
+          f"{wall:.3f} s ({wall / steps * 1e3:.3f} ms per lane step, "
+          f"profiler on), device busy {busy_s:.4f} s, idle share "
+          f"{1 - busy_s / wall:.4f}, {n_kernels / steps:.1f} kernels and "
+          f"{res.metrics['host_syncs'] / steps:.3f} host syncs per lane "
+          f"step")
+
+
+def grid_backfill(dev, rows: dict) -> None:
+    """PE_W, DU_B and FF x {none, easy, conservative} at 1024 PEs, one
+    load, against ``BackfillOracle``; conservative decides as none."""
+    from repro_torch.core.types import Policy
+    from repro_torch.sim import GridSpec, WorkloadParams
+
+    spec = GridSpec(policies=(Policy.PE_W, Policy.DU_B, Policy.FF),
+                    arrival_factors=(1.0,), seeds=(0,), flex_factors=(3.0,),
+                    backfill_modes=("none", "easy", "conservative"),
+                    base=WorkloadParams(), n_pe=1024, n_jobs=GRID_BF_JOBS,
+                    park_capacity=BF_QUEUE)
+    res = _grid_run("grid_backfill", spec, dev, rows, "availscan_select",
+                    cross_check=True)
+    b = {m: i for i, m in enumerate(res.backfill_modes)}
+    for i, p in enumerate(res.policies):
+        if res.decisions[i][b["conservative"]] != res.decisions[i][b["none"]]:
+            fail(f"grid_backfill: {p} conservative decides unlike none")
+        print(f"  {p:7s} accepted none / easy / conservative "
+              + " / ".join(str(int(res.n_accepted[i, b[m]].sum()))
+                           for m in ("none", "easy", "conservative")))
+    print("grid_backfill: conservative decides as none for every policy")
+
+
+def grid_mixes(dev, rows: dict) -> None:
+    """A tenant-mix grid (none, and the skewed 4-tenant spec) against
+    ``TenantOracle``, and a resource-mix grid on the R = 4 machine
+    against ``MultiResourceOracle`` (the ``_mr`` select kernel)."""
+    from repro_torch.core.types import Policy
+    from repro_torch.sim import GridSpec, WorkloadParams, generate_filtered
+
+    spec = GridSpec(policies=(Policy.PE_W, Policy.FF), arrival_factors=(1.0,),
+                    seeds=(0,), flex_factors=(3.0,),
+                    backfill_modes=("none", "easy"), base=WorkloadParams(),
+                    n_pe=1024, n_jobs=GRID_BF_JOBS, park_capacity=BF_QUEUE)
+    jobs = sorted(generate_filtered(spec.workload_params(1.0, 0, 3.0),
+                                    max_pe=1024), key=lambda j: j.t_a)
+    mixed = dataclasses.replace(spec, tenant_mixes=(
+        None, tenant_spec(tenanted(jobs))))
+    res = _grid_run("grid_mixes_tenants", mixed, dev, rows,
+                    "availscan_select", cross_check=True)
+    print(f"  accepted without / with the spec: "
+          f"{res.n_accepted[..., 0].ravel().tolist()} / "
+          f"{res.n_accepted[..., 1].ravel().tolist()}")
+    if not (res.n_accepted[..., 1] < res.n_accepted[..., 0]).any():
+        fail("grid_mixes: the tenant spec's limits never bit")
+    rmix = GridSpec(policies=(Policy.PE_W, Policy.FF), arrival_factors=(1.0,),
+                    seeds=(0,), flex_factors=(3.0,), base=WorkloadParams(),
+                    n_pe=1024, n_jobs=GRID_BF_JOBS, resources=MR_UNITS,
+                    resource_mixes=(None, (2.0, 1.0, 0.5)))
+    res = _grid_run("grid_mixes_resources", rmix, dev, rows,
+                    "availscan_select_mr", cross_check=True)
+    print(f"  accepted PE-only / (2, 1, 0.5)-intensity demands: "
+          f"{res.n_accepted[..., 0].ravel().tolist()} / "
+          f"{res.n_accepted[..., 1].ravel().tolist()}")
+
+
+def _lane(res, lane: int):
+    """Lane ``lane``'s (accepted, t_s) decisions of an ensemble offer."""
+    acc = res.decision.accepted[lane].cpu().numpy()
+    ts = res.decision.t_s[lane].cpu().numpy()
+    v = np.asarray(res.valid)[lane]
+    return [(bool(a), int(t) if a else -1) for a, t in zip(acc[v], ts[v])]
+
+
+def ensemble_session(jobs, dev, rows: dict) -> None:
+    """A pipelined 3-lane session (machine sizes 1024 / 768 / 512,
+    policies PE_W / FF / DU_B, chunks of 64), each lane held against a
+    one-lane session of its size and policy; then a tick, a cancel on
+    lane 1 and a snapshot / restore with a re-offer.  Then a 2-lane
+    session with one tenanted lane that reaps (``auto_release=False``)."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.batch import decisions_to_allocations
+    from repro_torch.core.ensemble import lane_of
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    n_offers, size = ENS_OFFERS
+    jobs = jobs[:n_offers * size]
+    pols = (Policy.PE_W, Policy.FF, Policy.DU_B)
+    base = dict(n_pe=1024, capacity=128, pending_capacity=256, chunk_size=64,
+                ring_capacity=256, device=dev)
+    ens = ReservationService(ServiceConfig(
+        lanes=3, machine_sizes=ENS_SIZES, **base)).session()
+    ones = [ReservationService(ServiceConfig(
+        machine_sizes=(m,), policy=p, **base)).session()
+        for m, p in zip(ENS_SIZES, pols)]
+    got, want = [[] for _ in pols], [[] for _ in pols]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    last = None
+    for k in range(n_offers - 1):
+        piece = jobs[k * size:(k + 1) * size]
+        last = ens.offer([piece] * 3, policy=pols)
+        for e in range(3):
+            got[e] += _lane(last, e)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.LAUNCHES["availscan_select_mr"]
+    st = ens._backend.stats
+    steps, syncs = st.steps, st.host_syncs
+    if launches != steps or not launches:
+        fail(f"ensemble_session: {launches} select_mr launches for "
+             f"{steps} lane steps")
+    for k in range(n_offers - 1):
+        piece = jobs[k * size:(k + 1) * size]
+        for e, one in enumerate(ones):
+            want[e] += _decisions([one.offer(piece)])[1]
+    for e in range(3):
+        if got[e] != want[e]:
+            fail(f"ensemble_session: lane {e} differs from its one-lane "
+                 f"session {_first_diff(got[e], want[e])}")
+        if ens.records(e) != ones[e].records():
+            fail(f"ensemble_session: lane {e} records differ")
+    n = 3 * (n_offers - 1) * size
+    m = ens.metrics()
+    # a tick at the median end of lane 1's pending reservations from its
+    # last offer, then a cancel on lane 1 of the one that ends last
+    t_last = jobs[(n_offers - 1) * size - 1].t_a
+    allocs = sorted((a for a in decisions_to_allocations(
+        lane_of(last.decision, 1)) if a is not None and a.t_e > t_last),
+        key=lambda a: a.t_e)
+    t = allocs[len(allocs) // 2].t_e
+    released = ens.tick(t)
+    if released != sum(one.tick(t) for one in ones) or not released:
+        fail(f"ensemble_session: tick released {released}, unlike the "
+             f"one-lane sessions")
+    allocs = [a for a in allocs if a.t_e > t]
+    if not allocs:
+        fail("ensemble_session: lane 1 holds no pending reservation")
+    if not (ens.cancel(allocs[-1], lane=1) and ones[1].cancel(allocs[-1])):
+        fail("ensemble_session: the cancel on lane 1 found nothing")
+    for e in range(3):
+        if ens.records(e) != ones[e].records():
+            fail(f"ensemble_session: lane {e} records differ after the "
+                 f"tick and the cancel")
+    # snapshot, offer, restore, offer again: the same decisions
+    piece = jobs[(n_offers - 1) * size:]
+    snap = ens.snapshot()
+    res = ens.offer([piece] * 3, policy=pols)
+    first = [_lane(res, e) for e in range(3)]
+    ens.restore(snap)
+    res = ens.offer([piece] * 3, policy=pols)
+    again = [_lane(res, e) for e in range(3)]
+    if first != again:
+        fail("ensemble_session: the re-offer after restore decided "
+             "differently")
+    for e, one in enumerate(ones):
+        if again[e] != _decisions([one.offer(piece)])[1]:
+            fail(f"ensemble_session: lane {e}'s last offer differs from its "
+                 f"one-lane session")
+    rows["availscan_select_mr"].setdefault("launches_grid", {})[
+        "ensemble_session"] = launches
+    print(f"ensemble_session (pipelined, lanes {ENS_SIZES} PEs, "
+          f"{'/'.join(p.value for p in pols)}, chunks of 64): "
+          f"{n_offers - 1} offers of {size} a lane, accepted "
+          f"{[sum(a for a, _ in g) for g in got]}; every lane identical to "
+          f"its one-lane session; {n / wall:.1f} requests/s, "
+          f"{steps} lane steps, select_mr launches {launches}, host "
+          f"syncs {syncs} = {syncs / steps:.3f} per lane "
+          f"step, growths {m['growths']}; tick released {released}, cancel "
+          f"on lane 1, snapshot / restore / re-offer identical")
+    _tenant_lanes(jobs, dev, base, rows)
+
+
+def _tenant_lanes(jobs, dev, base, rows: dict) -> None:
+    """``lanes=2`` with ``tenants=(spec, None)`` and ``auto_release=
+    False``: lane 0 reaps with the spec's grace, lane 1 never does."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import TenantOracle
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+
+    tjobs = tenanted(jobs)
+    spec = tenant_spec(tjobs, grace=TN_GRACE)
+    base = dict(base, auto_release=False)
+    ens = ReservationService(ServiceConfig(
+        lanes=2, tenants=(spec, None), **base)).session()
+    oracle = TenantOracle(1024, Policy.PE_W, "none", spec,
+                          auto_release=False)
+    plain = ReservationService(ServiceConfig(**base)).session()
+    n_offers, size = ENS_OFFERS
+    got, want, reaped = [[], []], [[], []], 0
+    torch.cuda.synchronize()
+    K.reset_launches()
+    for k in range(n_offers):
+        piece = tjobs[k * size:(k + 1) * size]
+        bare = jobs[k * size:(k + 1) * size]      # tenant 0: lane 1
+        res = ens.offer([piece, bare])
+        for e in range(2):
+            got[e] += _lane(res, e)
+        want[0] += [oracle.admit(j)[:2] for j in piece]   # on the host
+        r = ens.tick(piece[-1].t_a)
+        if r != oracle.reap(piece[-1].t_a):
+            fail(f"ensemble tenants: reaped {r} after offer {k}, the oracle "
+                 f"otherwise")
+        reaped += r
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["availscan_select"]
+    st = ens._backend.stats
+    if launches != _searches(st) or not launches:
+        fail(f"ensemble tenants: {launches} select launches for "
+             f"{_searches(st)} searches")
+    # the one-lane session that lane 1 is held against runs after the
+    # count is read, so its launches are not the ensemble's
+    for k in range(n_offers):
+        want[1] += _decisions([plain.offer(jobs[k * size:(k + 1) * size])])[1]
+    for e, label in ((0, "TenantOracle"), (1, "the one-lane session")):
+        if got[e] != want[e]:
+            fail(f"ensemble tenants: lane {e} differs from {label} "
+                 f"{_first_diff(got[e], want[e])}")
+    if ens.records(0) != oracle.records() or \
+            ens.records(1) != plain.records():
+        fail("ensemble tenants: records differ")
+    m = ens.metrics()
+    tn = m["tenants"]
+    if tn["n_reaped"][1].sum() or not reaped or \
+            int(ens._backend.states[1].n_released):
+        fail(f"ensemble tenants: reaping on lane 1 ({tn['n_reaped']}) or "
+             f"none on lane 0 ({reaped})")
+    want_tn = oracle.accounts.snapshot()
+    for f, v in want_tn.items():
+        if not np.array_equal(np.asarray(tn[f])[0], np.asarray(v)):
+            fail(f"ensemble tenants: lane 0's {f} {tn[f][0]} differs from "
+                 f"the oracle's {v}")
+    rows["availscan_select"].setdefault("launches_grid", {})[
+        "ensemble_tenants"] = launches
+    print(f"ensemble tenants (lanes=2, tenants=(spec, None), grace "
+          f"{TN_GRACE}, auto_release=False): accepted "
+          f"{[sum(a for a, _ in g) for g in got]}, reaped {reaped} on lane 0 "
+          f"only; {st.steps} lane steps, select launches {launches}, host "
+          f"syncs {st.host_syncs}; lane 0 identical to TenantOracle (every telemetry field), "
+          f"lane 1 to the one-lane session")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2510,7 +2859,7 @@ def main(argv=None) -> int:
                     "the indexed stream's)")
     ap.add_argument("--n-event-loop", type=int, default=300,
                     help="jobs for the per-operation event loops")
-    ap.add_argument("--n-session", type=int, default=5_000,
+    ap.add_argument("--n-session", type=int, default=2_000,
                     help="jobs for the multi-resource session")
     args = ap.parse_args(argv)
 
@@ -2595,6 +2944,14 @@ def main(argv=None) -> int:
     tenancy_session(tjobs, dev, rows)
     tenancy_profile(tjobs, dev)
     print(f"tenancy phases took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    grid_paper(dev, rows)
+    grid_profile(dev)
+    grid_backfill(dev, rows)
+    grid_mixes(dev, rows)
+    ensemble_session(jobs, dev, rows)
+    print(f"ensemble phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pipelined_paths(jobs_mr, dev, rows)

@@ -7,9 +7,9 @@ timeline that holds its records), validates each one as the reference
 does, and adds ``device``.  ``donate`` keeps its name and default but
 not its mechanism: PyTorch has no buffer donation, so the field only
 selects the reference's pipelined offer (see ``ServiceConfig``).  A
-session runs one device timeline, or one of the host engines; fields
-that ask for more (ensemble lanes, partitions, per-lane tenant specs)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+session runs one device timeline, an ensemble of lanes
+(``lanes > 1``), or one of the host engines; partitions raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -78,7 +78,9 @@ class ServiceConfig:
         ``backfill_queue`` entries: conservative never moves it (the
         decisions of ``"none"``), EASY may pull it earlier after a
         cancel or move it to admit a request that would otherwise be
-        rejected.  One lane; a 1-tuple is its per-lane spelling.
+        rejected.  On ensemble sessions a tuple gives one mode per
+        lane, and every lane then carries the queue (a ``"none"`` lane
+        decides as it would without one).
     ``index_tile``
         Attaches the availability index (tiles of ``index_tile``
         records, a power of two dividing ``capacity``): early rejects
@@ -89,7 +91,8 @@ class ServiceConfig:
         admissions, the deferral queue ranks by weighted fair share,
         ``metrics(tenant=i)`` reports the tenant's telemetry, and with
         ``auto_release=False`` and a ``grace`` window ``tick`` reaps
-        overdue reservations.
+        overdue reservations.  On ensemble sessions a tuple gives one
+        spec per lane (``None`` leaves that lane single-tenant).
     ``device``
         Where the session's state lives; ``None`` means cuda (raising
         without a card).
@@ -313,15 +316,11 @@ class ServiceConfig:
 
     def _check_ported(self) -> None:
         """Valid settings the port does not run yet."""
-        for on, what, item in (
-                (self.lanes > 1, "lanes > 1", "A12"),
-                (isinstance(self.tenants, tuple),
-                 "a per-lane tenants tuple", "A12"),
-                (self.n_partitions > 1, "n_partitions > 1", "A15")):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item}); the "
-                    f"port runs one device timeline per session")
+        if self.n_partitions > 1:
+            raise NotImplementedError(
+                "n_partitions > 1 is not ported yet (ROADMAP A15); the "
+                "port runs one device timeline or an ensemble of lanes "
+                "per session")
 
     @property
     def rspec(self) -> Optional[ResourceSpec]:
@@ -351,8 +350,19 @@ class ServiceConfig:
 
     @property
     def tenancy(self) -> bool:
-        """Whether sessions carry a tenant table."""
-        return self.tenants is not None
+        """Whether any lane carries a tenant table."""
+        tn = self.tenants
+        if isinstance(tn, tuple):
+            return any(s is not None for s in tn)
+        return tn is not None
+
+    @property
+    def lane_tenant_specs(self) -> Optional[Tuple[Any, ...]]:
+        """Per-lane tenant specs (length ``lanes``), or ``None``."""
+        if not self.tenancy:
+            return None
+        tn = self.tenants
+        return tn if isinstance(tn, tuple) else (tn,) * self.lanes
 
     @property
     def backfilling(self) -> bool:

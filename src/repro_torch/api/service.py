@@ -1,7 +1,7 @@
-"""`ReservationService`: the streaming session API over one timeline.
+"""`ReservationService`: the streaming session API over device timelines.
 
-The port's copy of ``repro/api/service.py`` for one-lane sessions.  A
-:class:`ReservationService` is configured once by a
+The port's copy of ``repro/api/service.py`` for one-lane and ensemble
+sessions.  A :class:`ReservationService` is configured once by a
 :class:`~repro_torch.api.config.ServiceConfig` and opens
 :class:`Session` s, each carrying its scheduler state across calls:
 
@@ -39,7 +39,14 @@ access to a result, or the next verb that reads the state, reads every
 outstanding latch in one host read (:meth:`_StreamBackend._drain_inflight`).
 ``engine="host"`` and ``engine="list"`` run the reference's CPU engines
 behind the same verbs.  The paper's three operations stay available on
-every session.
+every one-lane session.
+
+Ensemble sessions (``lanes > 1``) hold E lanes of equal capacities
+(:mod:`repro_torch.core.ensemble`), each with its own policy, backfill
+mode, tenant table and machine size.  ``offer`` takes one stream per
+lane (or a pre-padded ``(RequestBatch, valid)`` pair on one-shot
+sessions) and returns ``[E, N]`` decisions; a lane's overflow grows
+every lane.  ``cancel``, ``pending`` and ``records`` name their lane.
 """
 from __future__ import annotations
 
@@ -54,12 +61,14 @@ import torch
 
 from repro_torch.api.config import ServiceConfig, policy_id_of
 from repro_torch.core import batch as batch_lib
+from repro_torch.core import ensemble as ens_lib
 from repro_torch.core import timeline as tl_lib
 from repro_torch.core import words as words_lib
 from repro_torch.core.batch import Decision, RequestBatch, RequestRing
 from repro_torch.core.scheduler import DeviceEngine, _make_engine
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
-from repro_torch.tenancy import telemetry
+from repro_torch.device import resolve_device
+from repro_torch.tenancy import lane_tables, telemetry
 
 
 class OfferResult:
@@ -187,6 +196,20 @@ def _push_front(ring: RequestRing, rows: List[dict], lta: int) -> int:
     return len(rows) - len(kept)
 
 
+def _staged_rows(batch: RequestBatch, valid, names) -> List[dict]:
+    """The valid requests of a popped ``[M]`` batch as ring rows, in
+    order (the demand tail from ``batch.demand``)."""
+    cols = {f: getattr(batch, f).cpu().numpy() for f in batch_lib.REQ_FIELDS}
+    if batch.tenant is not None:
+        cols["tenant"] = batch.tenant.cpu().numpy()
+    if batch.demand is not None:
+        dem = batch.demand.cpu().numpy()
+        for r in range(dem.shape[1]):
+            cols[f"demand{r + 1}"] = dem[:, r]
+    return [{f: int(cols[f][i]) for f in names}
+            for i in np.flatnonzero(valid)]
+
+
 class Session:
     """One long-lived scheduler conversation.
 
@@ -249,10 +272,11 @@ class Session:
         """Withdraw one committed reservation; ``True`` if it was held.
 
         Pass the :class:`~repro_torch.core.types.Allocation` returned at
-        admission (or its ``t_s``/``t_e``/``pe_ids``).  ``lane`` belongs
-        to ensemble sessions and must stay 0.  On auto-release sessions
-        cancelling an unknown or already released reservation is a
-        no-op returning ``False``.
+        admission (or its ``t_s``/``t_e``/``pe_ids``).  On ensemble
+        sessions ``lane`` names the timeline it was admitted on
+        (elsewhere it must stay 0).  On auto-release sessions cancelling
+        an unknown or already released reservation is a no-op returning
+        ``False``.
         """
         if alloc is not None:
             t_s, t_e, pe_ids = alloc.t_s, alloc.t_e, alloc.pe_ids
@@ -287,9 +311,10 @@ class Session:
         self._counters.clear()
         self._counters.update(counters)
 
-    def records(self) -> list:
-        """Host view of the availability timeline (merged records)."""
-        return self._backend.records()
+    def records(self, lane: int = 0) -> list:
+        """Host view of the availability timeline (merged records); on
+        ensemble sessions of lane ``lane``."""
+        return self._backend.records(lane)
 
     def pending(self, lane: int = 0) -> list:
         """The live backfilling deferral queue, FCFS order.
@@ -297,8 +322,8 @@ class Session:
         One dict per parked reservation (``seq``/``t_s``/``t_e``/
         ``t_r``/``t_dl``/``n_pe``/``pe_ids``, plus ``demand`` on
         multi-resource sessions); the first entry is the head of queue.
-        Empty on sessions that do not backfill.  ``lane`` belongs to
-        ensemble sessions and must stay 0.
+        Empty on sessions that do not backfill.  On ensemble sessions
+        ``lane`` names the timeline to inspect.
         """
         return self._backend.pending(lane)
 
@@ -309,7 +334,8 @@ class Session:
         telemetry arrays, read in the same transfer as the other
         state-derived counters and cached until the state changes, so
         polling an idle session reads nothing.  ``metrics(tenant=i)``
-        returns tenant ``i``'s scalar view.
+        returns tenant ``i``'s scalar view.  Ensemble sessions sum their
+        counters over the lanes and stack the telemetry ``[E, T]``.
         """
         # backend first: it folds the deferred accepted count in
         backend = self._backend.metrics()
@@ -381,6 +407,8 @@ class ReservationService:
 
 
 def _make_backend(cfg: ServiceConfig, counters: Dict[str, int]):
+    if cfg.lanes > 1:
+        return _EnsembleBackend(cfg, counters)
     if cfg.engine == "device":
         return _StreamBackend(cfg, counters)
     return _HostBackend(cfg, counters)
@@ -396,6 +424,9 @@ class _BackendBase:
         # reference must not donate it, so later offers go eager until
         # the next admission (the port keeps that routing)
         self._retained = False
+        self._acc_dev: Optional[torch.Tensor] = None  # unsynced accepted
+        # state-derived metrics, cached until the state changes
+        self._dev_metrics: Optional[Dict[str, Any]] = None
 
     def resolve_policy(self, policy) -> Policy:
         if policy is None:
@@ -418,6 +449,19 @@ class _BackendBase:
     def _donate_ok(self) -> bool:
         return self.cfg.donate and not self._retained
 
+    def _defer_accepted(self, decision: Decision, valid) -> None:
+        """Accumulate the accepted count on the device, no host read;
+        :meth:`_sync_counters` folds it in when metrics are read."""
+        v = torch.from_numpy(np.asarray(valid, bool)).to(
+            decision.accepted.device)
+        n = (decision.accepted & v).sum()
+        self._acc_dev = n if self._acc_dev is None else self._acc_dev + n
+
+    def _sync_counters(self) -> None:
+        if self._acc_dev is not None:
+            self.counters["accepted"] += int(self._acc_dev)
+            self._acc_dev = None
+
     def pending(self, lane: int = 0) -> list:
         if lane != 0:
             raise ValueError("lane applies to ensemble sessions")
@@ -436,52 +480,287 @@ class _BackendBase:
     def delete_allocation(self, t_s, t_e, pes):
         self.engine.delete_allocation(t_s, t_e, list(pes))
 
-    def records(self):
+    def records(self, lane: int = 0):
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
         return self.engine.records()
 
 
-class _StreamBackend(_BackendBase):
+class _RingBackend(_BackendBase):
+    """Ring-staged chunked offers, shared by the one-lane and the
+    ensemble backends.
+
+    Each lane stages its stream in a ring of its own (one ring on a
+    one-lane session), and a chunk pops every ring's head.  A backend
+    supplies its lanes' state (``_live``, :meth:`_lanes`), the pop, the
+    admission of a chunk (eager and donated), the rollback growth and a
+    lane's part of a popped chunk.  Only the time at which a pipelined
+    offer's overflow latches are read differs, as in the reference: a
+    one-lane session reads them at the next read of its state
+    (:meth:`_settle`), an ensemble at the end of each offer.
+    """
+
+    #: the request axis of a chunk's decisions, batch and valid mask
+    _axis = 0
+
+    def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
+        super().__init__(cfg, counters)
+        self.rings = ([RequestRing(cfg.ring_capacity,
+                                   extra_demand=cfg.extra_demand,
+                                   with_tenant=cfg.tenancy)
+                       for _ in range(cfg.lanes)]
+                      if cfg.chunk_size else None)
+        # host syncs, admit steps and release passes of every dispatch
+        self.stats = batch_lib.StreamStats()
+
+    def _settle(self) -> None:
+        """Settle every offer whose overflow latches are unread."""
+
+    def _lane_part(self, batch: RequestBatch, valid, e: int):
+        """Lane ``e``'s ``[M]`` batch and valid mask of a popped chunk."""
+        return batch, valid
+
+    def _push_all(self, streams, cursors) -> None:
+        for e, (ring, stream) in enumerate(zip(self.rings, streams)):
+            take = min(ring.free, len(stream) - cursors[e])
+            ring.push(stream[cursors[e]:cursors[e] + take])
+            cursors[e] += take
+
+    def _result(self, decs, batches, valids) -> OfferResult:
+        if not decs:
+            return _empty_result()
+        res = OfferResult(decision=_concat_tree(decs, axis=self._axis),
+                          batch=_concat_tree(batches, axis=self._axis),
+                          valid=np.concatenate(valids, axis=self._axis))
+        self._defer_accepted(res.decision, res.valid)
+        return res
+
+    def _offer_eager(self, streams, pid, flush) -> OfferResult:
+        chunk = self.cfg.chunk_size
+        decs: List[Decision] = []
+        batches: List[RequestBatch] = []
+        valids: List[np.ndarray] = []
+
+        def drain_one(full_only: bool):
+            # keep the rings intact if the chunk raises (auto_grow=False
+            # overflow): the popped requests stay staged for a retry.  A
+            # lane below a full chunk keeps its requests staged unless
+            # this is a flushing drain (the flush=False contract)
+            ring_snaps = [r.snapshot() for r in self.rings]
+            batch, valid = self._pop(full_only)
+            try:
+                decs.append(self._admit_batch(batch, pid))
+            except Exception:
+                for r, snap in zip(self.rings, ring_snaps):
+                    r.restore(snap)
+                raise
+            batches.append(batch)
+            valids.append(valid)
+            self.counters["chunks"] += 1
+
+        cursors = [0] * len(self.rings)
+        while any(c < len(s) for c, s in zip(cursors, streams)):
+            self._push_all(streams, cursors)
+            while any(r.count >= chunk for r in self.rings):
+                drain_one(full_only=not flush)
+        if flush:
+            while any(r.count for r in self.rings):
+                drain_one(full_only=False)
+        return self._result(decs, batches, valids)
+
+    def _pipeline(self, streams, pid, flush) -> dict:
+        """Stage and dispatch an offer's chunks with no read of any
+        overflow latch, chunk k+1 popped while chunk k runs.
+
+        Returns the offer's chunks (``decs``, ``batches``, ``valids``),
+        their latches (``ovfs``) and every ring's last popped arrival
+        before each chunk (``ltas``, for a restage).
+        """
+        chunk = self.cfg.chunk_size
+        ctx = dict(decs=[], batches=[], valids=[], ovfs=[], pid=pid,
+                   ltas=[[r.last_popped_t_a for r in self.rings]])
+        staged = None
+
+        def stage(full_only: bool):
+            popped = self._pop(full_only)
+            ctx["ltas"].append([r.last_popped_t_a for r in self.rings])
+            return popped
+
+        def dispatch(cur) -> None:
+            batch, valid = cur
+            dec, ovf = self._admit_donated(batch, pid)
+            ctx["ovfs"].append(ovf)
+            ctx["decs"].append(dec)
+            ctx["batches"].append(batch)
+            ctx["valids"].append(valid)
+            self.counters["chunks"] += 1
+
+        def drain(more, full_only: bool) -> None:
+            nonlocal staged
+            while staged is not None or more():
+                cur = staged if staged is not None else stage(full_only)
+                staged = None
+                dispatch(cur)          # admit chunk k ...
+                if more():
+                    staged = stage(full_only)   # ... then stage k+1
+
+        cursors = [0] * len(self.rings)
+        while any(c < len(s) for c, s in zip(cursors, streams)):
+            self._push_all(streams, cursors)
+            drain(lambda: any(r.count >= chunk for r in self.rings),
+                  full_only=not flush)
+        if flush:
+            drain(lambda: any(r.count for r in self.rings), full_only=False)
+        return ctx
+
+    def _replay_chunks(self, j: int, ctx: dict, *,
+                       rollback: bool) -> Optional[Exception]:
+        """Re-run one offer's chunks ``j..`` after a latched overflow.
+
+        ``rollback`` grows the rolled-back state first (only for the
+        offer owning the first latched chunk).  On terminal overflow the
+        failing chunk is noted (``ctx["fail_k"]``) and the
+        :class:`~repro_torch.core.batch.GrowthError` is returned.
+        """
+        if rollback:
+            before = self._capacities()
+            self._grow_rollback()
+            self._grow_guard(before, self._capacities())
+        batches, decs = ctx["batches"], ctx["decs"]
+        for k in range(j, len(batches)):
+            try:
+                decs[k] = self._admit_batch(batches[k], ctx["pid"])
+            except batch_lib.GrowthError as e:
+                ctx["fail_k"] = k
+                return e
+        return None
+
+    def _cut(self, ctx: dict, k: int) -> None:
+        """Cut an offer at chunk ``k``: its undecided chunks go back to
+        the front of the rings, in order.
+
+        The eager path would have left these requests staged, so they go
+        back ahead of anything pushed later.  Requests that no longer
+        fit are dropped with a warning; the session stays usable on the
+        rolled-back state.
+        """
+        batches, valids = ctx["batches"], ctx["valids"]
+        self.counters["chunks"] -= len(batches) - k
+        dropped = 0
+        for e, ring in enumerate(self.rings):
+            rows = [row for batch, valid in zip(batches[k:], valids[k:])
+                    for row in _staged_rows(*self._lane_part(batch, valid, e),
+                                            ring._fields)]
+            dropped += _push_front(ring, rows, ctx["ltas"][k][e])
+        del ctx["decs"][k:], batches[k:], valids[k:]
+        if dropped:
+            warnings.warn(
+                f"ring full while restaging after terminal overflow: "
+                f"{dropped} undecided requests dropped",
+                RuntimeWarning, stacklevel=3)
+
+    def snapshot(self):
+        self._settle()
+        self._sync_counters()
+        self._retained = True
+        return (self._live,
+                [r.snapshot() for r in self.rings] if self.rings else None)
+
+    def restore(self, payload):
+        self._settle()           # settle results against the old state
+        live, ring_snaps = payload
+        self._live = live
+        self._retained = True
+        self._acc_dev = None     # accumulated after the snapshot
+        if self.rings and ring_snaps is not None:
+            for r, snap in zip(self.rings, ring_snaps):
+                r.restore(snap)
+
+    def _refresh_dev_metrics(self) -> None:
+        """One host read of every state-derived counter, summed over the
+        lanes, and every lane's tenant telemetry (``[E, T]`` on an
+        ensemble)."""
+        lanes = self._lanes()
+        n_pending = sum((s.pend_te != T_INF).sum() for s in lanes)
+        tables = [s.tenants for s in lanes if s.tenants is not None]
+        if not self.cfg.backfilling and not tables:
+            self._dev_metrics = dict(n_pending=int(n_pending))
+            return
+        vals = dict(n_pending=n_pending)
+        if self.cfg.backfilling:
+            vals["n_parked_now"] = sum((s.park_seq != T_INF).sum()
+                                       for s in lanes)
+            for f in ("n_parked", "n_promoted", "n_moved"):
+                vals[f] = sum(getattr(s, f) for s in lanes)
+        flat = torch.cat(
+            [torch.stack([v.to(torch.int32) for v in vals.values()])]
+            + [telemetry.pack(t) for t in tables])
+        host = flat.cpu().numpy()
+        self._dev_metrics = dict(zip(vals, (int(v) for v in host)))
+        if tables:
+            T = tables[0].n_tenants
+            width = (len(telemetry.SNAPSHOT_FIELDS) - 1) * T + 1
+            per_lane = [telemetry.unpack(
+                host[len(vals) + e * width:len(vals) + (e + 1) * width], T)
+                for e in range(len(tables))]
+            self._dev_metrics["tenants"] = per_lane[0] if len(lanes) == 1 \
+                else {f: np.stack([np.asarray(a[f]) for a in per_lane])
+                      for f in telemetry.SNAPSHOT_FIELDS}
+
+    def metrics(self) -> Dict[str, Any]:
+        # an idle poll (nothing in flight, nothing deferred, the cache
+        # warm) reads nothing from the device
+        self._settle()
+        self._sync_counters()
+        if self._dev_metrics is None:
+            self._refresh_dev_metrics()
+        cap, pend = self._capacities()
+        st = self.stats
+        out = dict(capacity=cap, pending_capacity=pend, steps=st.steps,
+                   host_syncs=st.host_syncs,
+                   release_passes=st.release_passes,
+                   early_rejects=st.early_rejects)
+        out.update(self._dev_metrics)
+        if self.rings:
+            out.update(ring_capacity=self.cfg.ring_capacity,
+                       ring_staged=sum(r.count for r in self.rings),
+                       ring_wrapped=any(r.wrapped for r in self.rings))
+        if self.cfg.backfilling:
+            out.update(park_capacity=self._lanes()[0].park_capacity,
+                       retry_searches=st.retry_searches,
+                       displace_searches=st.displace_searches,
+                       displacements=st.displacements,
+                       reject_displacements=st.reject_displacements)
+        return out
+
+
+class _StreamBackend(_RingBackend):
     """One device timeline with ring-buffer chunked streaming."""
 
     def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
         super().__init__(cfg, counters)
-        self._acc_dev: Optional[torch.Tensor] = None  # unsynced accepted
-        # state-derived metrics, cached until the state changes
-        self._dev_metrics: Optional[Dict[str, int]] = None
         mu = cfg.machine_units
+        # a 1-tuple of tenant specs is the one-lane spelling of the
+        # per-lane form
+        spec = cfg.lane_tenant_specs[0] if cfg.tenancy else None
         self.engine = DeviceEngine(
             cfg.n_pe, capacity=cfg.capacity, use_kernel=cfg.use_kernel,
             pending_capacity=cfg.pending_capacity, device=cfg.device,
             park_capacity=cfg.park_capacity, rspec=cfg.rspec,
             live_units=mu[0] if mu is not None else None,
-            index_tile=cfg.index_tile, tenants=cfg.tenants)
+            index_tile=cfg.index_tile, tenants=spec)
         self._rspec = cfg.rspec
-        self._n_tenants = cfg.tenants.n_tenants if cfg.tenancy else 0
-        self._grace = cfg.tenants.grace if cfg.tenancy else None
+        self._n_tenants = spec.n_tenants if spec is not None else 0
+        self._grace = spec.grace if spec is not None else None
         self._bf = batch_lib.BF_NONE if not cfg.backfilling else \
             batch_lib.as_backfill_id(cfg.backfill)
         self.device = self.engine.tl.device
-        self.ring = (RequestRing(cfg.ring_capacity,
-                                 extra_demand=cfg.extra_demand,
-                                 with_tenant=cfg.tenancy)
-                     if cfg.chunk_size else None)
-        # host syncs, admit steps and release passes of every dispatch
-        self.stats = batch_lib.StreamStats()
         # pipelined offers whose overflow latches are unread
         self._inflight: List[dict] = []
 
-    def _defer_accepted(self, decision: Decision, valid) -> None:
-        """Accumulate the accepted count on the device, no host read;
-        :meth:`_sync_counters` folds it in when metrics are read."""
-        v = torch.from_numpy(np.asarray(valid, bool)).to(
-            decision.accepted.device)
-        n = (decision.accepted & v).sum()
-        self._acc_dev = n if self._acc_dev is None else self._acc_dev + n
-
-    def _sync_counters(self) -> None:
-        if self._acc_dev is not None:
-            self.counters["accepted"] += int(self._acc_dev)
-            self._acc_dev = None
+    @property
+    def ring(self) -> Optional[RequestRing]:
+        return self.rings[0] if self.rings else None
 
     @property
     def _state(self):
@@ -492,6 +771,11 @@ class _StreamBackend(_BackendBase):
         self.engine.state = s
         self.engine._n_valid = None      # recounted on the next search
         self._dev_metrics = None         # state-derived metrics are stale
+
+    _live = _state
+
+    def _lanes(self):
+        return (self._state,)
 
     def _capacities(self) -> Tuple[int, int]:
         s = self._state
@@ -519,6 +803,22 @@ class _StreamBackend(_BackendBase):
         self._retained = False
         return dec
 
+    def _admit_donated(self, batch: RequestBatch, pid: int):
+        state, dec = batch_lib.admit_stream_donated(
+            self._state, batch, pid, self._bf, n_pe=self.cfg.n_pe,
+            auto_release=self.cfg.auto_release,
+            use_kernel=self.cfg.use_kernel, stats=self.stats)
+        self._state = state
+        return dec, state.overflow
+
+    def _grow_rollback(self) -> None:
+        self._state = batch_lib.grow_rollback(self._state, self.stats)
+
+    def _pop(self, full_only: bool):
+        # one lane pops only full chunks unless it flushes
+        return self.ring.pop_chunk(self.cfg.chunk_size, self.cfg.n_pe,
+                                   self.device)
+
     # the three operations and records read (or change) the live
     # state: settle any in-flight offers first
     def find_allocation(self, req, policy, t_now=None):
@@ -533,7 +833,9 @@ class _StreamBackend(_BackendBase):
         self._drain_inflight()
         self.engine.delete_allocation(t_s, t_e, list(pes))
 
-    def records(self):
+    def records(self, lane: int = 0):
+        if lane != 0:
+            raise ValueError("lane applies to ensemble sessions")
         self._drain_inflight()
         return self.engine.records()
 
@@ -574,7 +876,7 @@ class _StreamBackend(_BackendBase):
         if self._donate_ok() and self.growth_budget > 0:
             return self._offer_pipelined(reqs, pid, flush)
         self._drain_inflight()
-        return self._offer_eager(reqs, pid, flush)
+        return self._offer_eager([reqs], pid, flush)
 
     def _check_tenants(self, reqs) -> None:
         if self._n_tenants:
@@ -594,45 +896,6 @@ class _StreamBackend(_BackendBase):
         self._defer_accepted(res.decision, res.valid)
         return res
 
-    def _offer_eager(self, reqs, pid, flush) -> OfferResult:
-        chunk = self.cfg.chunk_size
-        decs: List[Decision] = []
-        batches: List[RequestBatch] = []
-        valids: List[np.ndarray] = []
-
-        def drain_one():
-            # keep the ring intact if the chunk raises (auto_grow=False
-            # overflow): the popped requests stay staged for a retry
-            ring_snap = self.ring.snapshot()
-            batch, valid = self.ring.pop_chunk(chunk, self.cfg.n_pe,
-                                               self.device)
-            try:
-                decs.append(self._admit_batch(batch, pid))
-            except Exception:
-                self.ring.restore(ring_snap)
-                raise
-            batches.append(batch)
-            valids.append(valid)
-            self.counters["chunks"] += 1
-
-        i = 0
-        while i < len(reqs):
-            take = min(self.ring.free, len(reqs) - i)
-            self.ring.push(reqs[i:i + take])
-            i += take
-            while self.ring.count >= chunk:
-                drain_one()
-        if flush:
-            while self.ring.count:
-                drain_one()
-        if not decs:
-            return _empty_result()
-        res = OfferResult(decision=_concat_tree(decs, axis=0),
-                          batch=_concat_tree(batches, axis=0),
-                          valid=np.concatenate(valids))
-        self._defer_accepted(res.decision, res.valid)
-        return res
-
     def _offer_pipelined(self, reqs, pid, flush) -> OfferResult:
         """Chunked admission with no read of any chunk's overflow latch.
 
@@ -645,55 +908,11 @@ class _StreamBackend(_BackendBase):
         and replays from the first latched chunk on a grown state, so
         the decisions equal the eager path's.
         """
-        chunk = self.cfg.chunk_size
-        decs: List[Decision] = []
-        batches: List[RequestBatch] = []
-        valids: List[np.ndarray] = []
-        ovfs: List[torch.Tensor] = []
-        ltas: List[int] = [self.ring.last_popped_t_a]
-        staged = None
-
-        def stage():
-            popped = self.ring.pop_chunk(chunk, self.cfg.n_pe, self.device)
-            ltas.append(self.ring.last_popped_t_a)
-            return popped
-
-        def dispatch(cur) -> None:
-            batch, valid = cur
-            state, dec = batch_lib.admit_stream_donated(
-                self._state, batch, pid, self._bf, n_pe=self.cfg.n_pe,
-                auto_release=self.cfg.auto_release,
-                use_kernel=self.cfg.use_kernel, stats=self.stats)
-            self._state = state
-            ovfs.append(state.overflow)
-            decs.append(dec)
-            batches.append(batch)
-            valids.append(valid)
-            self.counters["chunks"] += 1
-
-        def drain(more) -> None:
-            nonlocal staged
-            while staged is not None or more():
-                cur = staged if staged is not None else stage()
-                staged = None
-                dispatch(cur)          # admit chunk k ...
-                if more():
-                    staged = stage()   # ... then stage chunk k+1
-
-        i = 0
-        while i < len(reqs):
-            take = min(self.ring.free, len(reqs) - i)
-            self.ring.push(reqs[i:i + take])
-            i += take
-            drain(lambda: self.ring.count >= chunk)
-        if flush:
-            drain(lambda: self.ring.count > 0)
-        if not decs:
+        ctx = self._pipeline([reqs], pid, flush)
+        if not ctx["decs"]:
             return _empty_result()
-        res = OfferResult(_finalize=self._drain_inflight)
-        self._inflight.append(dict(ovfs=ovfs, decs=decs, batches=batches,
-                                   valids=valids, ltas=ltas, pid=pid,
-                                   result=res))
+        ctx["result"] = res = OfferResult(_finalize=self._drain_inflight)
+        self._inflight.append(ctx)
         return res
 
     def _drain_inflight(self) -> None:
@@ -728,16 +947,8 @@ class _StreamBackend(_BackendBase):
                     # in arrival order, the newest offer first so the
                     # oldest tail ends up at the ring's head
                     for later in reversed(inflight[ci + 1:]):
-                        self.counters["chunks"] -= len(later["batches"])
-                        self._restage_tail(0, later["batches"],
-                                           later["valids"], later["ltas"])
-                        del later["decs"][:], later["batches"][:], \
-                            later["valids"][:]
-                    k = ctx["fail_k"]
-                    self._restage_tail(k, ctx["batches"], ctx["valids"],
-                                       ctx["ltas"])
-                    del ctx["decs"][k:], ctx["batches"][k:], \
-                        ctx["valids"][k:]
+                        self._cut(later, 0)
+                    self._cut(ctx, ctx["fail_k"])
                     break
         for ctx in inflight:
             res = ctx["result"]
@@ -752,56 +963,7 @@ class _StreamBackend(_BackendBase):
         if err is not None:
             raise err
 
-    def _replay_chunks(self, j: int, ctx: dict, *,
-                       rollback: bool) -> Optional[Exception]:
-        """Re-run one offer's chunks ``j..`` after a latched overflow.
-
-        ``rollback`` grows the rolled-back state first (only for the
-        offer owning the first latched chunk).  On terminal overflow the
-        offer is cut at the failing chunk (``ctx["fail_k"]``) and the
-        :class:`~repro_torch.core.batch.GrowthError` is returned.
-        """
-        if rollback:
-            before = self._capacities()
-            self._state = batch_lib.grow_rollback(self._state, self.stats)
-            self._grow_guard(before, self._capacities())
-        batches, decs = ctx["batches"], ctx["decs"]
-        for k in range(j, len(batches)):
-            try:
-                decs[k] = self._admit_batch(batches[k], ctx["pid"])
-            except batch_lib.GrowthError as e:
-                ctx["fail_k"] = k
-                self.counters["chunks"] -= len(batches) - k
-                return e
-        return None
-
-    def _restage_tail(self, k: int, batches, valids, ltas) -> None:
-        """Return undecided chunks ``k..`` to the front of the ring.
-
-        The eager path would have left these requests staged, so they go
-        back ahead of anything pushed later, in order.  Requests that no
-        longer fit are dropped with a warning; the session stays usable
-        on the rolled-back state.
-        """
-        rows = []
-        names = self.ring._fields
-        for batch, valid in zip(batches[k:], valids[k:]):
-            cols = {f: getattr(batch, f).cpu().numpy()
-                    for f in batch_lib.REQ_FIELDS}
-            if batch.tenant is not None:
-                cols["tenant"] = batch.tenant.cpu().numpy()
-            if batch.demand is not None:
-                dem = batch.demand.cpu().numpy()
-                for r in range(dem.shape[1]):
-                    cols[f"demand{r + 1}"] = dem[:, r]
-            for i in np.flatnonzero(valid):
-                rows.append({f: int(cols[f][i]) for f in names})
-        dropped = _push_front(self.ring, rows, ltas[k])
-        if dropped:
-            warnings.warn(
-                f"ring full while restaging after terminal overflow: "
-                f"{dropped} undecided requests dropped",
-                RuntimeWarning, stacklevel=2)
+    _settle = _drain_inflight
 
     def tick(self, t: int) -> int:
         if not self.cfg.auto_release:
@@ -878,71 +1040,267 @@ class _StreamBackend(_BackendBase):
         self.counters["cancelled"] += sum(done)
         return done
 
-    def snapshot(self):
-        self._drain_inflight()
-        self._sync_counters()
-        self._retained = True
-        return (self._state, self.ring.snapshot() if self.ring else None)
 
-    def restore(self, payload):
-        self._drain_inflight()   # settle results against the old state
-        state, ring_snap = payload
-        self._state = state
-        self._retained = True
-        self._acc_dev = None     # accumulated after the snapshot
-        if self.ring and ring_snap is not None:
-            self.ring.restore(ring_snap)
+class _EnsembleBackend(_RingBackend):
+    """E lanes of one capacity behind one session.
 
-    def _refresh_dev_metrics(self) -> None:
-        """One host read of every state-derived counter (the tenant
-        table's telemetry included)."""
-        s = self._state
-        n_pending = (s.pend_te != T_INF).sum()
-        if not self.cfg.backfilling and s.tenants is None:
-            self._dev_metrics = dict(n_pending=int(n_pending))
-            return
-        vals = dict(n_pending=n_pending.to(torch.int32))
-        if self.cfg.backfilling:
-            vals.update(
-                n_parked_now=(s.park_seq != T_INF).sum().to(torch.int32),
-                n_parked=s.n_parked, n_promoted=s.n_promoted,
-                n_moved=s.n_moved)
-        flat = torch.stack(list(vals.values()))
-        if s.tenants is not None:
-            flat = torch.cat([flat, telemetry.pack(s.tenants)])
-        host = flat.cpu().numpy()
-        self._dev_metrics = dict(zip(vals, (int(v) for v in host)))
-        if s.tenants is not None:
-            self._dev_metrics["tenants"] = telemetry.unpack(
-                host[len(vals):], s.tenants.n_tenants)
+    Every chunk (or one-shot batch) runs each lane's row through that
+    lane (:func:`~repro_torch.core.ensemble.admit_stream_ensemble_auto`);
+    a lane's overflow grows every lane once and re-runs them all from
+    the pre-run lanes.  Each lane stages its stream in a ring of its
+    own.  The pipelined offer reads every chunk's latch in one host
+    read at its end and replays from the first latched chunk on the
+    grown ensemble.
+    """
 
-    def metrics(self) -> Dict[str, Any]:
-        # an idle poll (nothing in flight, nothing deferred, the cache
-        # warm) reads nothing from the device
-        if self._inflight:
-            self._drain_inflight()
-        self._sync_counters()
-        if self._dev_metrics is None:
-            self._refresh_dev_metrics()
-        cap, pend = self._capacities()
-        out = dict(capacity=cap, pending_capacity=pend,
-                   steps=self.stats.steps,
-                   host_syncs=self.stats.host_syncs,
-                   release_passes=self.stats.release_passes,
-                   early_rejects=self.stats.early_rejects)
-        out.update(self._dev_metrics)
-        if self.ring:
-            out.update(ring_capacity=self.ring.capacity,
-                       ring_staged=self.ring.count,
-                       ring_wrapped=self.ring.wrapped)
-        if self.cfg.backfilling:
-            st = self.stats
-            out.update(park_capacity=self._state.park_capacity,
-                       retry_searches=st.retry_searches,
-                       displace_searches=st.displace_searches,
-                       displacements=st.displacements,
-                       reject_displacements=st.reject_displacements)
-        return out
+    _axis = 1
+
+    def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
+        super().__init__(cfg, counters)
+        self.device = resolve_device(cfg.device)
+        self._lane_specs = cfg.lane_tenant_specs
+        # per-lane tables padded to one width; None lanes get neutral
+        # tables, which decide as no table does
+        tables = None if self._lane_specs is None else lane_tables(
+            self._lane_specs, cfg.pending_capacity, cfg.park_capacity,
+            self.device)
+        self.states = ens_lib.init_ensemble(
+            cfg.lanes, cfg.capacity, cfg.n_pe, cfg.pending_capacity,
+            cfg.park_capacity, tenants=tables, rspec=cfg.rspec,
+            machine_units=cfg.machine_units, index_tile=cfg.index_tile,
+            device=self.device)
+        self._bf_ids = ens_lib.backfill_ids(cfg.backfill, cfg.lanes)
+
+    @property
+    def states(self):
+        return self._states
+
+    @states.setter
+    def states(self, s):
+        self._states = s
+        self._dev_metrics = None         # state-derived metrics are stale
+
+    _live = states
+
+    def _lanes(self):
+        return self.states
+
+    @property
+    def engine(self):
+        return self
+
+    def _capacities(self) -> Tuple[int, int]:
+        return ens_lib.lane_capacity(self.states)
+
+    def _lane(self, lane: int) -> int:
+        if not 0 <= lane < self.cfg.lanes:
+            raise ValueError(
+                f"lane {lane} out of range for {self.cfg.lanes} lanes")
+        return lane
+
+    def _lane_part(self, batch: RequestBatch, valid, e: int):
+        return ens_lib.lane_of(batch, e), valid[e]
+
+    def _resolve_pids(self, policy) -> Tuple[int, ...]:
+        E = self.cfg.lanes
+        if policy is None:
+            policy = self.cfg.policy
+        if isinstance(policy, (Policy, int, np.integer, str)):
+            return (policy_id_of(policy),) * E
+        if isinstance(policy, torch.Tensor):
+            policy = policy.cpu().tolist()
+        pids = tuple(policy_id_of(p) for p in policy)
+        if len(pids) != E:
+            raise ValueError(f"{len(pids)} policies for {E} lanes")
+        return pids
+
+    def _admit_batch(self, batch: RequestBatch, pids) -> Decision:
+        before = self._capacities()
+        try:
+            states, dec = ens_lib.admit_stream_ensemble_auto(
+                self.states, batch, pids, n_pe=self.cfg.n_pe,
+                backfills=self._bf_ids, auto_release=self.cfg.auto_release,
+                use_kernel=self.cfg.use_kernel,
+                max_growths=self.growth_budget, donate=self._donate_ok(),
+                stats=self.stats)
+        except batch_lib.GrowthError as e:
+            if e.state is not None:
+                # the rolled-back lanes, latches cleared
+                self.states = tuple(
+                    s._replace(overflow=torch.zeros_like(s.overflow))
+                    for s in e.state)
+            raise
+        self._grow_guard(before, ens_lib.lane_capacity(states))
+        self.states = states
+        self._retained = False
+        return dec
+
+    def _admit_donated(self, batch: RequestBatch, pids):
+        states, dec = ens_lib.admit_stream_ensemble_donated(
+            self.states, batch, pids, self._bf_ids, n_pe=self.cfg.n_pe,
+            auto_release=self.cfg.auto_release,
+            use_kernel=self.cfg.use_kernel, stats=self.stats)
+        self.states = states
+        return dec, torch.stack([s.overflow for s in states]).any()
+
+    def _grow_rollback(self) -> None:
+        self.states = ens_lib.grow_rollback_ensemble(self.states, self.stats)
+
+    def _pop(self, full_only: bool):
+        return batch_lib.pop_chunk_ensemble(
+            self.rings, self.cfg.chunk_size, self.cfg.n_pe,
+            full_only=full_only, device=self.device)
+
+    def pending(self, lane: int = 0) -> list:
+        return batch_lib.parked_entries(self.states[self._lane(lane)])
+
+    def offer(self, streams, *, policy, routing, flush) -> OfferResult:
+        if routing is not None:
+            raise ValueError("routing applies to partitioned sessions")
+        if not flush and self.rings is None:
+            raise ValueError(
+                "flush=False staging needs the ring buffers; this session "
+                "is one-shot (chunk_size=None)")
+        pids = self._resolve_pids(policy)
+        if isinstance(streams, tuple) and len(streams) == 2 \
+                and isinstance(streams[0], RequestBatch):
+            # pre-padded (batch, valid): the grid's one-shot path
+            if self.rings is not None:
+                raise ValueError(
+                    "a pre-padded (RequestBatch, valid) pair bypasses the "
+                    "rings; use chunk_size=None (one-shot mode)")
+            batch, valid = streams
+            return self._one_shot(batch, np.asarray(valid, bool), pids)
+        streams = [list(s) for s in streams] or \
+            [[] for _ in range(self.cfg.lanes)]
+        if len(streams) != self.cfg.lanes:
+            raise ValueError(f"{len(streams)} per-lane streams for "
+                             f"{self.cfg.lanes} lanes")
+        if self.rings is not None:
+            for ring, stream in zip(self.rings, streams):
+                batch_lib.check_arrival_order(stream, ring.last_t_a)
+        if self._lane_specs is not None:
+            for e, (spec, stream) in enumerate(zip(self._lane_specs,
+                                                   streams)):
+                limit = spec.n_tenants if spec is not None else 1
+                for r in stream:
+                    if r.tenant >= limit:
+                        raise ValueError(
+                            f"request tenant {r.tenant} out of range "
+                            f"[0, {limit}) for lane {e}'s TenantSpec")
+        for stream in streams:
+            _check_demands(self.cfg.rspec, stream)
+        if self.rings is None:
+            if not any(streams):
+                return _empty_result()
+            batch, valid = batch_lib.pad_streams(
+                streams, self.cfg.n_pe, with_tenant=self.cfg.tenancy,
+                extra_demand=self.cfg.extra_demand, device=self.device)
+            return self._one_shot(batch, valid, pids)
+        self.counters["offered"] += sum(map(len, streams))
+        if self._donate_ok() and self.growth_budget > 0:
+            return self._offer_pipelined(streams, pids, flush)
+        return self._offer_eager(streams, pids, flush)
+
+    def _one_shot(self, batch, valid, pids) -> OfferResult:
+        self.counters["offered"] += int(valid.sum())
+        dec = self._admit_batch(batch, pids)
+        self.counters["one_shot_scans"] += 1
+        res = OfferResult(decision=dec, batch=batch, valid=valid)
+        self._defer_accepted(dec, valid)
+        return res
+
+    def _offer_pipelined(self, streams, pids, flush) -> OfferResult:
+        """Chunked admission with one read of every chunk's latch.
+
+        Every chunk runs through :func:`~repro_torch.core.ensemble.
+        admit_stream_ensemble_donated`, whose latched rollback leaves the
+        lanes as they were from the first overflowing chunk on; the
+        latches cross in one read at the end of the offer, and a latched
+        chunk replays on the collectively grown ensemble, deciding as
+        the eager offer does.
+        """
+        ctx = self._pipeline(streams, pids, flush)
+        if ctx["decs"]:
+            latched = torch.stack(ctx["ovfs"]).cpu().numpy()
+            self.stats.sync()
+            if latched.any():
+                err = self._replay_chunks(int(latched.argmax()), ctx,
+                                          rollback=True)
+                if err is not None:
+                    self._cut(ctx, ctx["fail_k"])
+                    raise err
+        return self._result(ctx["decs"], ctx["batches"], ctx["valids"])
+
+    def _n_released(self) -> int:
+        return int(torch.stack([s.n_released for s in self.states]).sum())
+
+    def tick(self, t: int) -> int:
+        if not self.cfg.auto_release:
+            return self._reap(t)
+        before_rel = self._n_released()
+        before = self._capacities()
+        self.states = ens_lib.release_until_ensemble(
+            self.states, t, max_growths=self.growth_budget, stats=self.stats)
+        self._grow_guard(before, self._capacities())
+        released = self._n_released() - before_rel
+        self.counters["released"] += released
+        return released
+
+    def _reap(self, t: int) -> int:
+        """Per-lane overdue reaping: each lane with its own spec's
+        grace; a lane without one gets ``T_INF``, which reaps nothing."""
+        if self._lane_specs is None:
+            return 0
+        graces = [T_INF if s is None or s.grace is None else s.grace
+                  for s in self._lane_specs]
+        if all(g == T_INF for g in graces):
+            return 0
+        before_rel = self._n_released()
+        before = self._capacities()
+        self.states = ens_lib.reap_until_ensemble(
+            self.states, t, graces, max_growths=self.growth_budget,
+            stats=self.stats)
+        self._grow_guard(before, self._capacities())
+        reaped = self._n_released() - before_rel
+        self.counters["reaped"] += reaped
+        return reaped
+
+    def cancel(self, t_s: int, t_e: int, pe_ids: List[int],
+               lane: int = 0) -> bool:
+        one = self.states[self._lane(lane)]
+        limit = None if self.cfg.rspec is not None else self.cfg.n_pe
+        mask = tl_lib.ids_to_mask32(sorted(pe_ids), one.tl.words,
+                                    n_pe=limit, device=self.device)
+        state, done = batch_lib.cancel_one(
+            one, t_s, t_e, mask, require_pending=self.cfg.auto_release,
+            max_growths=self.growth_budget)
+        if (state.tl.capacity, state.pending_capacity) != \
+                self._capacities():
+            # growth stays collective: grow every lane, cancel again
+            self.states = ens_lib.grow_ensemble(
+                self.states, state.tl.capacity, state.pending_capacity)
+            self.counters["growths"] += 1
+            state, done = batch_lib.cancel_one(
+                self.states[lane], t_s, t_e, mask,
+                require_pending=self.cfg.auto_release,
+                max_growths=self.growth_budget)
+        self.states = ens_lib.set_member(self.states, lane, state)
+        self.counters["cancelled"] += int(done)
+        return done
+
+    def find_allocation(self, req, policy, t_now=None):
+        raise NotImplementedError(
+            "ensemble sessions decide per lane; use offer() with per-lane "
+            "streams")
+
+    add_allocation = delete_allocation = find_allocation
+
+    def records(self, lane: int = 0):
+        tl = self.states[self._lane(lane)].tl
+        times, occ = tl.times.cpu().numpy(), tl.occ.cpu().numpy()
+        return [(int(t), frozenset(batch_lib.mask32_to_ids(row)))
+                for t, row in zip(times, occ) if t < T_INF]
 
 
 class _HostBackend(_BackendBase):

@@ -283,6 +283,56 @@ def check_arrival_order(requests: Sequence[ARRequest],
         last = r.t_a
 
 
+def pad_streams(streams, n_pe: int, with_tenant: bool = False,
+                extra_demand: int = 0, device: DeviceLike = None
+                ) -> Tuple[RequestBatch, np.ndarray]:
+    """Stack variable-length request streams into ``[C, N]`` + mask.
+
+    Padding requests (:func:`filler_request`) ask for ``n_pe + 1`` PEs,
+    so they are rejected without touching the timeline, and arrive with
+    the stream's last real request, so they cannot reorder releases.
+    Decisions at padded positions are masked out with the returned
+    ``valid`` array.  ``with_tenant`` adds the tenant column (filler
+    carries tenant 0, never charged), ``extra_demand`` (= R - 1) the
+    demand tail.
+    """
+    C = len(streams)
+    N = max(max((len(s) for s in streams), default=0), 1)
+    names = _stage_fields(with_tenant, extra_demand)
+    fields = {f: np.zeros((C, N), np.int32) for f in names}
+    valid = np.zeros((C, N), bool)
+    for c, stream in enumerate(streams):
+        pad = filler_request(n_pe, stream[-1].t_a if stream else 0)
+        for i in range(N):
+            r = stream[i] if i < len(stream) else pad
+            for f in names:
+                fields[f][c, i] = _req_field(r, f)
+        valid[c, :len(stream)] = True
+    return _fields_to_batch(fields, resolve_device(device)), valid
+
+
+def scatter_streams(requests: Sequence[ARRequest], lanes: Sequence[int],
+                    n_lanes: int, n_pe: int, extra_demand: int = 0,
+                    device: DeviceLike = None
+                    ) -> Tuple[RequestBatch, np.ndarray, list]:
+    """Group routed requests into per-lane padded streams.
+
+    ``lanes[i]`` is the lane of ``requests[i]``.  Returns ``(batch,
+    valid, slots)``: ``batch`` / ``valid`` from :func:`pad_streams` over
+    ``n_lanes`` streams, and ``slots[i] = (lane, pos)`` where request
+    ``i``'s decision sits in the ``[C, N]`` layout.  Each lane keeps the
+    input's arrival order.
+    """
+    streams: list = [[] for _ in range(n_lanes)]
+    slots = []
+    for req, lane in zip(requests, lanes):
+        slots.append((int(lane), len(streams[lane])))
+        streams[lane].append(req)
+    batch, valid = pad_streams(streams, n_pe, extra_demand=extra_demand,
+                               device=device)
+    return batch, valid, slots
+
+
 class RequestRing:
     """Fixed-capacity FIFO staging ring for streaming admission.
 
@@ -335,15 +385,16 @@ class RequestRing:
             self.pushed += 1
             self.last_t_a = r.t_a
 
-    def pop_chunk(self, chunk: int, n_pe: int, device: DeviceLike = None
-                  ) -> Tuple[RequestBatch, np.ndarray]:
-        """Dequeue up to ``chunk`` requests as one fixed-shape batch.
+    def pop_chunk_host(self, chunk: int, n_pe: int,
+                       n: Optional[int] = None
+                       ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """As :meth:`pop_chunk`, with the columns left on the host.
 
-        Always ``chunk`` long: missing tail positions hold
-        :func:`filler_request` padding and are ``False`` in the
-        returned ``valid`` mask.
+        ``n`` caps how many staged requests leave (default: up to
+        ``chunk``); the remaining positions hold filler.
         """
-        n = min(chunk, self.count)
+        n = min(chunk, self.count) if n is None else min(n, chunk,
+                                                         self.count)
         idx = (self._head + np.arange(chunk)) % self.capacity
         fields = {f: self._buf[f][idx].copy() for f in self._fields}
         valid = np.arange(chunk) < n
@@ -359,6 +410,17 @@ class RequestRing:
         self._head = (self._head + n) % self.capacity
         self.count -= n
         self.popped += n
+        return fields, valid
+
+    def pop_chunk(self, chunk: int, n_pe: int, device: DeviceLike = None
+                  ) -> Tuple[RequestBatch, np.ndarray]:
+        """Dequeue up to ``chunk`` requests as one fixed-shape batch.
+
+        Always ``chunk`` long: missing tail positions hold
+        :func:`filler_request` padding and are ``False`` in the
+        returned ``valid`` mask.
+        """
+        fields, valid = self.pop_chunk_host(chunk, n_pe)
         return _fields_to_batch(fields, resolve_device(device)), valid
 
     def snapshot(self) -> dict:
@@ -379,6 +441,28 @@ class RequestRing:
         self.wrapped = snap["wrapped"]
         self.last_t_a = snap["last_t_a"]
         self.last_popped_t_a = snap["last_popped_t_a"]
+
+
+def pop_chunk_ensemble(rings: Sequence[RequestRing], chunk: int, n_pe: int,
+                       full_only: bool = False, device: DeviceLike = None
+                       ) -> Tuple[RequestBatch, np.ndarray]:
+    """Pop one fixed-shape chunk from every lane's ring, stacked.
+
+    Returns an ``[E, chunk]`` :class:`RequestBatch` and its ``valid``
+    mask; a lane with fewer than ``chunk`` staged requests is padded
+    with :func:`filler_request`.  With ``full_only`` a lane below a
+    full chunk keeps its requests staged and contributes only filler
+    (the ``flush=False`` contract).
+    """
+    names = rings[0]._fields if rings else REQ_FIELDS
+    fields = {f: np.zeros((len(rings), chunk), np.int32) for f in names}
+    valid = np.zeros((len(rings), chunk), bool)
+    for e, ring in enumerate(rings):
+        n = 0 if full_only and ring.count < chunk else None
+        lane_fields, valid[e] = ring.pop_chunk_host(chunk, n_pe, n=n)
+        for f in names:
+            fields[f][e] = lane_fields[f]
+    return _fields_to_batch(fields, resolve_device(device)), valid
 
 
 def _field_tuple(req) -> Tuple[int, int, int, int, int]:

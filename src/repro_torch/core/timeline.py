@@ -47,7 +47,8 @@ __all__ = [
     "init_state", "grow", "grow_state", "ids_to_mask32", "pack_bits",
     "unpack_bits", "occupancy_at", "next_times", "update",
     "update_lexsort", "update_many", "window_busy", "from_host",
-    "state_from_numpy", "state_to_numpy",
+    "state_from_numpy", "state_to_numpy", "ensemble_from_numpy",
+    "ensemble_to_numpy",
 ]
 
 I32 = torch.int32
@@ -648,3 +649,45 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *,
         lane_valid=None if rspec is None else words("lane_valid"),
         rspec=rspec,
         **{f: i32(f).reshape(()) for f in _SCALARS}, **queue)
+
+
+def ensemble_to_numpy(states: Sequence[SchedulerState]) -> Dict[str, Any]:
+    """Lane states -> the reference's stacked ``[E, ...]`` arrays.
+
+    :func:`state_to_numpy` of every lane, stacked on a leading lane
+    axis (the tenant table's fields too), as the reference lays out an
+    ensemble's ``SchedulerState``.
+    """
+    lanes = [state_to_numpy(s) for s in states]
+    out: Dict[str, Any] = {}
+    for k in lanes[0]:
+        if k == "tenants":
+            out[k] = {f: np.stack([a[k][f] for a in lanes])
+                      for f in lanes[0][k]}
+        else:
+            out[k] = np.stack([a[k] for a in lanes])
+    return out
+
+
+def ensemble_from_numpy(arrays: Dict[str, Any], *, device: DeviceLike = None,
+                        rspec=None, ispec=None
+                        ) -> Tuple[SchedulerState, ...]:
+    """Inverse of :func:`ensemble_to_numpy`: split the arrays of a
+    reference ensemble (every leaf with a leading lane axis, its stacked
+    tenant table too) into one-lane states, so a half-run reference
+    ensemble can cross to the port."""
+    E = np.asarray(arrays["times"]).shape[0]
+
+    def lane(e):
+        out = {}
+        for k, v in arrays.items():
+            if v is None:
+                out[k] = None
+            elif k == "tenants":
+                out[k] = {f: np.asarray(x)[e] for f, x in v.items()}
+            else:
+                out[k] = np.asarray(v)[e]
+        return out
+
+    return tuple(state_from_numpy(lane(e), device=device, rspec=rspec,
+                                  ispec=ispec) for e in range(E))

@@ -8,10 +8,12 @@
 """
 from repro_torch.tenancy.table import (HostTenantAccounts, TenantSpec,
                                        TenantTable, fair_key, grow_table,
-                                       init_table)
+                                       init_table, lane_tables,
+                                       stack_tables)
 from repro_torch.tenancy.telemetry import snapshot, tenant_view
 
 __all__ = [
     "TenantSpec", "TenantTable", "HostTenantAccounts",
-    "init_table", "grow_table", "fair_key", "snapshot", "tenant_view",
+    "init_table", "lane_tables", "stack_tables", "grow_table", "fair_key",
+    "snapshot", "tenant_view",
 ]

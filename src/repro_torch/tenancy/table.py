@@ -1,6 +1,6 @@
 """The multi-tenant admission tables.
 
-The port's copy of ``repro/tenancy/table.py`` for one-lane sessions.
+The port's copy of ``repro/tenancy/table.py``.
 
 ``TenantSpec``
     The host-side configuration: per-tenant fair-share weights,
@@ -37,7 +37,7 @@ Python number: CUDA computes ``x / scalar`` as ``x * (1 / scalar)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,6 +229,29 @@ def init_table(spec: TenantSpec, pending_capacity: int, park_capacity: int,
                                device=dev),
         park_ta=torch.zeros((park_capacity,), dtype=torch.int32,
                             device=dev))
+
+
+def lane_tables(specs, pending_capacity: int, park_capacity: int,
+                device: DeviceLike = None) -> List[TenantTable]:
+    """Per-lane specs -> one table per lane, all of one width.
+
+    Lane specs are padded to the widest tenant count
+    (:meth:`TenantSpec.padded`); ``None`` entries become neutral
+    equal-weight unlimited tables, which decide as no table does.
+    """
+    specs = list(specs)
+    T = max((s.n_tenants for s in specs if s is not None), default=1)
+    return [init_table((s or TenantSpec(weights=(1.0,) * T)).padded(T),
+                       pending_capacity, park_capacity, device)
+            for s in specs]
+
+
+def stack_tables(specs, pending_capacity: int, park_capacity: int,
+                 device: DeviceLike = None) -> TenantTable:
+    """Per-lane specs -> one stacked ``[E, ...]`` table: the lanes of
+    :func:`lane_tables`, as the reference lays out an ensemble's."""
+    tables = lane_tables(specs, pending_capacity, park_capacity, device)
+    return TenantTable(*(torch.stack(xs) for xs in zip(*tables)))
 
 
 def grow_table(table: TenantTable,

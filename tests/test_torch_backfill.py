@@ -412,13 +412,15 @@ def test_backfill_config_one_lane_accepted_and_wider_refused():
         device="cpu")).session()
     r = one.offer([ARRequest(t_a=0, t_r=0, t_du=5, t_dl=20, n_pe=8)])
     assert r.n_accepted == 1 and one.metrics()["park_capacity"] == 8
-    for kw, item in ((dict(lanes=2, backfill=("easy", "none")), "A12"),
-                     (dict(n_partitions=2, chunk_size=None,
-                           backfill="easy"), "A15"),
-                     (dict(tenants=(TenantSpec(),), backfill="easy"),
-                      "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServiceConfig(n_pe=8, **kw)
+    with pytest.raises(NotImplementedError, match="A15"):
+        ServiceConfig(n_pe=8, n_partitions=2, chunk_size=None,
+                      backfill="easy")
+    # the ensemble forms (A12) run: per-lane modes, a 1-tuple of specs
+    for kw in (dict(lanes=2, backfill=("easy", "none")),
+               dict(tenants=(TenantSpec(),), backfill="easy")):
+        sess = ReservationService(ServiceConfig(
+            n_pe=8, chunk_size=None, device="cpu", **kw)).session()
+        assert sess.metrics()["park_capacity"] == 8
     with pytest.raises(ValueError, match="must be a TenantSpec"):
         ServiceConfig(n_pe=8, tenants=object(), backfill="easy")
     for kw in (dict(backfill="aggressive"),
@@ -497,3 +499,48 @@ def test_easy_session_with_cancels_matches_reference(donate):
     assert sess.tick(t) == ref.tick(t)
     assert sess.pending() == ref.pending()
     assert sess.records() == ref.records()
+
+
+def test_ensemble_mixed_mode_lanes_match_single_lane_sessions():
+    """One ensemble with per-lane modes (none, EASY, conservative; every
+    lane carries the queue) equals three one-mode runs and the
+    reference's ensemble lane by lane: decisions, states, queues and the
+    summed backfill counters of the sessions."""
+    from repro.core import ensemble as ref_ens
+    from repro_torch.core import ensemble as pt_ens
+
+    jobs = _workload(120, seed=2)
+    modes = ("none", "easy", "conservative")
+    batch, valid = pt_batch.pad_streams([_pt(jobs)] * 3, N_PE, device="cpu")
+    out, dec = pt_ens.admit_stream_ensemble_auto(
+        pt_ens.init_ensemble(3, 64, N_PE, 128, park_capacity=8,
+                             device="cpu"),
+        batch, [Policy.PE_W] * 3, backfills=modes, n_pe=N_PE)
+    ref_b, _ = ref_batch.pad_streams([_ref(jobs)] * 3, N_PE)
+    ref_out, ref_dec = ref_ens.admit_stream_ensemble_auto(
+        ref_ens.init_ensemble(3, 64, N_PE, 128, park_capacity=8), ref_b,
+        [Policy.PE_W] * 3, backfills=modes, n_pe=N_PE)
+    assert_decisions_equal(dec, ref_dec)
+    for lane, mode in enumerate(modes):
+        # lane 0 runs none on a Q = 8 state: as the reference's bid 0
+        assert_state_equal(out[lane], ref_ens.member(ref_out, lane))
+        one, one_dec = _port_run(jobs, Policy.PE_W, mode)
+        assert _trace(one_dec) == _trace(pt_ens.lane_of(dec, lane))
+        assert pt_batch.parked_entries(out[lane]) == \
+            pt_batch.parked_entries(one)
+    assert pt_batch.parked_entries(out[0]) == []
+    kw = dict(n_pe=N_PE, lanes=3, capacity=64, chunk_size=None,
+              backfill=modes, backfill_queue=8)
+    ours = ReservationService(ServiceConfig(device="cpu", **kw)).session()
+    theirs = RefService(RefConfig(**kw)).session()
+    ours.offer([_pt(jobs)] * 3, policy=[Policy.PE_W] * 3)
+    theirs.offer([_ref(jobs)] * 3, policy=[Policy.PE_W] * 3)
+    m, rm = ours.metrics(), theirs.metrics()
+    for k in BF_METRICS:
+        if k != "n_pending":
+            assert m[k] == rm[k], k
+    assert m["park_capacity"] == 8 and m["n_parked"] > 0
+    for lane in range(3):
+        assert ours.pending(lane) == theirs.pending(lane)
+    assert len(ours.pending(lane=2)) == m["n_parked_now"] - \
+        len(ours.pending(lane=1))

@@ -15,12 +15,13 @@ import torch
 
 import repro_torch
 from repro_torch.api import ReservationService, ServiceConfig
-from repro_torch.core import batch, scheduler, timeline
+from repro_torch.core import batch, ensemble, scheduler, timeline
 from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy
 from repro_torch.kernels import availscan, ops
-from repro_torch.sim import run_policies, simulate, simulate_batched
-from repro_torch.tenancy import TenantSpec, init_table
+from repro_torch.sim import (GridSpec, pad_streams, run_policies, simulate,
+                             simulate_batched, simulate_grid)
+from repro_torch.tenancy import TenantSpec, init_table, lane_tables
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -35,7 +36,8 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.availscan" in mods and len(mods) >= 15
     assert {"repro_torch.tenancy", "repro_torch.tenancy.table",
-            "repro_torch.tenancy.telemetry"} <= set(mods)
+            "repro_torch.tenancy.telemetry", "repro_torch.core.ensemble",
+            "repro_torch.sim.sweep", "repro_torch.sim.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -119,6 +121,17 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: ReservationService(ServiceConfig(
             n_pe=8, tenants=TenantSpec(grace=5), auto_release=False,
             backfill="none")).session(),
+        lambda: ensemble.init_ensemble(2, 16, 8),
+        lambda: lane_tables((TenantSpec(), None), 16, 4),
+        lambda: pad_streams([[job], []], 8),
+        lambda: ReservationService(ServiceConfig(n_pe=8, lanes=2)).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, lanes=2, chunk_size=None, machine_sizes=(8, 6),
+            backfill=("easy", "none"))).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, lanes=2, tenants=(TenantSpec(), None))).session(),
+        lambda: simulate_grid(GridSpec(n_pe=8, n_jobs=4, seeds=(0,),
+                                       arrival_factors=(1.0,))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -129,6 +142,7 @@ def test_entry_points_without_a_device_raise_when_no_card():
     # asking for the CPU works
     assert timeline.init_state(16, 8, device="cpu").tl.capacity == 16
     assert init_table(TenantSpec(), 16, 4, "cpu").pend_tenant.shape == (16,)
+    assert len(ensemble.init_ensemble(2, 16, 8, device="cpu")) == 2
 
 
 def test_host_engines_run_only_when_named():

@@ -563,3 +563,139 @@ def test_backfill_mr_matches_reference_and_oracle(mode):
             assert (int(out.n_parked), int(out.n_promoted),
                     int(out.n_moved)) == (oracle.n_parked,
                                           oracle.n_promoted, oracle.n_moved)
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous ensemble lanes and the grid's resource-mix axis
+# ---------------------------------------------------------------------------
+
+
+def _ens_sessions(**kw):
+    from repro.api import ReservationService as RefService
+    from repro.api import ServiceConfig as RefConfig
+    from repro_torch.api import ReservationService, ServiceConfig
+    return (ReservationService(ServiceConfig(device="cpu", **kw)).session(),
+            RefService(RefConfig(**kw)).session())
+
+
+def _ens_decisions_equal(res, ref_res):
+    for f in ref_batch.Decision._fields:
+        got = getattr(res.decision, f).numpy()
+        if f == "pe_mask":
+            got = pt_words.to_uint32(got)
+        np.testing.assert_array_equal(
+            got, np.asarray(getattr(ref_res.decision, f)), err_msg=f)
+
+
+def test_heterogeneous_lane_valid_mask_blocks_dead_pes():
+    ours, theirs = _ens_sessions(n_pe=32, lanes=3, machine_sizes=(32, 20, 8),
+                                 chunk_size=None)
+    req = [ARRequest(t_a=0, t_r=0, t_du=5, t_dl=50, n_pe=16)]
+    res = ours.offer([req, req, req])
+    _ens_decisions_equal(res, theirs.offer([_ref_jobs(req)] * 3))
+    assert res.decision.accepted[:, 0].tolist() == [True, True, False]
+    for lane, size in ((0, 32), (1, 20)):
+        ids = pt_batch.mask32_to_ids(res.decision.pe_mask[lane, 0])
+        assert max(ids) < size and len(ids) == 16
+    states = ours._backend.states
+    for lane, size in enumerate((32, 20, 8)):
+        np.testing.assert_array_equal(
+            pt_words.to_uint32(states[lane].lane_valid.numpy()),
+            np.asarray(theirs._backend.states.lane_valid[lane]))
+
+
+def test_heterogeneous_lanes_with_resources():
+    ours, theirs = _ens_sessions(n_pe=16, lanes=2, machine_sizes=(16, 4),
+                                 resources=(16, 2), chunk_size=None)
+    req = [ARRequest(t_a=0, t_r=0, t_du=5, t_dl=50, n_pe=8, demand=(8, 1))]
+    res = ours.offer([req, req])
+    _ens_decisions_equal(res, theirs.offer([_ref_jobs(req)] * 2))
+    assert res.decision.accepted[:, 0].tolist() == [True, False]
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_heterogeneous_mr_ensemble_session_matches_reference(donate):
+    """A chunked R = 3 ensemble of three machine sizes, growing from a
+    tiny capacity, against the reference's ensemble and each lane's
+    ``MultiResourceOracle``."""
+    spec = ResourceSpec((32, 4, 8))
+    jobs = [dataclasses.replace(j, demand=None) if i % 3 == 0 else j
+            for i, j in enumerate(_random_jobs(60, spec, seed=4))]
+    sizes = (32, 24, 12)
+    ours, theirs = _ens_sessions(n_pe=32, lanes=3, resources=spec.units,
+                                 machine_sizes=sizes, capacity=8,
+                                 pending_capacity=8, chunk_size=8,
+                                 ring_capacity=16, donate=donate)
+    pols = [Policy.FF, Policy.PE_W, Policy.PEDU_B]
+    res = ours.offer([jobs] * 3, policy=pols)
+    _ens_decisions_equal(res, theirs.offer([_ref_jobs(jobs)] * 3, policy=pols))
+    assert ours.metrics()["growths"] == theirs.metrics()["growths"] >= 1
+    for lane, (m, pol) in enumerate(zip(sizes, pols)):
+        oracle = pt_host.MultiResourceOracle(spec, pol, "none",
+                                             live_units=(m, 4, 8))
+        want = oracle.run(jobs)
+        v = res.valid[lane]
+        got = list(zip(res.decision.accepted[lane].numpy()[v].tolist(),
+                       res.decision.t_s[lane].numpy()[v].tolist()))
+        assert got == want
+        assert ours.records(lane) == oracle.records()
+
+
+def test_machine_units_requires_rspec():
+    from repro.core import ensemble as ref_ens
+    from repro_torch.core import ensemble as pt_ens
+    for mod, kw in ((pt_ens, dict(device="cpu")), (ref_ens, {})):
+        with pytest.raises(ValueError, match="rspec"):
+            mod.init_ensemble(2, 32, 16, machine_units=((16,), (8,)), **kw)
+    with pytest.raises(ValueError, match="lanes"):
+        pt_ens.init_ensemble(2, 32, 16, rspec=ResourceSpec((16,)),
+                             machine_units=((16,),), device="cpu")
+
+
+def test_ensemble_config_validation_matches_reference():
+    from repro.api import ServiceConfig as RefConfig
+    from repro_torch.api import ServiceConfig
+    for kw, match in ((dict(n_pe=8, resources=(4, 2)), "resources"),
+                      (dict(n_pe=8, engine="host", resources=(8, 2)),
+                       "device"),
+                      (dict(n_pe=8, lanes=2, machine_sizes=(8,)),
+                       "machine_sizes"),
+                      (dict(n_pe=8, lanes=2, machine_sizes=(8, 9)),
+                       "machine_sizes entries")):
+        with pytest.raises(ValueError, match=match):
+            RefConfig(**kw)
+        with pytest.raises(ValueError, match=match):
+            ServiceConfig(**kw)
+    het, ref_het = (cls(n_pe=8, lanes=2, machine_sizes=(8, 4))
+                    for cls in (ServiceConfig, RefConfig))
+    assert het.rspec.units == ref_het.rspec.units == (8,)
+    assert het.machine_units == ref_het.machine_units == ((8,), (4,))
+
+
+def test_grid_resource_mix_axis_cross_checked():
+    from repro.sim.sweep import GridSpec as RefGridSpec
+    from repro.core.types import Policy as RefPolicy
+    from repro.sim.sweep import simulate_grid as ref_simulate_grid
+    from repro_torch.sim.sweep import GridSpec, simulate_grid
+    kw = dict(backfill_modes=("none", "easy"), arrival_factors=(1.0,),
+              seeds=(0,), n_pe=32, n_jobs=40, resources=(32, 4),
+              resource_mixes=(None, (1.0,)))
+    res = simulate_grid(GridSpec(policies=(Policy.FF, Policy.PE_W), **kw),
+                        cross_check=True, record_decisions=True,
+                        device="cpu")
+    ref = ref_simulate_grid(RefGridSpec(policies=(RefPolicy.FF,
+                                                  RefPolicy.PE_W), **kw),
+                            record_decisions=True)
+    assert res.acceptance.shape == (2, 2, 1, 1, 1, 2)
+    np.testing.assert_array_equal(res.n_accepted, ref.n_accepted)
+    np.testing.assert_allclose(res.utilization, ref.utilization, rtol=1e-6)
+    assert res.decisions == ref.decisions
+    assert (res.n_accepted[..., 1] <= res.n_accepted[..., 0]).all()
+
+
+def test_grid_resource_mix_requires_resources():
+    from repro_torch.sim.sweep import GridSpec, simulate_grid
+    with pytest.raises(ValueError, match="resources"):
+        simulate_grid(GridSpec(policies=(Policy.FF,), arrival_factors=(1.0,),
+                               seeds=(0,), n_jobs=5,
+                               resource_mixes=((0.5,),)), device="cpu")

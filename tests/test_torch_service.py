@@ -9,12 +9,17 @@ one (``donate=True``, the default), terminal growth failure included.
 Then ``cancel`` / ``cancel_many``, ``snapshot`` / ``restore``, the host
 and list engines, ``metrics()``, ``ServiceConfig`` validation, the
 settings the port does not run yet, and demand checks that reject
-before any mutation.
+before any mutation.  Ensemble sessions (``lanes > 1``): each lane as
+its one-lane session and every field as the reference's ensemble, on
+both chunk loops, with filler, cancels by lane, ``flush=False``
+staging and snapshots.
 """
 import dataclasses
 import random
 
+import numpy as np
 import pytest
+import torch
 
 from repro.api import ReservationService as RefService
 from repro.api import ServiceConfig as RefConfig
@@ -25,6 +30,7 @@ from repro_torch.api import ReservationService, ServiceConfig
 from repro_torch.api import service as pt_service
 from repro_torch.core import batch as pt_batch
 from repro_torch.core import hostsched as pt_host
+from repro_torch.core import words as pt_words
 from repro_torch.core.resources import ResourceSpec
 from repro_torch.core.types import ARRequest, Policy
 from repro_torch.tenancy import TenantSpec
@@ -258,15 +264,22 @@ def test_config_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lanes=2), "A12"), (dict(n_partitions=2), "A15"),
-    (dict(lanes=2, backfill=("easy", "none")), "A12"),
+    (dict(lanes=2), None), (dict(n_partitions=2), "A15"),
+    (dict(lanes=2, backfill=("easy", "none")), None),
     (dict(n_partitions=2, chunk_size=None, backfill="conservative"), "A15"),
-    (dict(tenants=(TenantSpec(weights=(1.0, 2.0)),)), "A12"),
-    (dict(lanes=2, machine_sizes=(8, 6)), "A12"),
+    (dict(tenants=(TenantSpec(weights=(1.0, 2.0)),)), None),
+    (dict(lanes=2, machine_sizes=(8, 6)), None),
     (dict(n_partitions=2, chunk_size=None, auto_release=False,
           tenants=TenantSpec(weights=(1.0, 2.0))), "A15"),
 ])
 def test_settings_not_ported_yet_raise(kw, item):
+    """Only the partitions (A15) are left; the ensemble settings (A12,
+    ported) open sessions."""
+    if item is None:
+        cfg = ServiceConfig(n_pe=8, device="cpu", **kw)
+        assert ReservationService(cfg).session().metrics()["lanes"] == \
+            cfg.lanes
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServiceConfig(n_pe=8, **kw)
 
@@ -576,3 +589,231 @@ def test_metrics_match_reference_and_an_idle_poll_reads_nothing(monkeypatch):
         jobs[-1].t_a + 10**4)
     assert ours.metrics()["n_pending"] == 0 and reads == [1]
     _assert_metrics(ours, theirs)
+
+
+# ---------------------------------------------------------------------------
+# ensemble sessions (lanes > 1)
+# ---------------------------------------------------------------------------
+
+
+# the counters and geometry both ensemble backends report
+ENS_METRICS = ("offered", "accepted", "released", "reaped", "cancelled",
+               "chunks", "growths", "one_shot_scans", "capacity",
+               "pending_capacity", "ring_capacity", "ring_staged",
+               "ring_wrapped", "lanes", "chunk_size", "backfill")
+
+
+def _assert_ens_same(res, ref_res):
+    """Every Decision field of an ``[E, M]`` offer and its valid mask."""
+    assert res.n_offered == ref_res.n_offered
+    assert res.n_accepted == ref_res.n_accepted
+    if ref_res.decision is None:
+        assert res.decision is None
+        return
+    np.testing.assert_array_equal(res.valid, np.asarray(ref_res.valid))
+    for f in ref_batch.Decision._fields:
+        got = getattr(res.decision, f).numpy()
+        if f == "pe_mask":
+            got = pt_words.to_uint32(got)
+        np.testing.assert_array_equal(
+            got, np.asarray(getattr(ref_res.decision, f)), err_msg=f)
+
+
+def _assert_ens_metrics(ours, theirs):
+    m, rm = ours.metrics(), theirs.metrics()
+    for k in ENS_METRICS:
+        assert m.get(k) == rm.get(k), k
+
+
+def _lane_trace(res, lane):
+    v = np.asarray(res.valid)[lane]
+    return list(zip(res.decision.accepted[lane].numpy()[v].tolist(),
+                    res.decision.t_s[lane].numpy()[v].tolist()))
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_ensemble_session_matches_single_lane_sessions(donate):
+    """Three lanes with their own policies and streams: every lane as
+    its one-lane session and every field as the reference's ensemble;
+    ``tick`` releases every lane's tail."""
+    jobs = _jobs(120, (32,), seed=2)
+    policies = [Policy.FF, Policy.PE_W, Policy.DU_B]
+    streams = [jobs, jobs[:70], jobs[:45]]
+    kw = dict(n_pe=32, lanes=3, capacity=16, pending_capacity=8,
+              chunk_size=16, ring_capacity=32)
+    ours, theirs = _sessions(donate=donate, **kw)
+    res = ours.offer(streams, policy=policies)
+    ref_res = theirs.offer([_ref(s) for s in streams], policy=policies)
+    _assert_ens_same(res, ref_res)
+    _assert_ens_metrics(ours, theirs)
+    assert ours.metrics()["growths"] >= 1
+    for lane, (pol, stream) in enumerate(zip(policies, streams)):
+        one = ReservationService(ServiceConfig(
+            n_pe=32, policy=pol, capacity=64, chunk_size=16,
+            ring_capacity=32, device="cpu")).session()
+        sres = one.offer(stream)
+        assert _lane_trace(res, lane) == list(zip(
+            sres.decision.accepted.numpy()[sres.valid].tolist(),
+            sres.decision.t_s.numpy()[sres.valid].tolist()))
+        assert ours.records(lane) == one.records()
+        assert ours.records(lane) == theirs._backend.records(lane)
+    horizon = max(j.t_dl for j in jobs) + 1
+    assert ours.tick(horizon) == theirs.tick(horizon) > 0
+    states = ours._backend.states
+    assert sum(int(s.n_released) for s in states) == \
+        sum(int(s.n_accepted) for s in states)
+    for lane in range(3):
+        assert ours.records(lane) == []
+    _assert_ens_metrics(ours, theirs)
+
+
+def test_ensemble_filler_never_releases_ahead_of_staged_requests():
+    """A lane contributing filler (``flush=False``) while it still holds
+    staged requests must not advance that lane's release clock past
+    them: filler is stamped with the last popped arrival."""
+    a = ARRequest(t_a=0, t_r=0, t_du=5, t_dl=5, n_pe=4)
+    d = ARRequest(t_a=3, t_r=3, t_du=2, t_dl=5, n_pe=4)  # blocked by a
+    e = ARRequest(t_a=7, t_r=7, t_du=2, t_dl=10, n_pe=4)
+    lane0 = [ARRequest(t_a=t, t_r=t, t_du=1, t_dl=t + 3, n_pe=1)
+             for t in range(8)]
+    ours, theirs = _sessions(n_pe=4, lanes=2, capacity=32, chunk_size=4,
+                             ring_capacity=8)
+    got = [ours.offer([[], [a]]), ours.offer([lane0, [d, e]], flush=False),
+           ours.flush()]
+    want = [theirs.offer([[], _ref([a])]),
+            theirs.offer([_ref(lane0), _ref([d, e])], flush=False),
+            theirs.flush()]
+    for r, rr in zip(got, want):
+        _assert_ens_same(r, rr)
+    lane1 = [acc for r in got for acc, _ in _lane_trace(r, 1)]
+    assert lane1 == [True, False, True]
+
+
+def test_ensemble_cancel_targets_the_named_lane():
+    r = ARRequest(t_a=0, t_r=0, t_du=100, t_dl=200, n_pe=4)
+    ours, theirs = _sessions(n_pe=8, lanes=2, capacity=32, chunk_size=4,
+                             ring_capacity=8)
+    res = ours.offer([[r], [r]])
+    theirs.offer([_ref([r]), _ref([r])])
+    allocs = [pt_batch.decisions_to_allocations(pt_batch.Decision(
+        *(f[lane] for f in res.decision)))[0] for lane in range(2)]
+    assert ours.cancel(allocs[1], lane=1) is True
+    assert theirs.cancel(allocs[1], lane=1) is True
+    assert ours.records(0) == theirs._backend.records(0) != []
+    assert ours.records(1) == theirs._backend.records(1) == []
+    assert ours.cancel(allocs[1], lane=1) is False
+    assert ours.cancel_many([allocs[0], allocs[0]], lane=0) == [True, False]
+    with pytest.raises(ValueError, match="out of range"):
+        ours.cancel(allocs[0], lane=5)
+    with pytest.raises(ValueError, match="out of range"):
+        ours.pending(lane=2)
+    with pytest.raises(NotImplementedError, match="per lane"):
+        ours.find_allocation(r)
+    flat = ReservationService(ServiceConfig(
+        n_pe=8, chunk_size=4, ring_capacity=8, device="cpu")).session()
+    a = flat.offer([r]).allocations()[0]
+    with pytest.raises(ValueError, match="ensemble"):
+        flat.cancel(a, lane=1)
+    with pytest.raises(ValueError, match="ensemble"):
+        flat.records(lane=1)
+
+
+def test_ensemble_cancel_that_grows_grows_every_lane():
+    """A cancel splitting a merged record on a full timeline grows every
+    lane, as the reference's does (counted once)."""
+    jobs = [ARRequest(t_a=0, t_r=0, t_du=10 + i, t_dl=100, n_pe=1)
+            for i in range(7)]
+    kw = dict(n_pe=8, lanes=2, capacity=8, pending_capacity=8,
+              chunk_size=None, auto_release=False)
+    ours, theirs = _sessions(**kw)
+    res = ours.offer([jobs, jobs[:1]])
+    theirs.offer([_ref(jobs), _ref(jobs[:1])])
+    alloc = pt_batch.decisions_to_allocations(pt_batch.Decision(
+        *(f[0] for f in res.decision)))[3]
+    assert ours.cancel(alloc, lane=0) == theirs.cancel(alloc, lane=0)
+    _assert_ens_metrics(ours, theirs)
+    assert ours.records(0) == theirs._backend.records(0)
+
+
+def test_ensemble_flush_false_keeps_partial_lanes_staged():
+    r = [ARRequest(t_a=i, t_r=i, t_du=10, t_dl=i + 50, n_pe=1)
+         for i in range(8)]
+    ours, theirs = _sessions(n_pe=8, lanes=2, capacity=32, chunk_size=4,
+                             ring_capacity=8)
+    res = ours.offer([r, r[:1]], flush=False)
+    _assert_ens_same(res, theirs.offer([_ref(r), _ref(r[:1])], flush=False))
+    assert res.n_offered == 8
+    assert [ring.count for ring in ours._backend.rings] == [0, 1]
+    rest = ours.flush()
+    _assert_ens_same(rest, theirs.flush())
+    assert rest.n_offered == 1
+    assert sum(ring.count for ring in ours._backend.rings) == 0
+    _assert_ens_metrics(ours, theirs)
+    with pytest.raises(ValueError, match="per-lane streams"):
+        ours.offer([r])
+    with pytest.raises(ValueError, match="arrival-ordered"):
+        ours.offer([r[:1], r[:1]])
+
+
+def test_ensemble_pipelined_terminal_growth_error_restages_every_ring():
+    """Growth runs out while an ensemble offer replays its latched
+    chunk: the offer raises, and every lane's undecided requests are
+    back in its ring in the reference's order, with the reference's
+    filler stamp; the session stays usable on the rolled-back lanes."""
+    jobs = [ARRequest(i, i, 5000, i + 5000, 1) for i in range(30)]
+    ours, theirs = _sessions(donate=True, n_pe=64, lanes=2, capacity=4,
+                             pending_capacity=4, max_growths=1,
+                             chunk_size=16, ring_capacity=64)
+    first = ours.offer([jobs[:2], jobs[:1]])
+    _assert_ens_same(first, theirs.offer([_ref(jobs[:2]), _ref(jobs[:1])]))
+    streams = [jobs[2:], jobs[1:20]]
+    with pytest.raises(pt_batch.GrowthError, match="overflowing"):
+        ours.offer(streams, flush=False)
+    with pytest.raises(ref_batch.GrowthError, match="overflowing"):
+        theirs.offer([_ref(s) for s in streams], flush=False)
+    for ring, ref_ring in zip(ours._backend.rings, theirs._backend.rings):
+        assert _ring_rows(ring) == _ring_rows(ref_ring)
+        assert ring.last_popped_t_a == ref_ring.last_popped_t_a
+    assert [len(_ring_rows(r)) for r in ours._backend.rings] == [28, 19]
+    for lane in range(2):
+        assert ours.records(lane) == theirs._backend.records(lane)
+    _assert_ens_metrics(ours, theirs)
+    assert ours.tick(10**6) == theirs.tick(10**6)
+    for lane in range(2):
+        assert ours.records(lane) == theirs._backend.records(lane)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_ensemble_snapshot_restore_and_one_shot(donate):
+    """``snapshot`` / ``restore`` rewind every lane and ring; one-shot
+    ensembles take per-lane streams or a pre-padded pair."""
+    jobs = _jobs(60, (16,), seed=9)
+    ours, theirs = _sessions(donate=donate, n_pe=16, lanes=2, capacity=16,
+                             chunk_size=8, ring_capacity=16)
+    ours.offer([jobs[:20], jobs[:10]], flush=False)
+    theirs.offer([_ref(jobs[:20]), _ref(jobs[:10])], flush=False)
+    snap, ref_snap = ours.snapshot(), theirs.snapshot()
+    first = ours.offer([jobs[20:40], jobs[10:50]])
+    ours.restore(snap)
+    theirs.restore(ref_snap)
+    again = ours.offer([jobs[20:40], jobs[10:50]])
+    _assert_ens_same(again, theirs.offer([_ref(jobs[20:40]),
+                                          _ref(jobs[10:50])]))
+    for f in pt_batch.Decision._fields:
+        assert torch.equal(getattr(first.decision, f),
+                           getattr(again.decision, f))
+    _assert_ens_metrics(ours, theirs)
+    one, ref_one = _sessions(n_pe=16, lanes=2, capacity=16, chunk_size=None)
+    _assert_ens_same(one.offer([jobs[:30], jobs[5:25]], policy=(0, "FF")),
+                     ref_one.offer([_ref(jobs[:30]), _ref(jobs[5:25])],
+                                   policy=[0, "FF"]))
+    batch, valid = pt_batch.pad_streams([jobs[30:], jobs[40:]], 16,
+                                        device="cpu")
+    ref_b, ref_v = ref_batch.pad_streams([_ref(jobs[30:]), _ref(jobs[40:])],
+                                         16)
+    _assert_ens_same(one.offer((batch, valid)), ref_one.offer((ref_b, ref_v)))
+    _assert_ens_metrics(one, ref_one)
+    with pytest.raises(ValueError, match="bypasses the rings"):
+        ours.offer((batch, valid))
+    with pytest.raises(ValueError, match="policies for"):
+        one.offer([jobs[:1], jobs[:1]], policy=[0, 1, 2])

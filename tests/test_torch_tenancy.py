@@ -29,6 +29,7 @@ import torch
 from repro.api import ReservationService as RefService
 from repro.api import ServiceConfig as RefConfig
 from repro.core import batch as ref_batch
+from repro.core import ensemble as ref_ens
 from repro.core import timeline as ref_tl
 from repro.core.hostsched import TenantOracle as RefTenantOracle
 from repro.core.resources import ResourceSpec as RefResourceSpec
@@ -576,13 +577,17 @@ def test_tenant_config_validation():
             RefSpec(**kw)
         with pytest.raises(ValueError, match=match):
             TenantSpec(**kw)
-    # per-lane tuples need ensemble lanes; partitions the fleet
-    for kw, item in ((dict(tenants=(spec,)), "A12"),
-                     (dict(lanes=2, tenants=(spec, None)), "A12"),
-                     (dict(n_partitions=2, auto_release=False,
-                           chunk_size=None, tenants=spec), "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServiceConfig(n_pe=8, **kw)
+    # per-lane tuples run (A12); partitions need the fleet
+    with pytest.raises(NotImplementedError, match="A15"):
+        ServiceConfig(n_pe=8, n_partitions=2, auto_release=False,
+                      chunk_size=None, tenants=spec)
+    for kw, lanes in ((dict(tenants=(spec,)), 1),
+                      (dict(lanes=2, tenants=(spec, None)), 2)):
+        cfg = ServiceConfig(n_pe=8, device="cpu", **kw)
+        assert cfg.tenancy and cfg.lane_tenant_specs == kw["tenants"]
+        m = ReservationService(cfg).session().metrics()
+        assert m["lanes"] == lanes and m["tenants"]["weight"].shape[-1] == 2
+    assert not ServiceConfig(n_pe=8, lanes=2, tenants=(None, None)).tenancy
     cfg = ServiceConfig(n_pe=8, tenants=spec, backfill="easy")
     assert cfg.tenancy and not ServiceConfig(n_pe=8).tenancy
     padded = TenantSpec(weights=(1.0, 2.0), quotas=(5.0, None)).padded(4)
@@ -705,3 +710,143 @@ def test_cancels_return_ownership_as_the_reference_does(spec_stream):
     assert_state_equal(many, ref_many)
     assert int(many.tenants.live.sum()) == int(out.tenants.live.sum()) - len(
         entries)
+
+
+# ---------------------------------------------------------------------------
+# ensemble lanes with their own tables; the grid's tenant-mix axis
+# ---------------------------------------------------------------------------
+
+
+def test_ensemble_lane_tables_and_reaping():
+    """Per-lane tables padded to the widest spec, per-lane grace (the
+    spec-less lane never reaps), telemetry stacked ``[E, T]``, all as
+    the reference's."""
+    spec0 = TenantSpec(weights=(1.0, 1.0), grace=4)
+    spec1 = TenantSpec(weights=(1.0,))
+    kw = dict(n_pe=8, lanes=2, capacity=32, chunk_size=4, ring_capacity=8,
+              auto_release=False)
+    ours = ReservationService(ServiceConfig(
+        tenants=(spec0, spec1), device="cpu", **kw)).session()
+    theirs = RefService(RefConfig(tenants=(_ref_spec(spec0),
+                                           _ref_spec(spec1)), **kw)).session()
+    r0 = ARRequest(t_a=0, t_r=0, t_du=6, t_dl=20, n_pe=4, tenant=1)
+    r1 = ARRequest(t_a=0, t_r=0, t_du=6, t_dl=20, n_pe=4, tenant=0)
+    ours.offer([[r0], [r1]])
+    theirs.offer([_ref([r0]), _ref([r1])])
+    m = ours.metrics()
+    assert m["tenants"]["live"].tolist() == [[0, 1], [1, 0]]
+    for t, n in ((9, 0), (10, 1)):
+        assert ours.tick(t) == theirs.tick(t) == n
+    m, rm = ours.metrics(), theirs.metrics()
+    assert m["tenants"]["live"].tolist() == [[0, 0], [1, 0]]
+    assert m["tenants"]["n_reaped"].tolist() == [[0, 1], [0, 0]]
+    assert m["reaped"] == rm["reaped"] == 1
+    for f, v in rm["tenants"].items():
+        np.testing.assert_array_equal(m["tenants"][f], np.asarray(v),
+                                      err_msg=f)
+        assert m["tenants"][f].dtype == np.asarray(v).dtype, f
+    v = ours.metrics(tenant=1)
+    assert v["live"].tolist() == [0, 0] and v["occ_ewma"].shape == (2,)
+    with pytest.raises(ValueError, match="lane 1's TenantSpec"):
+        ours.offer([[], [r0]])
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_ensemble_tenanted_lanes_match_reference(spec_stream, donate):
+    """Three pipelined lanes (the spec under EASY, no table, the spec
+    with equal weights under none) through offers and ticks: decisions
+    and every lane's 17 table fields as the reference's ensemble."""
+    ref_spec = _ref_spec(SPEC)
+    eq = dataclasses.replace(SPEC, weights=(1.0,) * SPEC.n_tenants)
+    kw = dict(n_pe=N_PE, lanes=3, capacity=32, pending_capacity=64,
+              chunk_size=16, ring_capacity=64, backfill=("easy", "none",
+                                                         "none"),
+              donate=donate)
+    ours = ReservationService(ServiceConfig(
+        tenants=(SPEC, None, eq), device="cpu", **kw)).session()
+    theirs = RefService(RefConfig(tenants=(ref_spec, None, _ref_spec(eq)),
+                                  **kw)).session()
+    jobs = spec_stream[:90]
+    bare = [dataclasses.replace(j, tenant=0) for j in jobs]
+    for lo, hi in ((0, 40), (40, 90)):
+        res = ours.offer([jobs[lo:hi], bare[lo:hi], jobs[lo:hi]])
+        ref_res = theirs.offer([_ref(jobs[lo:hi]), _ref(bare[lo:hi]),
+                                _ref(jobs[lo:hi])])
+        assert_decisions_equal(res.decision, ref_res.decision)
+        t = jobs[hi - 1].t_a
+        assert ours.tick(t) == theirs.tick(t)
+    for e, (st, ref_st) in enumerate(zip(
+            ours._backend.states, [ref_ens.member(
+                theirs._backend.states, i) for i in range(3)])):
+        assert_state_equal(st, ref_st)
+        assert ours.pending(e) == theirs.pending(e)
+    m, rm = ours.metrics(), theirs.metrics()
+    for k in ("accepted", "growths", "n_parked", "n_parked_now",
+              "n_promoted", "n_moved", "released"):
+        assert m[k] == rm[k], k
+
+
+def test_simulate_grid_tenant_mix_axis():
+    """The grid's tenant-mix axis against the reference's grid: cells
+    exact, cross-checked against the port's TenantOracle; the quota mix
+    bites somewhere and the ``None`` mix equals the legacy grid."""
+    from repro.sim import GridSpec as RefGridSpec
+    from repro.sim import simulate_grid as ref_simulate_grid
+    from repro.core.types import Policy as RefPolicy
+    from repro_torch.sim import GridSpec, simulate_grid
+
+    mix = TenantSpec(weights=(1.0, 3.0), quotas=(4000.0, None))
+    kw = dict(arrival_factors=(1.0,), seeds=(0,), flex_factors=(3.0,),
+              backfill_modes=("none", "easy"), n_pe=64, n_jobs=100)
+    res = simulate_grid(GridSpec(policies=(Policy.FF, Policy.PE_B),
+                                 tenant_mixes=(None, mix), **kw),
+                        cross_check=True, record_decisions=True,
+                        device="cpu")
+    ref = ref_simulate_grid(RefGridSpec(
+        policies=(RefPolicy.FF, RefPolicy.PE_B),
+        tenant_mixes=(None, _ref_spec(mix)), **kw), record_decisions=True)
+    assert res.acceptance.shape == ref.acceptance.shape == (2, 2, 1, 1, 1, 2)
+    np.testing.assert_array_equal(res.n_accepted, ref.n_accepted)
+    np.testing.assert_array_equal(res.n_jobs, ref.n_jobs)
+    np.testing.assert_allclose(res.acceptance, ref.acceptance, rtol=1e-6)
+    np.testing.assert_allclose(res.slowdown, ref.slowdown, rtol=1e-6)
+    assert res.decisions == ref.decisions
+    legacy = simulate_grid(GridSpec(policies=(Policy.FF, Policy.PE_B), **kw),
+                           device="cpu")
+    assert legacy.acceptance.shape == (2, 2, 1, 1, 1)
+    np.testing.assert_array_equal(res.acceptance[..., 0], legacy.acceptance)
+    assert (res.acceptance[..., 1] < res.acceptance[..., 0]).any()
+
+
+@pytest.mark.parametrize("tenants", [None, "lanes"])
+def test_idle_metrics_polls_read_nothing_on_ensembles(monkeypatch, tenants):
+    """The ``lanes=2`` case: an idle poll of an ensemble session reads
+    nothing; a new offer costs one refresh (every lane's table in one
+    transfer)."""
+    reads = []
+    real = pt_service._EnsembleBackend._refresh_dev_metrics
+    monkeypatch.setattr(pt_service._EnsembleBackend, "_refresh_dev_metrics",
+                        lambda self: reads.append(1) or real(self))
+    spec = TenantSpec(weights=(1.0, 1.0))
+    sess = ReservationService(ServiceConfig(
+        n_pe=8, lanes=2, capacity=32, chunk_size=4, ring_capacity=8,
+        backfill=("easy", "none"), device="cpu",
+        tenants=None if tenants is None else (spec, None))).session()
+    reqs = [ARRequest(t_a=0, t_r=0, t_du=10, t_dl=30, n_pe=2)]
+    sess.offer([reqs, reqs])
+    sess.metrics()
+    reads.clear()
+    syncs = sess._backend.stats.host_syncs
+    for _ in range(5):
+        sess.metrics()
+        if tenants:
+            sess.metrics(tenant=0)
+    assert not reads and sess._backend.stats.host_syncs == syncs
+    later = [ARRequest(t_a=5, t_r=5, t_du=10, t_dl=40, n_pe=2)]
+    sess.offer([later, later])
+    m = sess.metrics()
+    assert reads == [1] and m["n_parked_now"] >= 0
+    if tenants:
+        assert m["tenants"]["live"].tolist() == [[2, 0], [2, 0]]
+    sess.metrics()
+    assert reads == [1]
