@@ -101,17 +101,17 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    none); ``engine="host"`` (500 jobs) and ``engine="list"`` (200 jobs)
    sessions against the device session;
 6b. backfilling (after phase 6): ``none``, conservative and EASY on the
-   paper stream against ``BackfillOracle``, an EASY session cancelling
-   its queue's tail, EASY at R = 4 and with the index, 300 EASY steps
-   profiled;
-6c. tenancy (after phase 6b): the paper stream with ``tenant = i % 4``,
+   paper stream's first 400 jobs against ``BackfillOracle``, an EASY
+   session cancelling its queue's tail (8 offers of 50), EASY at R = 4
+   and with the index, 300 EASY steps profiled;
+6c. tenancy (after phase 6b): the same 400 jobs with ``tenant = i % 4``,
    quotas of half of tenants 0 and 2's offered PE-seconds, a live cap of
    6 on tenant 1 and weights (1, 4, 2, 1) under EASY against
    ``TenantOracle`` (decisions, records, queue and every telemetry field
    bit for bit; both gates must bite); a neutral table (equal weights,
    no limits) identical to the tenancy-free EASY, ``none``, R = 4 and
    tile-16 runs, host syncs included; a pipelined ``auto_release=False``
-   session that reaps (grace 300) after each of 40 offers against the
+   session that reaps (grace 300) after each of 8 offers against the
    oracle, then 20 idle ``metrics(tenant=i)`` polls that read nothing;
    300 EASY steps profiled with tenants off and on;
 6d. ensemble (after phase 6c): ``simulate_grid`` at 1024 PEs with the
@@ -129,7 +129,24 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    ``tick``, a ``cancel`` on lane 1 and a snapshot / restore / re-offer;
    and a ``lanes=2`` session with ``tenants=(spec, None)`` and
    ``auto_release=False`` that reaps on the spec's lane only.  Each
-   path's select launches equal its lane steps' searches.
+   path's select launches equal its lane steps' searches;
+6e. fleet (after phase 6d): ``fleet_routing``: 1,000 paper jobs through
+   ``PartitionedCore`` at 1024 PEs in 4 partitions of 256 (capacity 128,
+   PE_W) under round robin, least loaded, best acceptance (fused; the
+   rounds protocol under PE_W and FF; tile 32), each held against the
+   port's ``FleetRoutingOracle`` (allocations, merged records);
+   ``partition_sessions``: an EASY round-robin partitioned session (20
+   offers of 50, a tick after each, a cancel, a snapshot / restore /
+   re-offer) with every lane held against a ``BackfillOracle`` fed its
+   routed requests, and a tenanted best-acceptance session
+   (``auto_release=False``, grace 300) against a host replay of the
+   router's gate on ``HostTenantAccounts`` plus ``FleetRoutingOracle``;
+   ``fleet_jobs``: ``FleetScheduler(n_chips=512)`` through a scripted day
+   (8 batches of 25 jobs over the ten architectures, 3 card failures, 3
+   stragglers, 2 rescales, 5 malleable jobs) on the device engine against
+   the host engine, then partitioned in two with every batch held
+   against ``FleetRoutingOracle``.  Select launches equal the searches
+   (admit steps plus probes), one-window launches the early rejects.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -142,6 +159,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -1929,7 +1947,8 @@ def host_engines(jobs, dev) -> None:
 # ---------------------------------------------------------------------------
 
 BF_QUEUE = 8              # deferral-queue entries of every backfill run
-BF_OFFERS = (40, 50)      # the cancelling session: offers x requests each
+BF_JOBS = 400             # the backfill and tenancy phases' paper jobs
+BF_OFFERS = (8, 50)       # the cancelling session: offers x requests each
 
 
 def _state_records(state):
@@ -1976,9 +1995,9 @@ def _bf_stream(jobs, dev, mode, *, rspec=None, index_tile=None,
 
 def _searches(st) -> int:
     """Select launches a run needs: one per full admit search, plus the
-    retry sweep's and the displacements' searches."""
+    retry sweep's, the displacements' and the fleet probes' searches."""
     return (st.steps - st.early_rejects + st.retry_searches
-            + st.displace_searches)
+            + st.displace_searches + st.probe_searches)
 
 
 def _hold_bf(label, run, oracle, jobs, select: str) -> None:
@@ -2851,6 +2870,487 @@ def _tenant_lanes(jobs, dev, base, rows: dict) -> None:
           f"lane 1 to the one-lane session")
 
 
+FLEET_JOBS = 1000         # fleet_routing's paper jobs (the reference's slow gate)
+FLEET_PARTS = 4           # partitions of 256 PEs (8 words each)
+PART_OFFERS = (20, 50)    # partition_sessions: offers x requests each
+FLEET_BATCHES = (8, 25)   # fleet_jobs: submit_batch calls x jobs each
+
+
+def _fleet_run(label, jobs, dev, rows, routing, policy, **kw):
+    """``PartitionedCore.admit_stream_allocations`` of ``jobs`` on the
+    card (1024 PEs in ``FLEET_PARTS`` partitions, capacity 128), launches
+    counted; every launch must be one of the run's searches."""
+    import torch
+    from repro_torch.kernels import availscan as K
+    from repro_torch.runtime import PartitionedCore
+
+    core = PartitionedCore(1024, FLEET_PARTS, capacity=128, device=dev, **kw)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    allocs = core.admit_stream_allocations(jobs, policy, routing=routing)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = core.stats
+    want_sel = _searches(st)
+    want_one = st.early_rejects + st.probe_rejects
+    if launches["availscan_select"] != want_sel or not want_sel or \
+            launches["availscan"] != want_one:
+        fail(f"{label}: {launches} launches for {want_sel} searches and "
+             f"{want_one} early rejects ({st})")
+    if (want_one > 0) != ("index_tile" in kw):
+        fail(f"{label}: {want_one} early rejects")
+    n = len(jobs)
+    rows["availscan_select"].setdefault("launches_fleet", {})[label] = \
+        launches["availscan_select"]
+    if want_one:
+        rows["availscan"].setdefault("launches_fleet", {})[label] = \
+            launches["availscan"]
+    print(f"{label}: {n} requests in {wall:.3f} s = {n / wall:.1f} "
+          f"requests/s; accepted {sum(a is not None for a in allocs)}; "
+          f"dispatches {core.dispatches}, match rounds "
+          f"{core.last_match_rounds}, admit steps {st.steps}, probe "
+          f"searches {st.probe_searches}, availscan_select launches "
+          f"{launches['availscan_select']}, availscan (one window) launches "
+          f"{launches['availscan']} ({st.early_rejects} commit + "
+          f"{st.probe_rejects} probe early rejects), host syncs "
+          f"{st.host_syncs} = {st.host_syncs / n:.3f} per request, growths "
+          f"{st.growths}, capacity {core.states[0].tl.capacity}")
+    return core, allocs
+
+
+def _key(a):
+    return None if a is None else (a.t_s, a.t_e, tuple(a.pe_ids))
+
+
+def fleet_routing(jobs, dev, rows: dict) -> None:
+    """The paper stream through the partitioned core under every routing
+    (best acceptance fused, with the forced rounds protocol under PE_W
+    and FF, and with the index), each held against the port's
+    ``FleetRoutingOracle``: allocations and merged records."""
+    from repro_torch.core.hostsched import FleetRoutingOracle
+    from repro_torch.core.types import Policy
+
+    runs = (("fleet_round_robin", "round_robin", Policy.PE_W, {}),
+            ("fleet_least_loaded", "least_loaded", Policy.PE_W, {}),
+            ("fleet_best_fused", "best_acceptance", Policy.PE_W, {}),
+            ("fleet_best_rounds", "best_acceptance", Policy.PE_W,
+             dict(match_rounds=8)),
+            ("fleet_best_rounds_ff", "best_acceptance", Policy.FF,
+             dict(match_rounds=8)),
+            ("fleet_best_indexed", "best_acceptance", Policy.PE_W,
+             dict(index_tile=32)))
+    want = {}
+    wide = sum(j.n_pe > 1024 // FLEET_PARTS for j in jobs)
+    for label, routing, policy, kw in runs:
+        core, allocs = _fleet_run(label, jobs, dev, rows, routing, policy,
+                                  **kw)
+        if (routing, policy) not in want:
+            oracle = FleetRoutingOracle(1024, FLEET_PARTS)
+            want[routing, policy] = (
+                [_key(a) for a in oracle.admit_batch(jobs, policy, routing)],
+                oracle.records())
+        keys, recs = want[routing, policy]
+        got = [_key(a) for a in allocs]
+        if got != keys:
+            fail(f"{label}: allocations differ from FleetRoutingOracle "
+                 f"{_first_diff(got, keys)}")
+        if core.records() != recs:
+            fail(f"{label}: records differ from FleetRoutingOracle's")
+        if any(a is not None for a, j in zip(allocs, jobs)
+               if j.n_pe > 1024 // FLEET_PARTS):
+            fail(f"{label}: a job wider than a partition was admitted")
+        if kw.get("match_rounds") and not core.last_match_rounds:
+            fail(f"{label}: the rounds protocol ran no round")
+    print(f"fleet_routing: {len(jobs)} paper jobs ({wide} wider than a "
+          f"{1024 // FLEET_PARTS}-PE partition, all rejected) on "
+          f"{FLEET_PARTS} partitions; every run identical to "
+          f"FleetRoutingOracle (allocations and merged records), the "
+          f"indexed run to the index-free one")
+
+
+def _replay_gated(reqs, accounts, oracle, ledger, seq, routing, policy):
+    """The router's gate (``_PartitionBackend._offer_gated``) on the host:
+    ``HostTenantAccounts`` plus ``FleetRoutingOracle``; ``ledger`` is the
+    completion heap, ``seq`` its tie-break counter."""
+    import heapq
+    out = []
+    for req in reqs:
+        tid = accounts.clip_tid(req.tenant)
+        if not accounts.allowed(tid, req.n_pe, req.t_du):
+            accounts.record(tid, accepted=False, blocked=True, parked=False,
+                            occ_frac=np.float32(0.0))
+            out.append(None)
+            continue
+        alloc = oracle.admit_batch([req], policy, routing)[0]
+        accounts.record(tid, accepted=alloc is not None, blocked=False,
+                        parked=False, occ_frac=np.float32(0.0),
+                        t_e=alloc.t_e if alloc else -1, t_r=req.t_r,
+                        t_du=req.t_du, n_pe=req.n_pe)
+        if alloc is not None:
+            heapq.heappush(ledger, (alloc.t_e, next(seq), tid, alloc.t_s,
+                                    alloc.pe_ids))
+        out.append(alloc)
+    return out
+
+
+def _reap_replay(t, grace, accounts, oracle, ledger) -> int:
+    """Overdue reaping at the router, on the host replay."""
+    import heapq
+    n = 0
+    cpp = oracle.chips_per_part
+    while ledger and ledger[0][0] <= t - grace:
+        t_e, _, tid, t_s, ids = heapq.heappop(ledger)
+        lane = ids[0] // cpp
+        oracle.lanes[lane].delete_allocation(t_s, t_e,
+                                             [p - lane * cpp for p in ids])
+        oracle.load[lane] += np.float32(-(t_e - t_s) * len(ids))
+        accounts.reap(tid)
+        n += 1
+    return n
+
+
+def partition_sessions(jobs, dev, rows: dict) -> None:
+    """Partitioned service sessions at 1024 PEs / ``FLEET_PARTS``
+    partitions: an EASY round-robin session with a tick after each offer,
+    a cancel and a snapshot / restore / re-offer, each lane held against
+    a ``BackfillOracle`` fed its routed requests; then a tenanted
+    best-acceptance session (``auto_release=False``, grace 300) reaping
+    after each offer, held against a host replay of the router's gate."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.hostsched import BackfillOracle, FleetRoutingOracle
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.tenancy import HostTenantAccounts
+
+    n_offers, size = PART_OFFERS
+    jobs = jobs[:n_offers * size]
+    E, cpp = FLEET_PARTS, 1024 // FLEET_PARTS
+    base = dict(n_pe=1024, n_partitions=E, capacity=128, chunk_size=None,
+                device=dev)
+    sess = ReservationService(ServiceConfig(
+        backfill="easy", backfill_queue=BF_QUEUE, routing="round_robin",
+        **base)).session()
+    oracles = [BackfillOracle(cpp, Policy.PE_W, "easy",
+                              park_capacity=BF_QUEUE) for _ in range(E)]
+
+    def held(lane):
+        return [(t, frozenset(p + lane * cpp for p in b))
+                for t, b in oracles[lane].records()]
+
+    def offer_both(piece, k0):
+        res = sess.offer(piece)
+        want = [None] * len(piece)
+        for i, r in enumerate(piece):
+            acc, t_s, _ = oracles[(k0 + i) % E].admit(r)
+            want[i] = (acc, t_s if acc else -1)
+        return _decisions([res])[1], want, res
+
+    got_all, want_all, released, k0 = [], [], 0, 0
+    snap = None
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(n_offers):
+        piece = jobs[k * size:(k + 1) * size]
+        if k == n_offers // 2:
+            snap = (sess.snapshot(), k0)
+        got, want, res = offer_both(piece, k0)
+        got_all += got
+        want_all += want
+        k0 += len(piece)
+        if k == 2:
+            # cancel the offer's reservation that ends last
+            last = max((a for a in res.allocations() if a is not None),
+                       key=lambda a: a.t_e)
+            lane = last.pe_ids[0] // cpp
+            if not sess.cancel(last) or not oracles[lane].cancel(
+                    last.t_s, last.t_e, [p - lane * cpp for p in last.pe_ids]):
+                fail("partition EASY session: the cancel found nothing")
+        t = piece[-1].t_a
+        released += sess.tick(t)
+        for o in oracles:
+            o.tick(t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = sess.engine.stats
+    if got_all != want_all:
+        fail(f"partition EASY session: decisions differ from the per-lane "
+             f"BackfillOracles {_first_diff(got_all, want_all)}")
+    from repro_torch.core.hostsched import merge_records
+    if sess.records() != merge_records([held(e) for e in range(E)]):
+        fail("partition EASY session: records differ from the oracles'")
+    m = sess.metrics()
+    pending = sum(len(o.pending()) for o in oracles)
+    if m["n_parked_now"] != pending or not m["n_parked"]:
+        fail(f"partition EASY session: {m['n_parked_now']} parked, the "
+             f"oracles {pending}; {m['n_parked']} ever parked")
+    if launches["availscan_select"] != _searches(st):
+        fail(f"partition EASY session: {launches['availscan_select']} "
+             f"select launches for {_searches(st)} searches")
+    # the snapshot taken before offer n/2, restored, re-offers the rest
+    # exactly as the uninterrupted run did
+    first = got_all
+    sess.restore(snap[0])
+    k0 = snap[1]
+    again = got_all[:(n_offers // 2) * size]
+    for k in range(n_offers // 2, n_offers):
+        piece = jobs[k * size:(k + 1) * size]
+        again += _decisions([sess.offer(piece)])[1]
+        sess.tick(piece[-1].t_a)
+    if again != first:
+        fail(f"partition EASY session: the re-offer after restore decided "
+             f"differently {_first_diff(again, first)}")
+    rows["availscan_select"].setdefault("launches_fleet", {})[
+        "partition_easy"] = launches["availscan_select"]
+    n = len(jobs)
+    print(f"partition EASY session (round robin, {E} x {cpp} PEs, queue "
+          f"{BF_QUEUE}): {n_offers} offers of {size}, a tick after each, a "
+          f"cancel; accepted {sum(a for a, _ in got_all)}, parked "
+          f"{m['n_parked']}, promoted {m['n_promoted']}, moved "
+          f"{m['n_moved']}, released {released}; every lane identical to "
+          f"its BackfillOracle; snapshot / restore / re-offer identical; "
+          f"{n / wall:.1f} requests/s over offer + tick, admit steps "
+          f"{st.steps}, select launches {launches['availscan_select']}, "
+          f"host syncs {st.host_syncs} = {st.host_syncs / n:.3f} per "
+          f"request, dispatches {m['dispatches']}")
+
+    tjobs = tenanted(jobs)
+    spec = tenant_spec(tjobs, grace=TN_GRACE)
+    sess = ReservationService(ServiceConfig(
+        auto_release=False, tenants=spec, routing="best_acceptance",
+        **base)).session()
+    accounts = HostTenantAccounts(spec, router=True)
+    oracle = FleetRoutingOracle(1024, E)
+    ledger, seq, got_all, want_all, reaped = [], itertools.count(), [], [], 0
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(n_offers):
+        piece = tjobs[k * size:(k + 1) * size]
+        got_all += [_key(a) for a in sess.offer(piece).allocations()]
+        want_all += [_key(a) for a in _replay_gated(
+            piece, accounts, oracle, ledger, seq, "best_acceptance",
+            Policy.PE_W)]
+        t = piece[-1].t_a
+        r = sess.tick(t)
+        if r != _reap_replay(t, TN_GRACE, accounts, oracle, ledger):
+            fail(f"partition tenants: reaped {r} after offer {k}, the "
+                 f"replay otherwise")
+        reaped += r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = sess.engine.stats
+    if got_all != want_all:
+        fail(f"partition tenants: allocations differ from the host replay "
+             f"{_first_diff(got_all, want_all)}")
+    if sess.records() != oracle.records():
+        fail("partition tenants: records differ from the host replay's")
+    m = sess.metrics()
+    for f, v in accounts.snapshot().items():
+        if not np.array_equal(np.asarray(m["tenants"][f]), np.asarray(v)):
+            fail(f"partition tenants: {f} {m['tenants'][f]} differs from "
+                 f"the replay's {v}")
+    if m["ledger_depth"] != len(ledger) or not reaped or \
+            not m["tenants"]["n_quota_rejected"].sum():
+        fail(f"partition tenants: ledger {m['ledger_depth']} vs "
+             f"{len(ledger)}, reaped {reaped}, gated "
+             f"{m['tenants']['n_quota_rejected']}")
+    if launches["availscan_select"] != _searches(st):
+        fail(f"partition tenants: {launches['availscan_select']} select "
+             f"launches for {_searches(st)} searches")
+    rows["availscan_select"].setdefault("launches_fleet", {})[
+        "partition_tenants"] = \
+        launches["availscan_select"]
+    print(f"partition tenants (best acceptance, auto_release=False, grace "
+          f"{TN_GRACE}): {n_offers} offers of {size}, a tick after each; "
+          f"accepted {sum(a is not None for a in got_all)}, gated "
+          f"{m['tenants']['n_quota_rejected'].tolist()}, reaped {reaped}, "
+          f"ledger depth {m['ledger_depth']}; identical to the host replay "
+          f"(allocations, records, every telemetry field); {n / wall:.1f} "
+          f"requests/s, select launches {launches['availscan_select']} "
+          f"({st.probe_searches} probes + {st.steps} admit steps), host "
+          f"syncs {st.host_syncs} = {st.host_syncs / n:.3f} per request")
+
+
+def _fleet_specs(n, seed):
+    """``n`` jobs over the ten architectures and their applicable shapes."""
+    from repro_torch.configs import ALL_SHAPES, ARCH_IDS, applicable, get_config
+    rng = np.random.default_rng(seed)
+    cells = [(a, s.name) for a in ARCH_IDS for s in ALL_SHAPES
+             if applicable(get_config(a), s)[0]]
+    out = []
+    for _ in range(n):
+        arch, shape = cells[int(rng.integers(len(cells)))]
+        out.append(dict(arch=arch, shape=shape,
+                        n_chips=int(rng.choice([8, 16, 32, 64, 128, 256])),
+                        n_steps=int(rng.integers(200, 5000)),
+                        deadline_slack=float(rng.choice([0.5, 1.0, 2.0, 4.0]))))
+    return out
+
+
+def _no_double_booking(label, f) -> None:
+    """Live reservations never share a card at one time."""
+    from repro_torch.runtime import JobState
+    seen = {}
+    for j in f.jobs.values():
+        if j.state not in (JobState.RESERVED, JobState.RUNNING):
+            continue
+        for c in j.chips:
+            for t0, t1 in seen.get(c, ()):
+                if j.t_start < t1 and t0 < j.t_end:
+                    fail(f"{label}: card {c} double-booked")
+            seen.setdefault(c, []).append((j.t_start, j.t_end))
+
+
+def _fleet_day(f, submit, label):
+    """The scripted day: ``FLEET_BATCHES`` batches with the clock advanced
+    30 min after each, 3 card failures, 3 stragglers, 2 rescales and 5
+    malleable jobs; each pick a function of the fleet's own state."""
+    from repro_torch.runtime import JobState
+    n_batches, size = FLEET_BATCHES
+    specs = _fleet_specs(n_batches * size, seed=19)
+    live = (JobState.RESERVED, JobState.RUNNING)
+    done = dict(fail=0, straggler=0, rescale=0, malleable=0)
+    for b in range(n_batches):
+        submit(f, specs[b * size:(b + 1) * size])
+        _no_double_booking(label, f)
+        held = sorted(j.job_id for j in f.jobs.values()
+                      if j.state in live and j.chips)
+        if b in (1, 4, 7) and held:
+            f.fail_chip(f.jobs[held[0]].chips[-1])
+            done["fail"] += 1
+        if b in (2, 5, 6) and held:
+            f.report_straggler(held[-1], slowdown=1.3)
+            done["straggler"] += 1
+        if b in (3, 6) and held:
+            f.rescale(held[len(held) // 2], 32)
+            done["rescale"] += 1
+        if b in (0, 2, 4, 6, 7):
+            f.submit_malleable("stablelm-1.6b", "train_4k", [16, 32, 64],
+                               n_steps=2000 + 500 * b)
+            done["malleable"] += 1
+        _no_double_booking(label, f)
+        f.advance(f.now + 1800)
+    if list(done.values()) != [3, 3, 2, 5]:
+        fail(f"{label}: the script ran {done}")
+    f.advance(f.now + 10 ** 8)
+    return ([(j.job_id, j.state.value, j.t_start, j.t_end, tuple(j.chips),
+              j.preemptions, j.n_chips, j.partition)
+             for j in sorted(f.jobs.values(), key=lambda j: j.job_id)],
+            list(f.events))
+
+
+def _oracle_of(core):
+    """A ``FleetRoutingOracle`` holding the partitioned core's timelines
+    (every lane's rows re-added as reservations), load and cursor."""
+    from repro_torch.core.batch import mask32_to_ids
+    from repro_torch.core.hostsched import FleetRoutingOracle
+    oracle = FleetRoutingOracle(core.n_chips, core.n_partitions)
+    for lane, s in enumerate(core.states):
+        times = s.tl.times.cpu().numpy()
+        occ = s.tl.occ.cpu().numpy()
+        n = int((times < T_INF).sum())
+        for i in range(n - 1):
+            ids = mask32_to_ids(occ[i])
+            if ids:
+                oracle.lanes[lane].add_allocation(int(times[i]),
+                                                  int(times[i + 1]), ids)
+    oracle.load[:] = core._load_host
+    oracle._rr = core._rr
+    return oracle
+
+
+def fleet_jobs(dev, rows: dict) -> None:
+    """``FleetScheduler(n_chips=512)`` (2 pods x 256 cards) through the
+    scripted day on the device engine against the host engine (job
+    tables and event logs identical), then partitioned in two with every
+    ``submit_batch`` held against ``FleetRoutingOracle``."""
+    import torch
+    from repro_torch.core.types import ARRequest
+    from repro_torch.kernels import availscan as K
+    from repro_torch.runtime import FleetScheduler, estimate_duration
+
+    def plain_submit(f, specs):
+        f.submit_batch(specs)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    dev_day = _fleet_day(FleetScheduler(n_chips=512, engine="device",
+                                        device=dev), plain_submit,
+                         "fleet_jobs device")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_launches = K.LAUNCHES["availscan_select"]
+    if not dev_launches:
+        fail("fleet_jobs: the device engine launched no select kernel")
+    t0 = time.perf_counter()
+    host_day = _fleet_day(FleetScheduler(n_chips=512, engine="host"),
+                          plain_submit, "fleet_jobs host")
+    host_wall = time.perf_counter() - t0
+    if dev_day[0] != host_day[0]:
+        fail(f"fleet_jobs: job tables differ between the device and host "
+             f"engines {_first_diff(dev_day[0], host_day[0])}")
+    if dev_day[1] != host_day[1]:
+        fail(f"fleet_jobs: event logs differ "
+             f"{_first_diff(dev_day[1], host_day[1])}")
+    summary = {}
+    for row in dev_day[0]:
+        summary[row[1]] = summary.get(row[1], 0) + 1
+    batches = [0, 0]
+
+    def checked_submit(f, specs):
+        oracle = _oracle_of(f.core)
+        jobs = f.submit_batch(specs)
+        reqs = [ARRequest(t_a=j.submit_time, t_r=j.ready, t_dl=j.deadline,
+                          t_du=estimate_duration(j.arch, j.shape, j.n_chips,
+                                                 j.n_steps),
+                          n_pe=j.n_chips) for j in jobs]
+        want = oracle.admit_batch(reqs, f.policy, f.routing)
+        got = [None if j.chips == () else (j.t_start, j.t_end, j.chips)
+               for j in jobs]
+        if got != [None if a is None else (a.t_s, a.t_e, a.pe_ids)
+                   for a in want]:
+            fail(f"fleet_jobs partitioned: batch {batches[0]} differs from "
+                 f"FleetRoutingOracle")
+        batches[0] += 1
+        batches[1] += sum(g is not None for g in got)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    fleet = FleetScheduler(n_chips=512, n_partitions=2,
+                           routing="best_acceptance", device=dev)
+    part_day = _fleet_day(fleet, checked_submit, "fleet_jobs partitioned")
+    torch.cuda.synchronize()
+    part_wall = time.perf_counter() - t0
+    part_launches = K.LAUNCHES["availscan_select"]
+    st = fleet.core.stats
+    if part_launches != _searches(st) or not part_launches:
+        fail(f"fleet_jobs partitioned: {part_launches} select launches for "
+             f"{_searches(st)} searches")
+    rows["availscan_select"].setdefault("launches_fleet", {}).update(
+        fleet_jobs_device=dev_launches, fleet_jobs_partitioned=part_launches)
+    n_batches, size = FLEET_BATCHES
+    print(f"fleet_jobs: FleetScheduler(n_chips=512), {n_batches} batches of "
+          f"{size} jobs over the ten architectures, 3 card failures, 3 "
+          f"stragglers, 2 rescales, 5 malleable jobs: final states "
+          f"{summary}, {len(dev_day[1])} events; device engine identical "
+          f"to the host engine (job tables, event logs); device {wall:.2f} s"
+          f" (select launches {dev_launches}), host {host_wall:.2f} s; "
+          f"partitioned in 2 (best acceptance): every batch identical to "
+          f"FleetRoutingOracle ({batches[1]} reserved in {batches[0]} "
+          f"batches), no card double-booked, {part_wall:.2f} s, select "
+          f"launches {part_launches}, dispatches {fleet.core.dispatches}, "
+          f"host syncs {st.host_syncs}; final states "
+          f"{fleet.summary()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2929,18 +3429,22 @@ def main(argv=None) -> int:
     print(f"multi-resource session phases took "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # the backfill and tenancy phases run the paper stream's first
+    # BF_JOBS jobs: a prefix of the main path's, which decides them alike
     t0 = time.perf_counter()
-    bf = backfill_streams(jobs, plain, dev, rows)
-    backfill_session(jobs, dev, rows)
-    bf["mr"] = backfill_mr(stamp(jobs, MR_UNITS), dev, rows)
-    bf["indexed"] = backfill_indexed(jobs, bf["easy"], dev, rows)
-    backfill_profile(jobs, dev)
+    bf_jobs = jobs[:BF_JOBS]
+    bf_plain = dataclasses.replace(plain, decisions=plain.decisions[:BF_JOBS])
+    bf = backfill_streams(bf_jobs, bf_plain, dev, rows)
+    backfill_session(bf_jobs, dev, rows)
+    bf["mr"] = backfill_mr(stamp(bf_jobs, MR_UNITS), dev, rows)
+    bf["indexed"] = backfill_indexed(bf_jobs, bf["easy"], dev, rows)
+    backfill_profile(bf_jobs, dev)
     print(f"backfill phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    tjobs = tenanted(jobs)
+    tjobs = tenanted(bf_jobs)
     tenancy_streams(tjobs, bf, dev, rows)
-    tenancy_neutral(tjobs, plain, bf, dev, rows)
+    tenancy_neutral(tjobs, bf_plain, bf, dev, rows)
     tenancy_session(tjobs, dev, rows)
     tenancy_profile(tjobs, dev)
     print(f"tenancy phases took {time.perf_counter() - t0:.1f} s")
@@ -2952,6 +3456,12 @@ def main(argv=None) -> int:
     grid_mixes(dev, rows)
     ensemble_session(jobs, dev, rows)
     print(f"ensemble phases took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fleet_routing(jobs[:FLEET_JOBS], dev, rows)
+    partition_sessions(jobs, dev, rows)
+    fleet_jobs(dev, rows)
+    print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pipelined_paths(jobs_mr, dev, rows)

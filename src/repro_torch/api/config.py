@@ -8,8 +8,8 @@ does, and adds ``device``.  ``donate`` keeps its name and default but
 not its mechanism: PyTorch has no buffer donation, so the field only
 selects the reference's pipelined offer (see ``ServiceConfig``).  A
 session runs one device timeline, an ensemble of lanes
-(``lanes > 1``), or one of the host engines; partitions raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+(``lanes > 1``), partitions of one machine (``n_partitions > 1``), or
+one of the host engines.
 """
 from __future__ import annotations
 
@@ -52,6 +52,12 @@ class ServiceConfig:
         recorded and re-runs; ``auto_grow=False`` raises instead,
         commits nothing of the overflowing chunk and leaves its
         requests in the ring.
+    ``lanes`` / ``n_partitions`` / ``routing``
+        ``lanes > 1`` runs that many whole-machine replicas (the
+        Section-6 grid); ``n_partitions > 1`` splits the machine into
+        equal partitions, and each offer is routed across them by
+        ``routing`` (round robin, least loaded, best acceptance) and
+        decided at once.  The two axes are exclusive.
     ``chunk_size`` / ``ring_capacity``
         :meth:`~repro_torch.api.Session.offer` stages arrivals in a
         ``ring_capacity``-slot ring and admits them in chunks of
@@ -188,7 +194,6 @@ class ServiceConfig:
                 raise ValueError(
                     f"capacity ({self.capacity}) must be divisible by "
                     f"index_tile ({it})")
-        self._check_ported()
 
     def _check_backfill(self) -> None:
         bf = self.backfill
@@ -313,14 +318,6 @@ class ServiceConfig:
                 raise ValueError(
                     f"machine_sizes entries must be in (0, n_pe="
                     f"{self.n_pe}]: got {bad}")
-
-    def _check_ported(self) -> None:
-        """Valid settings the port does not run yet."""
-        if self.n_partitions > 1:
-            raise NotImplementedError(
-                "n_partitions > 1 is not ported yet (ROADMAP A15); the "
-                "port runs one device timeline or an ensemble of lanes "
-                "per session")
 
     @property
     def rspec(self) -> Optional[ResourceSpec]:

@@ -47,6 +47,12 @@ mode, tenant table and machine size.  ``offer`` takes one stream per
 lane (or a pre-padded ``(RequestBatch, valid)`` pair on one-shot
 sessions) and returns ``[E, N]`` decisions; a lane's overflow grows
 every lane.  ``cancel``, ``pending`` and ``records`` name their lane.
+
+Partitioned sessions (``n_partitions > 1``) slice the machine into
+equal partitions behind a :class:`~repro_torch.runtime.fleet.
+PartitionedCore`: each ``offer`` is routed (``routing``: round robin,
+least loaded or best acceptance) and decided at once; reservations
+carry global PE ids; a tenant spec is enforced at the host router.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.config import ServiceConfig, policy_id_of
+from repro_torch.api.config import ROUTINGS, ServiceConfig, policy_id_of
 from repro_torch.core import batch as batch_lib
 from repro_torch.core import ensemble as ens_lib
 from repro_torch.core import timeline as tl_lib
@@ -242,8 +248,8 @@ class Session:
         partial chunk is padded with never-feasible filler.
         ``flush=False`` admits only full chunks and leaves the rest in
         the ring for the next offer (or :meth:`flush`).  ``policy``
-        overrides the config's for this call; ``routing`` belongs to
-        partitioned sessions and must stay ``None``.
+        overrides the config's for this call; ``routing`` overrides it on
+        partitioned sessions and must stay ``None`` elsewhere.
         """
         return self._backend.offer(requests, policy=policy, routing=routing,
                                    flush=flush)
@@ -407,6 +413,8 @@ class ReservationService:
 
 
 def _make_backend(cfg: ServiceConfig, counters: Dict[str, int]):
+    if cfg.n_partitions > 1:
+        return _PartitionBackend(cfg, counters)
     if cfg.lanes > 1:
         return _EnsembleBackend(cfg, counters)
     if cfg.engine == "device":
@@ -1301,6 +1309,234 @@ class _EnsembleBackend(_RingBackend):
         times, occ = tl.times.cpu().numpy(), tl.occ.cpu().numpy()
         return [(int(t), frozenset(batch_lib.mask32_to_ids(row)))
                 for t, row in zip(times, occ) if t < T_INF]
+
+
+class _PartitionBackend(_BackendBase):
+    """Cluster partitions (machine slices) with routed bulk admission.
+
+    The engine is a :class:`~repro_torch.runtime.fleet.PartitionedCore`;
+    every offer is decided at once (no ring).  Tenancy is enforced at
+    the host router, the lane states keeping no tenant table: a
+    :class:`~repro_torch.tenancy.HostTenantAccounts` gate before routing,
+    and a completion ledger attributing each held reservation to its
+    tenant for release and overdue reaping.  The router's EWMAs round as
+    the reference's router does (:func:`~repro_torch.tenancy.table.
+    ewma_router`).
+    """
+
+    def __init__(self, cfg: ServiceConfig, counters: Dict[str, int]):
+        super().__init__(cfg, counters)
+        from repro_torch.runtime.fleet import PartitionedCore
+
+        self.engine = PartitionedCore(
+            cfg.n_pe, cfg.n_partitions, capacity=cfg.capacity,
+            pending_capacity=cfg.pending_capacity,
+            use_kernel=cfg.use_kernel, device=cfg.device,
+            park_capacity=cfg.park_capacity, backfill=cfg.backfill,
+            auto_release=cfg.auto_release, index_tile=cfg.index_tile)
+        self._accounts = None
+        self._grace = None
+        if cfg.tenancy:
+            from repro_torch.tenancy import HostTenantAccounts
+            self._accounts = HostTenantAccounts(cfg.tenants, router=True)
+            self._grace = cfg.tenants.grace
+        self._ledger: list = []   # heap of (t_e, seq, tid, t_s, ids)
+        self._lseq = 0
+
+    def _n_released(self) -> int:
+        return int(torch.stack([s.n_released
+                                for s in self.engine.states]).sum())
+
+    def _ledger_release(self, t: int) -> None:
+        """Mirror the engine's completion releases ending by ``t``."""
+        while self._ledger and self._ledger[0][0] <= t:
+            _, _, tid, _, _ = heapq.heappop(self._ledger)
+            self._accounts.release(tid)
+
+    def offer(self, requests, *, policy, routing, flush) -> OfferResult:
+        routing = routing or self.cfg.routing
+        if routing not in ROUTINGS:
+            raise ValueError(
+                f"unknown routing {routing!r}; pick one of {ROUTINGS}")
+        if not flush:
+            raise ValueError(
+                "flush=False staging is a ring-buffer (device session) "
+                "feature; partitioned sessions decide every offer "
+                "immediately")
+        reqs = list(requests)
+        self.counters["offered"] += len(reqs)
+        if not reqs:
+            return _empty_result()
+        pol = self.resolve_policy(policy)
+        if self._accounts is None:
+            allocs = self.engine.admit_stream_allocations(reqs, pol, routing)
+        else:
+            allocs = self._offer_gated(reqs, pol, routing)
+        self.counters["accepted"] += sum(a is not None for a in allocs)
+        self.counters["one_shot_scans"] += 1
+        return OfferResult(_allocations=allocs)
+
+    def _offer_gated(self, reqs, pol, routing):
+        """Quota-gated routing: reject over-quota requests before the
+        probe.
+
+        The device path's gate order: releases ending by the arrival
+        settle first (so ``live`` counts the post-release population),
+        then the float32 quota and live-cap check, then routing, one
+        request at a time, for the requests that pass.  The router has
+        no single machine occupancy across partitions, so the occupancy
+        EWMA sees 0.
+        """
+        acc = self._accounts
+        allocs: List[Optional[Allocation]] = []
+        for req in reqs:
+            if acc.n_tenants and req.tenant >= acc.n_tenants:
+                raise ValueError(
+                    f"request tenant {req.tenant} out of range "
+                    f"[0, {acc.n_tenants}) for this session's TenantSpec")
+            if self.cfg.auto_release:
+                self._ledger_release(req.t_a)
+            tid = acc.clip_tid(req.tenant)
+            if not acc.allowed(tid, req.n_pe, req.t_du):
+                acc.record(tid, accepted=False, blocked=True, parked=False,
+                           occ_frac=np.float32(0.0))
+                allocs.append(None)
+                continue
+            alloc = self.engine.admit_stream_allocations(
+                [req], pol, routing)[0]
+            acc.record(tid, accepted=alloc is not None, blocked=False,
+                       parked=False, occ_frac=np.float32(0.0),
+                       t_e=alloc.t_e if alloc else -1, t_r=req.t_r,
+                       t_du=req.t_du, n_pe=req.n_pe)
+            if alloc is not None:
+                heapq.heappush(self._ledger,
+                               (alloc.t_e, self._lseq, tid, alloc.t_s,
+                                tuple(alloc.pe_ids)))
+                self._lseq += 1
+            allocs.append(alloc)
+        return allocs
+
+    def tick(self, t: int) -> int:
+        # with auto_release=False the client owns completion release
+        # (cancel / delete_allocation), and a tenanted session reaps;
+        # otherwise every lane's pending buffer advances
+        if not self.cfg.auto_release:
+            return self._reap(t)
+        before = self._n_released()
+        self.engine.release_until(t)
+        if self._accounts is not None:
+            self._ledger_release(t)
+        released = self._n_released() - before
+        self.counters["released"] += released
+        return released
+
+    def _reap(self, t: int) -> int:
+        """Ledger-driven overdue reaping at the host router."""
+        if self._accounts is None or self._grace is None:
+            return 0
+        reaped = 0
+        cutoff = t - self._grace
+        while self._ledger and self._ledger[0][0] <= cutoff:
+            t_e, _, tid, t_s, ids = heapq.heappop(self._ledger)
+            self.engine.delete_allocation(t_s, t_e, list(ids))
+            self._accounts.reap(tid)
+            reaped += 1
+        self.counters["reaped"] += reaped
+        return reaped
+
+    def pending(self, lane: int = 0) -> list:
+        if not 0 <= lane < self.cfg.n_partitions:
+            raise ValueError(f"lane {lane} out of range for "
+                             f"{self.cfg.n_partitions} partitions")
+        if not self.cfg.backfilling:
+            return []
+        return batch_lib.parked_entries(self.engine.states[lane])
+
+    def cancel(self, t_s, t_e, pe_ids, lane: int = 0) -> bool:
+        if lane != 0:
+            raise ValueError(
+                "partitioned sessions address reservations by global "
+                "chip ids, not lanes")
+        eng = self.engine
+        if not self.cfg.auto_release:
+            eng.delete_allocation(t_s, t_e, list(pe_ids))
+            self._ledger_cancel(t_s, t_e, pe_ids)
+            self.counters["cancelled"] += 1
+            return True
+        # auto-release lanes track completions in the pending buffer:
+        # cancel through cancel_one so the slot clears with the interval
+        # (a blind delete would release it twice at the next tick)
+        part, local = eng._split(pe_ids)
+        state = eng.states[part]
+        mask = tl_lib.ids_to_mask32(local, state.tl.words,
+                                    device=eng.device)
+        state, done = batch_lib.cancel_one(state, t_s, t_e, mask,
+                                           require_pending=True,
+                                           max_growths=0)
+        eng.states = ens_lib.set_member(eng.states, part, state)
+        if done:
+            eng._bump_load(part, -(t_e - t_s) * len(local))
+            self._ledger_cancel(t_s, t_e, pe_ids)
+        self.counters["cancelled"] += int(done)
+        return done
+
+    def _ledger_cancel(self, t_s, t_e, pe_ids) -> None:
+        """Drop a cancelled reservation's ledger entry (if tracked)."""
+        if self._accounts is None:
+            return
+        key = (t_e, t_s, tuple(pe_ids))
+        for i, ent in enumerate(self._ledger):
+            if (ent[0], ent[3], ent[4]) == key:
+                self._accounts.release(ent[2])
+                self._ledger.pop(i)
+                heapq.heapify(self._ledger)
+                return
+
+    def snapshot(self):
+        tenancy = None
+        if self._accounts is not None:
+            tenancy = (copy.deepcopy(self._accounts), list(self._ledger),
+                       self._lseq)
+        return (self.engine.states, list(self.engine.load),
+                self.engine._rr, tenancy)
+
+    def restore(self, payload):
+        states, load, rr, tenancy = payload
+        self.engine.states = states
+        self.engine.load = list(load)
+        self.engine._rr = rr
+        if tenancy is not None:
+            accounts, ledger, lseq = tenancy
+            self._accounts = copy.deepcopy(accounts)
+            self._ledger = list(ledger)
+            self._lseq = lseq
+
+    def metrics(self) -> Dict[str, Any]:
+        eng = self.engine
+        cap, pend = ens_lib.lane_capacity(eng.states)
+        st = eng.stats
+        out = dict(capacity=cap, pending_capacity=pend,
+                   chips_per_partition=eng.chips_per_part,
+                   partition_load=list(eng.load),
+                   dispatches=eng.dispatches,
+                   match_rounds=eng.last_match_rounds, steps=st.steps,
+                   host_syncs=st.host_syncs, early_rejects=st.early_rejects,
+                   probe_searches=st.probe_searches,
+                   probe_rejects=st.probe_rejects)
+        if self.cfg.backfilling:
+            lanes = eng.states
+            vals = torch.stack([
+                sum((s.park_seq != T_INF).sum() for s in lanes),
+                *(sum(getattr(s, f) for s in lanes)
+                  for f in ("n_parked", "n_promoted", "n_moved"))])
+            host = [int(v) for v in vals.cpu()]
+            out.update(park_capacity=lanes[0].park_capacity,
+                       n_parked_now=host[0], n_parked=host[1],
+                       n_promoted=host[2], n_moved=host[3])
+        if self._accounts is not None:
+            out["tenants"] = self._accounts.snapshot()
+            out["ledger_depth"] = len(self._ledger)
+        return out
 
 
 class _HostBackend(_BackendBase):

@@ -171,11 +171,16 @@ class StreamStats:
     # re-placements); transactions tried, and those tried after an
     # early reject.  A step's own search is one per step, so the select
     # kernel runs steps - early_rejects + retry_searches +
-    # displace_searches times
+    # displace_searches + probe_searches times
     retry_searches: int = 0
     displace_searches: int = 0
     displacements: int = 0
     reject_displacements: int = 0
+    # the partitioned fleet's probes (searches that commit nothing):
+    # those that enumerate candidates, and those the index rejected
+    # early (one one-window kernel each, as an early-rejected step)
+    probe_searches: int = 0
+    probe_rejects: int = 0
     # with count_candidates, int64[2] on the device (never read here):
     # live candidates the searches enumerated, and how many of them the
     # index pruned

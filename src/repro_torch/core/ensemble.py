@@ -1,9 +1,8 @@
 """Ensemble axis: E independent scheduler timelines stepped together.
 
-The port's copy of ``repro/core/ensemble.py`` without the fleet's probe
-and matching (ROADMAP A15).  The reference stacks E lanes into one
-``SchedulerState`` with a leading axis and steps them with
-``jax.vmap``.  The port's admit step cannot be vmapped: request fields
+The port's copy of ``repro/core/ensemble.py``.  The reference stacks E
+lanes into one ``SchedulerState`` with a leading axis and steps them
+with ``jax.vmap``.  The port's admit step cannot be vmapped: request fields
 become kernel arguments and the release loop, the deferral queue and
 the quota gate branch on host reads.  So an ensemble here is a tuple of
 one-lane :class:`~repro_torch.core.timeline.SchedulerState` s, and each
@@ -18,6 +17,15 @@ makes them: growth is collective.  The auto wrapper reads every lane's
 high-water marks after an overflowing run, grows all lanes once to the
 worst lane's need, and re-runs every lane from the pre-run snapshot.
 Lanes that did not overflow reproduce their decisions exactly.
+
+The partitioned fleet (:mod:`repro_torch.runtime.fleet`) probes
+requests against every lane without committing
+(:func:`find_allocation_ensemble`, and the ``[N, E]`` probe
+:func:`find_allocations_ensemble`, each row against the same pre-batch
+lanes) and matches a stream to its earliest lanes
+(:func:`match_stream_ensemble`).  A probe is E searches (N x E for the
+batch) in turn; on indexed lanes every early-reject predicate of the
+probe crosses to the host in one read.
 """
 from __future__ import annotations
 
@@ -27,8 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import batch as batch_lib
+from repro_torch.core import search as search_lib
 from repro_torch.core import timeline as tl_lib
 from repro_torch.core.batch import Decision, RequestBatch, StreamStats
+from repro_torch.core.search import SearchResult
 from repro_torch.core.policies import policy_index
 from repro_torch.core.timeline import SchedulerState
 from repro_torch.core.types import T_INF, backfill_index
@@ -355,3 +365,260 @@ def admit_stream_ensemble_auto(
         f"admit_stream_ensemble still overflowing after {max_growths + 1} "
         f"attempts (last tried capacity {cap}, pending {pend})",
         state=out if donate else None)
+
+
+# -- the fleet's probe and matcher ------------------------------------------
+
+
+def to_host(nt, stats: Optional[StreamStats] = None):
+    """A :class:`Decision` or :class:`~repro_torch.core.search.
+    SearchResult` of tensors with one leading shape, as numpy arrays, in
+    one read (``bool`` fields stay ``bool``)."""
+    lead = tuple(nt[0].shape)
+    parts = [x.reshape(lead + (-1,)).to(torch.int32) for x in nt]
+    host = torch.cat(parts, dim=-1).cpu().numpy()
+    if stats is not None and nt[0].device.type != "cpu":
+        stats.sync()
+    out, k = [], 0
+    for x, p in zip(nt, parts):
+        w = p.shape[-1]
+        v = host[..., k:k + w].reshape(tuple(x.shape))
+        out.append(v.astype(bool) if x.dtype == torch.bool else v)
+        k += w
+    return type(nt)(*out)
+
+
+def _host_rows(reqs, stats: Optional[StreamStats]) -> np.ndarray:
+    """The request columns of a batch (or a 0-d struct, or an
+    :class:`~repro_torch.core.types.ARRequest`) as host integers:
+    ``int64[N, 5]`` (``[5]`` for one request), in one read."""
+    if not isinstance(reqs, RequestBatch):
+        return np.asarray(batch_lib._field_tuple(reqs), np.int64)
+    cols = torch.stack([getattr(reqs, f) for f in batch_lib.REQ_FIELDS])
+    host = cols.cpu().numpy().astype(np.int64)
+    if stats is not None and cols.device.type != "cpu":
+        stats.sync()
+    return host.T
+
+
+def _demands(states: Ensemble, reqs, n: Optional[int]) -> list:
+    """Per-row secondary-plane demands on the lanes' device (``None``
+    per row on single-resource lanes; ``n`` is None for one request)."""
+    if states[0].rspec is None:
+        return [None] * (n or 1)
+    if n is None:
+        return [batch_lib.request_demand(states[0], reqs)]
+    dev = states[0].tl.device
+    if reqs.demand is None:
+        return [None] * n
+    dem = reqs.demand.to(device=dev, dtype=tl_lib.I32)
+    return [dem[i] for i in range(n)]
+
+
+def _probe(states: Ensemble, rows: np.ndarray, demands: list, pid: int, *,
+           n_pe: int, use_kernel: bool,
+           stats: Optional[StreamStats]) -> List[List[SearchResult]]:
+    """Search every row against every lane, committing nothing.
+
+    On indexed lanes every (row, lane) early-reject predicate is
+    computed first and all of them cross to the host in one read; the
+    searches then take their row of it.
+    """
+    rejects = None
+    if states[0].tl.ispec is not None and len(rows):
+        flags = torch.stack([
+            search_lib.index_reject(
+                s.tl, int(r[1]), int(r[2]), int(r[3]), int(r[4]),
+                rspec=s.rspec, demand_tail=d, valid_mask=s.lane_valid)
+            for r, d in zip(rows, demands) for s in states])
+        rejects = flags.cpu().numpy().reshape(len(rows), len(states))
+        if stats is not None:
+            stats.sync()
+    out = []
+    for i, (r, d) in enumerate(zip(rows, demands)):
+        t_a, t_r, t_du, t_dl, n_req = (int(x) for x in r)
+        lane_res = []
+        for e, s in enumerate(states):
+            rej = None if rejects is None else bool(rejects[i, e])
+            lane_res.append(search_lib.search(
+                s.tl, t_r, t_du, t_dl, n_req, pid, t_a, n_pe=n_pe,
+                use_kernel=use_kernel, rspec=s.rspec, demand_tail=d,
+                valid_mask=s.lane_valid, reject=rej))
+            if stats is not None:
+                if rej:
+                    stats.probe_rejects += 1
+                else:
+                    stats.probe_searches += 1
+        out.append(lane_res)
+    return out
+
+
+def _stack_results(results: Sequence[SearchResult], lead: Tuple[int, ...]
+                   ) -> SearchResult:
+    return SearchResult(*(torch.stack(f).reshape(lead + tuple(f[0].shape))
+                          for f in zip(*results)))
+
+
+def find_allocation_ensemble(states: Ensemble, req, pid, *, n_pe: int,
+                             use_kernel: bool = True,
+                             stats: Optional[StreamStats] = None
+                             ) -> SearchResult:
+    """Probe one request against every lane's timeline (no commit).
+
+    ``req`` is an :class:`~repro_torch.core.types.ARRequest` or a 0-d
+    :func:`~repro_torch.core.batch.request_struct`; its ``t_a`` is the
+    search's "now".  Returns a :class:`SearchResult` with ``[E]``
+    leaves: the fleet's best-acceptance probe.
+    """
+    row = _host_rows(req, stats)
+    res = _probe(states, row[None, :], _demands(states, req, None),
+                 batch_lib._policy_id(pid), n_pe=n_pe, use_kernel=use_kernel,
+                 stats=stats)
+    return _stack_results(res[0], (len(states),))
+
+
+def find_allocations_ensemble(states: Ensemble, reqs: RequestBatch, pid, *,
+                              n_pe: int, use_kernel: bool = True,
+                              stats: Optional[StreamStats] = None
+                              ) -> SearchResult:
+    """Probe N requests against every lane's timeline (no commit).
+
+    The fleet's request-batched probe: a :class:`SearchResult` with
+    ``[N, E]`` leaves, row i being request i's feasibility, start and
+    rectangle on every lane, all against the *same* pre-batch lanes.
+    Each row uses its own request's ``t_a`` as "now", as a sequential
+    probe at arrival time would.  The rows cross to the host in one
+    read.
+    """
+    rows = _host_rows(reqs, stats)
+    n, E = len(rows), len(states)
+    if n == 0:
+        s0 = states[0]
+        dev = s0.tl.device
+        z = torch.zeros((0, E), dtype=tl_lib.I32, device=dev)
+        return SearchResult(
+            torch.zeros((0, E), dtype=torch.bool, device=dev), z, z,
+            torch.zeros((0, E, s0.tl.words), dtype=tl_lib.I32, device=dev),
+            z, z, z)
+    res = _probe(states, rows, _demands(states, reqs, n),
+                 batch_lib._policy_id(pid), n_pe=n_pe, use_kernel=use_kernel,
+                 stats=stats)
+    return _stack_results([r for lane_res in res for r in lane_res], (n, E))
+
+
+def match_stream_ensemble(states: Ensemble, reqs: RequestBatch, pid,
+                          bids=None, *, n_pe: int, auto_release: bool = False,
+                          use_kernel: bool = True,
+                          stats: Optional[StreamStats] = None
+                          ) -> Tuple[Ensemble, torch.Tensor, Decision]:
+    """Fused sequential best-acceptance matching over an ``[N]`` stream.
+
+    Per request, in arrival order: probe every lane, take the earliest
+    feasible start among the lanes whose overflow latch is clear (ties
+    to the lowest lane, as ``np.argmin``) and admit the request on that
+    lane; every other lane admits the never-feasible filler carrying
+    the request's arrival time, so with ``auto_release=True`` every
+    lane's release clock and deferral queue still advance per arrival.
+    Decisions equal N sequential ``find_allocation`` + commit
+    round-trips.  The probe's starts and the latches cross to the host
+    in one read per request; a lane that read showed latched is not
+    probed again (its start is masked).
+
+    With ``auto_release=False`` a filler step changes nothing on its
+    lane (no release pass, no queue work, nothing feasible to commit),
+    so only the lane whose decision is returned runs it.
+
+    Returns ``(states, lanes, decisions)``: ``lanes`` is ``int32[N]``
+    with the committed lane per request (``-1`` rejected) and
+    ``decisions`` the per-request :class:`Decision` of that lane (lane 0
+    where nothing was feasible).  An overflow latches as in
+    :func:`admit_stream_ensemble`; :func:`match_stream_ensemble_auto`
+    grows and re-runs.
+    """
+    E = len(states)
+    pid = batch_lib._policy_id(pid)
+    bids = (0,) * E if bids is None else tuple(_host_ids(bids))
+    rows = _host_rows(reqs, stats)
+    demands = _demands(states, reqs, len(rows))
+    dev = states[0].tl.device
+    out_lanes, decs = [], []
+    states = tuple(states)
+    # lanes whose latch an earlier read showed set: the latch is sticky
+    # and masks the lane out of every later argmin, so its probe is not
+    # searched
+    latched = np.zeros(E, bool)
+    for i, row in enumerate(rows):
+        t_a, t_r, t_du, t_dl, n_req = (int(x) for x in row)
+        live = [e for e in range(E) if not latched[e]]
+        probe = dict(zip(live, _probe(
+            [states[e] for e in live], row[None, :], demands[i:i + 1], pid,
+            n_pe=n_pe, use_kernel=use_kernel, stats=stats)[0])) if live \
+            else {}
+        no = torch.zeros((), dtype=tl_lib.I32, device=dev)
+        look = torch.stack([torch.stack(
+            ([probe[e].found.to(tl_lib.I32), probe[e].t_s] if e in probe
+             else [no, no]) + [states[e].overflow.to(tl_lib.I32)])
+            for e in range(E)]).cpu().numpy()
+        if stats is not None:
+            stats.sync()
+        latched = look[:, 2] > 0
+        tv = np.where((look[:, 0] > 0) & ~latched, look[:, 1], T_INF)
+        lane = int(np.argmin(tv))
+        feasible = bool(tv[lane] < T_INF)
+        filler = (t_a, t_a, 1, t_a + 1, n_pe + 1)
+        new = list(states)
+        mine = None
+        for e, s in enumerate(states):
+            if e != lane and not auto_release:
+                continue        # a filler step would leave the lane as it is
+            real = e == lane and feasible
+            req = (t_a, t_r, t_du, t_dl, n_req) if real else filler
+            new[e], dec = batch_lib._admit_impl(
+                s, req, pid, bids[e], n_pe=n_pe, auto_release=auto_release,
+                use_kernel=use_kernel, stats=stats, demand=demands[i])
+            if stats is not None:
+                stats.steps += 1
+            if e == lane:
+                mine = dec
+        states = tuple(new)
+        out_lanes.append(torch.where(mine.accepted, lane, -1).to(tl_lib.I32)
+                         if feasible else
+                         torch.full((), -1, dtype=tl_lib.I32, device=dev))
+        decs.append(mine)
+    if not decs:
+        W = states[0].tl.words
+        z = torch.zeros((0,), dtype=tl_lib.I32, device=dev)
+        b = torch.zeros((0,), dtype=torch.bool, device=dev)
+        return states, z, Decision(b, z, z, torch.zeros(
+            (0, W), dtype=tl_lib.I32, device=dev), z, z, z, b)
+    return states, torch.stack(out_lanes), Decision(
+        *(torch.stack(f) for f in zip(*decs)))
+
+
+def match_stream_ensemble_auto(
+        states: Ensemble, reqs: RequestBatch, pid, *, n_pe: int,
+        backfills=None, auto_release: bool = False, use_kernel: bool = True,
+        max_growths: int = batch_lib.MAX_DOUBLINGS,
+        stats: Optional[StreamStats] = None
+        ) -> Tuple[Ensemble, torch.Tensor, Decision]:
+    """:func:`match_stream_ensemble` with collective overflow growth.
+
+    As :func:`admit_stream_ensemble_auto`: an overflowing run is
+    discarded, every lane grows to the worst lane's high-water marks,
+    and the whole stream re-runs from the pre-call lanes; lanes that did
+    not overflow reproduce their decisions exactly.
+    """
+    bids = backfill_ids(backfills, len(states))
+    start = states
+    for attempt in range(max_growths + 1):
+        out, lanes, decs = match_stream_ensemble(
+            start, reqs, pid, bids, n_pe=n_pe, auto_release=auto_release,
+            use_kernel=use_kernel, stats=stats)
+        if not _any_overflow(out, stats):
+            return out, lanes, decs
+        if attempt < max_growths:
+            start = _grown(start, out, stats)
+    cap, pend = lane_capacity(start)
+    raise batch_lib.GrowthError(
+        f"match_stream_ensemble still overflowing after {max_growths + 1} "
+        f"attempts (last tried capacity {cap}, pending {pend})")

@@ -8,7 +8,9 @@ has no JAX.  :class:`MultiResourceOracle` is the same for
 multi-resource sessions: the event loop of the admit step (with the
 backfilling modes of :class:`BackfillOracle`) over a
 :class:`MultiHostScheduler` timeline in the device's global bit space,
-and :class:`TenantOracle` for multi-tenant ones.
+:class:`TenantOracle` for multi-tenant ones, and
+:class:`FleetRoutingOracle` for the partitioned fleet's routed bulk
+admission.
 
 Representation
 --------------
@@ -715,3 +717,115 @@ class MultiResourceOracle(BackfillOracle):
         super().__init__(rspec.n_pe, policy, mode, park_capacity)
         self.rspec = rspec
         self.sched = MultiHostScheduler(rspec, live_units=live_units)
+
+
+def merge_records(lanes: Sequence[Sequence[Tuple[int, frozenset]]]
+                  ) -> List[Tuple[int, frozenset]]:
+    """Merged (time, busy-global-id-set) view of per-lane records.
+
+    Each lane's records already carry global ids; a boundary appears
+    where the union of the lanes' busy sets changes.
+    """
+    bounds = sorted({t for rows in lanes for t, _ in rows})
+    out, prev = [], frozenset()
+    for t in bounds:
+        busy = set()
+        for rows in lanes:
+            cur = frozenset()
+            for rt, rb in rows:
+                if rt <= t:
+                    cur = rb
+                else:
+                    break
+            busy |= cur
+        busy = frozenset(busy)
+        if busy != prev:
+            out.append((t, busy))
+            prev = busy
+    return out
+
+
+class FleetRoutingOracle:
+    """Sequential probe-commit mirror of the partitioned fleet ingress.
+
+    ``E`` independent :class:`HostScheduler` lanes admitting one request
+    at a time: the literal host loop that
+    :meth:`repro_torch.runtime.fleet.PartitionedCore.
+    admit_stream_allocations` batches.  The card's matcher must
+    reproduce this decision sequence bit for bit for every routing:
+
+    ``best_acceptance``
+        probe every lane, take the earliest feasible start (ties to
+        the lowest lane), commit, repeat.
+    ``least_loaded``
+        route the whole batch greedily by committed + planned
+        PE-seconds (planned area accumulates on a scratch copy, in
+        float32, as the fleet's routing scan does), then probe/commit
+        each request on its routed lane only.
+    ``round_robin``
+        a striding cursor, probe/commit on the routed lane only.
+    """
+
+    def __init__(self, n_chips: int, n_partitions: int):
+        if n_partitions < 1 or n_chips % n_partitions:
+            raise ValueError(
+                f"n_chips={n_chips} not divisible into "
+                f"{n_partitions} partitions")
+        self.chips_per_part = n_chips // n_partitions
+        self.lanes = [HostScheduler(self.chips_per_part)
+                      for _ in range(n_partitions)]
+        self.load = np.zeros(n_partitions, np.float32)
+        self._rr = 0
+
+    def _commit(self, lane: int, alloc: Allocation) -> Allocation:
+        self.lanes[lane].add_allocation(
+            alloc.t_s, alloc.t_e, list(alloc.pe_ids))
+        self.load[lane] += np.float32(
+            (alloc.t_e - alloc.t_s) * len(alloc.pe_ids))
+        off = lane * self.chips_per_part
+        return Allocation(
+            t_s=alloc.t_s, t_e=alloc.t_e,
+            pe_ids=tuple(p + off for p in alloc.pe_ids),
+            rectangle=alloc.rectangle)
+
+    def _admit_best(self, req: ARRequest,
+                    policy: Policy) -> Optional[Allocation]:
+        best_lane, best = -1, None
+        for e, sched in enumerate(self.lanes):
+            a = sched.find_allocation(req, policy)
+            if a is not None and (best is None or a.t_s < best.t_s):
+                best_lane, best = e, a
+        if best is None:
+            return None
+        return self._commit(best_lane, best)
+
+    def admit_batch(self, requests: Sequence[ARRequest], policy: Policy,
+                    routing: str = "best_acceptance"
+                    ) -> List[Optional[Allocation]]:
+        if routing == "best_acceptance":
+            return [self._admit_best(r, policy) for r in requests]
+        E = len(self.lanes)
+        if routing == "round_robin":
+            lanes = [(self._rr + i) % E for i in range(len(requests))]
+            self._rr = (self._rr + len(requests)) % E
+        elif routing == "least_loaded":
+            scratch = self.load.copy()
+            lanes = []
+            for r in requests:
+                lane = int(np.argmin(scratch))
+                scratch[lane] += np.float32(r.n_pe) * np.float32(r.t_du)
+                lanes.append(lane)
+        else:
+            raise ValueError(f"unknown routing {routing!r}")
+        out: List[Optional[Allocation]] = []
+        for r, lane in zip(requests, lanes):
+            a = self.lanes[lane].find_allocation(r, policy)
+            out.append(self._commit(lane, a) if a is not None else None)
+        return out
+
+    def records(self) -> List[Tuple[int, frozenset]]:
+        """Merged (time, busy-global-chip-set) view across lanes."""
+        return merge_records([
+            [(t, frozenset(p + e * self.chips_per_part for p in b))
+             for t, b in sched.records()]
+            for e, sched in enumerate(self.lanes)])

@@ -14,7 +14,8 @@ The port's copy of ``repro/tenancy/table.py``.
     ``SchedulerState.tenants``; ``None`` there means no tenancy, and the
     admit step then runs exactly what it runs without this module.
 ``HostTenantAccounts``
-    The numpy mirror used by the port's ``TenantOracle``.
+    The numpy mirror used by the port's ``TenantOracle``, and the
+    accounts of the partitioned fleet's host router.
 
 Rounding.  Every fractional update is float32, on the device and in the
 mirror alike, with the rounding pinned per field so the two agree bit
@@ -33,6 +34,11 @@ bits apart), and the cast to float32 rounds.
 
 Divisions by a host value divide by a tensor on the device, never by a
 Python number: CUDA computes ``x / scalar`` as ``x * (1 / scalar)``.
+
+The partitioned fleet's router keeps its accounts on the host only (no
+device table exists there); its EWMAs round as the reference's router
+does, once over both exact products: ``f32(e * (1 - a) + x * a)``
+(:func:`ewma_router`).
 """
 from __future__ import annotations
 
@@ -301,16 +307,27 @@ def ewma_occ(e: np.float32, x: np.float32, a: np.float32) -> np.float32:
                       + np.float64(np.float32(x * a)))
 
 
+def ewma_router(e: np.float32, x: np.float32, a: np.float32) -> np.float32:
+    """One EWMA step of the partitioned fleet's router:
+    ``f32(e * (1 - a) + x * a)``, one rounding over both exact products."""
+    one = np.float32(1.0)
+    return np.float32(np.float64(e) * np.float64(one - a)
+                      + np.float64(x) * np.float64(a))
+
+
 class HostTenantAccounts:
     """Numpy mirror of :class:`TenantTable` accounting (bit for bit).
 
     Used by :class:`~repro_torch.core.hostsched.TenantOracle`.  Every
     fractional update rounds as the device does (module docstring), so
     :meth:`snapshot` equals the device table after the same stream.
+    ``router=True`` makes them the partitioned fleet's router accounts,
+    whose EWMAs round as :func:`ewma_router`.
     """
 
-    def __init__(self, spec: TenantSpec):
+    def __init__(self, spec: TenantSpec, *, router: bool = False):
         self.spec = spec
+        self.router = router
         T = spec.n_tenants
         self.weight = np.asarray(spec.weights, np.float32)
         self.quota = spec.quota_array()
@@ -350,6 +367,8 @@ class HostTenantAccounts:
                t_r: int = 0, t_du: int = 1, n_pe: int = 0) -> None:
         """One real request's accounting (as the admit step's)."""
         a = self.alpha
+        tenant_step, occ_step = (ewma_router, ewma_router) if self.router \
+            else (ewma_tenant, ewma_occ)
         if accepted:
             self.used[tid] = np.float32(
                 self.used[tid] + np.float32(n_pe) * np.float32(t_du))
@@ -358,14 +377,14 @@ class HostTenantAccounts:
             if parked:
                 self.n_parked[tid] += 1
             slow = np.float32(t_e - t_r) / np.float32(t_du)
-            self.slow_ewma[tid] = ewma_tenant(self.slow_ewma[tid], slow, a)
+            self.slow_ewma[tid] = tenant_step(self.slow_ewma[tid], slow, a)
         else:
             self.n_rejected[tid] += 1
             if blocked:
                 self.n_quota_rejected[tid] += 1
         x = np.float32(1.0 if accepted else 0.0)
-        self.acc_ewma[tid] = ewma_tenant(self.acc_ewma[tid], x, a)
-        self.occ_ewma = ewma_occ(self.occ_ewma, np.float32(occ_frac), a)
+        self.acc_ewma[tid] = tenant_step(self.acc_ewma[tid], x, a)
+        self.occ_ewma = occ_step(self.occ_ewma, np.float32(occ_frac), a)
 
     def release(self, tenant: int) -> None:
         if tenant >= 0:

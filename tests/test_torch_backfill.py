@@ -15,6 +15,7 @@ queue or a committed start.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.api import ReservationService as RefService
 from repro.api import ServiceConfig as RefConfig
@@ -42,6 +43,16 @@ STATE_FIELDS = ("pend_ts", "pend_te", "pend_mask", "n_accepted",
 # the backfill keys of metrics() both services report
 BF_METRICS = ("park_capacity", "n_parked_now", "n_parked", "n_promoted",
               "n_moved", "n_pending", "accepted", "cancelled")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _workload(n_jobs, seed, load=2.0, n_pe=N_PE):
@@ -412,9 +423,25 @@ def test_backfill_config_one_lane_accepted_and_wider_refused():
         device="cpu")).session()
     r = one.offer([ARRequest(t_a=0, t_r=0, t_du=5, t_dl=20, n_pe=8)])
     assert r.n_accepted == 1 and one.metrics()["park_capacity"] == 8
-    with pytest.raises(NotImplementedError, match="A15"):
-        ServiceConfig(n_pe=8, n_partitions=2, chunk_size=None,
-                      backfill="easy")
+    # partition lanes share one mode (A15): an EASY partition session
+    # decides its offer as the reference's does
+    part = ReservationService(ServiceConfig(
+        n_pe=8, n_partitions=2, chunk_size=None, backfill="easy",
+        device="cpu")).session()
+    ref_part = RefService(RefConfig(
+        n_pe=8, n_partitions=2, chunk_size=None, backfill="easy")).session()
+    jobs = [ARRequest(t_a=0, t_r=0, t_du=50, t_dl=50, n_pe=4),
+            ARRequest(t_a=0, t_r=0, t_du=50, t_dl=50, n_pe=4),
+            ARRequest(t_a=1, t_r=1, t_du=20, t_dl=100, n_pe=4)]
+    got = part.offer(jobs).allocations()
+    want = ref_part.offer([RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe)
+                           for j in jobs]).allocations()
+    assert [(a.t_s, a.pe_ids) for a in got] == \
+        [(a.t_s, a.pe_ids) for a in want]
+    assert part.metrics()["n_parked_now"] == \
+        ref_part.metrics()["n_parked_now"] == 1
+    assert [[e["t_s"] for e in part.pending(k)] for k in (0, 1)] == \
+        [[e["t_s"] for e in ref_part.pending(k)] for k in (0, 1)] == [[50], []]
     # the ensemble forms (A12) run: per-lane modes, a 1-tuple of specs
     for kw in (dict(lanes=2, backfill=("easy", "none")),
                dict(tenants=(TenantSpec(),), backfill="easy")):

@@ -26,6 +26,16 @@ N_PE = 64
 SMALL = dict(u_low=2.0, u_med=4.0, u_hi=6.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jobs(n, seed):
     jobs = generate_filtered(WorkloadParams(n_jobs=n, n_pe=N_PE, seed=seed,
                                             **SMALL), max_pe=N_PE)

@@ -32,6 +32,16 @@ from repro_torch.tenancy import TenantSpec, lane_tables, stack_tables
 N_PE = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stream(seed, n=25, n_pe=N_PE, pile=False):
     """Arrival-ordered random stream; ``pile=True`` keeps every
     reservation live at once (forces record and pending overflow)."""

@@ -19,6 +19,7 @@ from repro_torch.core import batch, ensemble, scheduler, timeline
 from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy
 from repro_torch.kernels import availscan, ops
+from repro_torch.runtime import FleetScheduler, PartitionedCore
 from repro_torch.sim import (GridSpec, pad_streams, run_policies, simulate,
                              simulate_batched, simulate_grid)
 from repro_torch.tenancy import TenantSpec, init_table, lane_tables
@@ -37,7 +38,11 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.kernels.availscan" in mods and len(mods) >= 15
     assert {"repro_torch.tenancy", "repro_torch.tenancy.table",
             "repro_torch.tenancy.telemetry", "repro_torch.core.ensemble",
-            "repro_torch.sim.sweep", "repro_torch.sim.metrics"} <= set(mods)
+            "repro_torch.sim.sweep", "repro_torch.sim.metrics",
+            "repro_torch.runtime", "repro_torch.runtime.fleet",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_4b", "repro_torch.roofline",
+            "repro_torch.roofline.analysis"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -75,6 +80,9 @@ def test_importing_the_service_loads_no_jax():
         "import sys\n"
         "import repro_torch.api\n"
         "from repro_torch.api import ReservationService, ServiceConfig\n"
+        "from repro_torch.runtime import FleetScheduler\n"
+        "from repro_torch.configs import all_configs\n"
+        "all_configs()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -132,6 +140,14 @@ def test_entry_points_without_a_device_raise_when_no_card():
             n_pe=8, lanes=2, tenants=(TenantSpec(), None))).session(),
         lambda: simulate_grid(GridSpec(n_pe=8, n_jobs=4, seeds=(0,),
                                        arrival_factors=(1.0,))),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, n_partitions=2)).session(),
+        lambda: ReservationService(ServiceConfig(
+            n_pe=8, n_partitions=2, chunk_size=None, auto_release=False,
+            tenants=TenantSpec(weights=(1.0, 1.0)))).session(),
+        lambda: PartitionedCore(8, 2),
+        lambda: FleetScheduler(n_chips=8),
+        lambda: FleetScheduler(n_chips=8, n_partitions=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -143,6 +159,9 @@ def test_entry_points_without_a_device_raise_when_no_card():
     assert timeline.init_state(16, 8, device="cpu").tl.capacity == 16
     assert init_table(TenantSpec(), 16, 4, "cpu").pend_tenant.shape == (16,)
     assert len(ensemble.init_ensemble(2, 16, 8, device="cpu")) == 2
+    assert PartitionedCore(8, 2, device="cpu").chips_per_part == 4
+    # the host engines are named explicitly
+    assert FleetScheduler(n_chips=8, engine="host").core.n_pe == 8
 
 
 def test_host_engines_run_only_when_named():

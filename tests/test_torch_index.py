@@ -44,6 +44,16 @@ DEC_FIELDS = ("accepted", "t_s", "t_e", "pe_mask", "n_free", "t_begin",
               "t_end", "parked")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u32(t):
     return pt_words.to_uint32(t.cpu().numpy())
 

@@ -40,6 +40,16 @@ N_POLICIES = 7
 SPECS = [((32, 4, 8), None), ((40,), (33,)), ((64, 6, 3, 40), None)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_jobs(n, rspec, seed=0, horizon=2000):
     """The reference suite's generator (tests/test_multires.py)."""
     rng = random.Random(seed)

@@ -42,6 +42,16 @@ METRICS = ("offered", "accepted", "released", "chunks", "growths",
            "lanes", "n_partitions", "chunk_size", "backfill")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jobs(n, units, seed):
     """Random arrival-ordered requests, half of them with a demand."""
     rng = random.Random(seed)
@@ -273,15 +283,29 @@ def test_config_validation_matches_reference(kw):
           tenants=TenantSpec(weights=(1.0, 2.0))), "A15"),
 ])
 def test_settings_not_ported_yet_raise(kw, item):
-    """Only the partitions (A15) are left; the ensemble settings (A12,
-    ported) open sessions."""
+    """No setting is left unported: ``item`` names the ROADMAP item that
+    ported it (``None``: the ensemble settings of A12).  Every setting
+    opens a session; the partition settings (A15) run one offer beside
+    the reference's, with the same allocations and records."""
+    cfg = ServiceConfig(n_pe=8, device="cpu", **kw)
+    sess = ReservationService(cfg).session()
+    assert sess.metrics()["lanes"] == cfg.lanes
     if item is None:
-        cfg = ServiceConfig(n_pe=8, device="cpu", **kw)
-        assert ReservationService(cfg).session().metrics()["lanes"] == \
-            cfg.lanes
         return
-    with pytest.raises(NotImplementedError, match=item):
-        ServiceConfig(n_pe=8, **kw)
+    ref_kw = dict(kw)
+    if "tenants" in kw:
+        ref_kw["tenants"] = RefTenantSpec(weights=kw["tenants"].weights)
+    ref = RefService(RefConfig(n_pe=8, **ref_kw)).session()
+    jobs = [ARRequest(t_a=i, t_r=i, t_du=20, t_dl=i + 30, n_pe=3,
+                      tenant=i % 2) for i in range(6)]
+    got = [(a.t_s, a.pe_ids) if a else None
+           for a in sess.offer(jobs).allocations()]
+    want = [(a.t_s, a.pe_ids) if a else None for a in ref.offer(
+        [RefRequest(j.t_a, j.t_r, j.t_du, j.t_dl, j.n_pe, j.tenant)
+         for j in jobs]).allocations()]
+    assert got == want and any(got) and not all(got)
+    assert sess.records() == ref.records()
+    assert sess.metrics()["n_partitions"] == 2
 
 
 def test_config_properties_match_reference():

@@ -26,6 +26,16 @@ EDGE = np.array([0, 1, 2, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x55555555,
                 dtype=np.uint32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_generate_matches_reference():
     for kw in (dict(n_jobs=200, seed=3), dict(n_jobs=150, seed=9, **SMALL,
                                              arrival_factor=1.5)):

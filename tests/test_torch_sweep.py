@@ -39,6 +39,16 @@ SIZES = dict(u_low=2.0, u_med=4.0, u_hi=6.0)
 BF_SIZES = dict(u_low=2.0, u_med=3.0, u_hi=4.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grids(kw, base, **run):
     """The port's and the reference's grid of one spec."""
     ours = simulate_grid(GridSpec(base=WorkloadParams(**base), **kw),

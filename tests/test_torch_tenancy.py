@@ -577,10 +577,23 @@ def test_tenant_config_validation():
             RefSpec(**kw)
         with pytest.raises(ValueError, match=match):
             TenantSpec(**kw)
-    # per-lane tuples run (A12); partitions need the fleet
-    with pytest.raises(NotImplementedError, match="A15"):
-        ServiceConfig(n_pe=8, n_partitions=2, auto_release=False,
-                      chunk_size=None, tenants=spec)
+    # per-lane tuples run (A12); partitions gate at the router (A15),
+    # as the reference's do
+    part = ReservationService(ServiceConfig(
+        n_pe=8, n_partitions=2, auto_release=False, chunk_size=None,
+        tenants=spec, device="cpu")).session()
+    ref_part = RefService(RefConfig(
+        n_pe=8, n_partitions=2, auto_release=False, chunk_size=None,
+        tenants=_ref_spec(spec))).session()
+    jobs = [ARRequest(t_a=i, t_r=i, t_du=10, t_dl=i + 40, n_pe=3,
+                      tenant=i % 2) for i in range(6)]
+    got = part.offer(jobs).allocations()
+    want = ref_part.offer(_ref(jobs)).allocations()
+    assert [a and (a.t_s, a.pe_ids) for a in got] == \
+        [a and (a.t_s, a.pe_ids) for a in want]
+    snap, ref_snap = part.metrics()["tenants"], ref_part.metrics()["tenants"]
+    for f, v in ref_snap.items():
+        np.testing.assert_array_equal(snap[f], np.asarray(v), err_msg=f)
     for kw, lanes in ((dict(tenants=(spec,)), 1),
                       (dict(lanes=2, tenants=(spec, None)), 2)):
         cfg = ServiceConfig(n_pe=8, device="cpu", **kw)

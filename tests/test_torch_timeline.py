@@ -19,6 +19,16 @@ from repro_torch.core import words as pt_words
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_timeline(rng, n_pe, capacity, n_jobs):
     tl = ref_tl.empty(capacity, n_pe)
     t = 0

@@ -35,6 +35,16 @@ LAYOUTS = {"R1-64": (64,), "R1-40": (40,), "R4-64": (64, 8, 4, 16),
            "R4-40": (40, 6, 3, 40)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are thousands of small ops, which
+    extra threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _wrap(x):
     return (x + 2**31) % 2**32 - 2**31
 
