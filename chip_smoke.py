@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--n-jobs 2000] [--n-event-loop 300]
-                          [--n-session 2000]
+                          [--n-session 2000] [--placement-cards]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -130,7 +130,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    and a ``lanes=2`` session with ``tenants=(spec, None)`` and
    ``auto_release=False`` that reaps on the spec's lane only.  Each
    path's select launches equal its lane steps' searches;
-6e. fleet (after phase 6d): ``fleet_routing``: 1,000 paper jobs through
+6e. fleet (after phase 6d): ``fleet_routing``: 500 paper jobs through
    ``PartitionedCore`` at 1024 PEs in 4 partitions of 256 (capacity 128,
    PE_W) under round robin, least loaded, best acceptance (fused; the
    rounds protocol under PE_W and FF; tile 32), each held against the
@@ -146,7 +146,36 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    stragglers, 2 rescales, 5 malleable jobs) on the device engine against
    the host engine, then partitioned in two with every batch held
    against ``FleetRoutingOracle``.  Select launches equal the searches
-   (admit steps plus probes), one-window launches the early rejects.
+   (admit steps plus probes), one-window launches the early rejects;
+6f. placement (after phase 6e): a 4-lane ``simulate_grid`` (PE_W, FF x
+   none / EASY, 200 jobs at 1024 PEs) and a partitioned session (4
+   partitions, least loaded, 8 offers of 50) under
+   ``placement="auto"``, each equal to ``placement=None`` (decisions,
+   records, accepted counts, partition loads), select launches counted
+   per run, ``placement_shards`` the lane mesh's;
+6g. serving (after phase 6f): the reduced float32 qwen3-4b and
+   granite-moe on the card against the same port on the CPU with the
+   same weights (prefill + 6 decode steps, logits within 1e-4, greedy
+   tokens equal, TF32 off); then qwen3-4b (4.41 G parameters) and
+   granite-moe-1b-a400m (1.38 G) at full width, bfloat16, random
+   weights from ``--seed``: greedy generation of 32 tokens for 4
+   prompts of 64 through ``repro_torch.serve.engine`` with the bf16 and
+   the int8 KV cache, after a warm-up, with prefill ms, decode ms a step
+   and tokens/s, each decode position's logits held against one full
+   forward over prompt + generated tokens (within 0.12, int8 0.25; the
+   token the forward's top-1 wherever its top-two margin exceeds the
+   tolerance; MoE at ``capacity_factor=100`` for the check, positions
+   whose tokens took other experts in the two paths counted and left
+   out), 8 decode steps profiled (kernels a step, device time, idle
+   share), the step's bound (every weight but the embedding table and
+   the KV cache, over 3.35 TB/s) beside ``roofline.analysis.step_costs``
+   for the same shape, and the peak memory.  The serving path runs none
+   of the CUDA kernels (its work is PyTorch's matmuls and elementwise
+   operations).
+
+``--placement-cards`` builds the kernels and runs only
+:func:`placement_cards`, which holds lane placement over every local
+card against one card.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -158,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -2870,7 +2900,7 @@ def _tenant_lanes(jobs, dev, base, rows: dict) -> None:
           f"lane 1 to the one-lane session")
 
 
-FLEET_JOBS = 1000         # fleet_routing's paper jobs (the reference's slow gate)
+FLEET_JOBS = 500          # fleet_routing's paper jobs (the reference's gate: 1,000)
 FLEET_PARTS = 4           # partitions of 256 PEs (8 words each)
 PART_OFFERS = (20, 50)    # partition_sessions: offers x requests each
 FLEET_BATCHES = (8, 25)   # fleet_jobs: submit_batch calls x jobs each
@@ -3351,6 +3381,457 @@ def fleet_jobs(dev, rows: dict) -> None:
           f"{fleet.summary()}")
 
 
+# ---------------------------------------------------------------------------
+# the placement and serving phases
+# ---------------------------------------------------------------------------
+
+
+def placement_phase(jobs, dev, rows: dict) -> None:
+    """A 4-lane ``simulate_grid`` (PE_W, FF x none / EASY, 200 jobs at
+    1024 PEs) and a partitioned session (4 partitions of 256, least
+    loaded, 8 offers of 50) under ``placement="auto"``, each equal to
+    the same run under ``placement=None``: decisions, records, metrics."""
+    import torch
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.types import Policy
+    from repro_torch.kernels import availscan as K
+    from repro_torch.launch.mesh import data_shards, make_lane_mesh
+    from repro_torch.sim import GridSpec, WorkloadParams
+
+    spec = GridSpec(policies=(Policy.PE_W, Policy.FF), arrival_factors=(1.0,),
+                    seeds=(0,), flex_factors=(3.0,),
+                    backfill_modes=("none", "easy"), base=WorkloadParams(),
+                    n_pe=1024, n_jobs=GRID_BF_JOBS, park_capacity=BF_QUEUE)
+    grids = {pl: _grid_run(f"placement_grid[{pl}]", spec, dev, rows,
+                           "availscan_select", placement=pl)
+             for pl in ("auto", None)}
+    if grids["auto"].decisions != grids[None].decisions or not np.array_equal(
+            grids["auto"].n_accepted, grids[None].n_accepted):
+        fail("placement: the auto grid decides unlike placement=None")
+    shards = grids["auto"].metrics["placement_shards"]
+    if shards != data_shards(make_lane_mesh(4, device=dev)) or \
+            grids[None].metrics["placement_shards"] != 1:
+        fail(f"placement: {shards} shards for 4 lanes on "
+             f"{torch.cuda.device_count()} card(s)")
+    runs = {}
+    for pl in ("auto", None):
+        sess = ReservationService(ServiceConfig(
+            n_pe=1024, n_partitions=FLEET_PARTS, routing="least_loaded",
+            chunk_size=None, policy=Policy.PE_W, placement=pl,
+            device=dev)).session()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        dec = []
+        for i in range(8):
+            r = sess.offer(jobs[i * 50:(i + 1) * 50])
+            dec += [_key(a) for a in r.allocations()]
+        launches = K.LAUNCHES["availscan_select"]
+        m = sess.metrics()
+        if not launches:
+            fail(f"placement session [{pl}]: no availscan_select launch")
+        runs[pl] = (dec, sess.records(), m["accepted"], m["partition_load"])
+        rows["availscan_select"].setdefault("launches_placement", {})[
+            f"partition_session[{pl}]"] = launches
+        print(f"placement partition session [{pl}]: accepted "
+              f"{m['accepted']}/{m['offered']}, availscan_select launches "
+              f"{launches}, dispatches {m['dispatches']}")
+    if runs["auto"] != runs[None]:
+        fail("placement: the auto partition session decides unlike None")
+    print(f"placement: auto ({shards} shard(s) on "
+          f"{torch.cuda.device_count()} card(s)) == None on the grid and "
+          f"the partition session")
+
+
+PC_LANES = 4               # placement_cards: lanes of every session
+PC_JOBS = 400              # placement_cards: paper jobs
+
+
+def _cards(states) -> list:
+    return sorted({str(s.tl.times.device) for s in states})
+
+
+def _pc_grid(dev, placement):
+    from repro_torch.core.types import Policy
+    from repro_torch.sim import GridSpec, WorkloadParams, simulate_grid
+    spec = GridSpec(policies=(Policy.PE_W, Policy.FF), arrival_factors=(1.0,),
+                    seeds=(0,), flex_factors=(3.0,),
+                    backfill_modes=("none", "easy"), base=WorkloadParams(),
+                    n_pe=1024, n_jobs=200, park_capacity=8)
+    res = simulate_grid(spec, placement=placement, record_decisions=True,
+                        cross_check=placement is None, device=dev)
+    return (res.decisions, res.n_accepted.tolist(),
+            res.metrics["placement_shards"])
+
+
+def _pc_ensemble(dev, placement, jobs):
+    from repro_torch.api import ReservationService, ServiceConfig
+    from repro_torch.core.batch import mask32_to_ids
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, lanes=PC_LANES, capacity=16, pending_capacity=16,
+        chunk_size=64, ring_capacity=256, backfill="easy", placement=placement,
+        device=dev)).session()
+    streams = [jobs[e::PC_LANES] for e in range(PC_LANES)]
+    half = len(streams[0]) // 2
+    r = sess.offer([s[:half] for s in streams])
+    out = {"first": np.asarray(r.decision.t_s.cpu()).tolist()}
+    cards = _cards(sess.engine.states)
+    # cancel lane 3's last accepted reservation
+    acc = np.asarray(r.decision.accepted.cpu())[3]
+    j = int(np.flatnonzero(acc)[-1])
+    t_s = int(r.decision.t_s[3, j])
+    out["cancel"] = sess.cancel(
+        t_s=t_s, t_e=t_s + streams[3][j].t_du,
+        pe_ids=mask32_to_ids(np.asarray(r.decision.pe_mask[3, j].cpu())),
+        lane=3)
+    if not out["cancel"]:
+        fail(f"placement_cards: ensemble [{placement}]: the cancel found "
+             f"nothing")
+    sess.tick(int(streams[0][half].t_a))
+    snap = sess.snapshot()
+    r = sess.offer([s[half:] for s in streams])
+    out["second"] = np.asarray(r.decision.t_s.cpu()).tolist()
+    sess.restore(snap)
+    r = sess.offer([s[half:] for s in streams])
+    if np.asarray(r.decision.t_s.cpu()).tolist() != out["second"]:
+        fail(f"placement_cards: ensemble [{placement}]: the restored "
+             f"re-offer differs")
+    m = sess.metrics()
+    out["metrics"] = {k: m[k] for k in ("offered", "accepted", "growths",
+                                        "capacity", "n_parked", "n_moved",
+                                        "cancelled", "released")}
+    out["records"] = [sess.records(e) for e in range(PC_LANES)]
+    return out, m["placement_shards"], cards
+
+
+def _pc_partitions(dev, placement, jobs, routing):
+    from repro_torch.api import ReservationService, ServiceConfig
+    sess = ReservationService(ServiceConfig(
+        n_pe=1024, n_partitions=PC_LANES, routing=routing, chunk_size=None,
+        placement=placement, device=dev)).session()
+    keys = []
+    for i in range(0, PC_JOBS, 50):
+        keys += [_key(a) for a in sess.offer(jobs[i:i + 50]).allocations()]
+    m = sess.metrics()
+    return ((keys, sess.records(), m["accepted"], m["partition_load"]),
+            _cards(sess.engine.states))
+
+
+def placement_cards(dev) -> dict:
+    """``--placement-cards``: every session of this phase under
+    ``placement="auto"`` (lane ``i`` on card ``i // (E / d)``) against
+    ``placement=None`` (every lane on ``dev``) over every local card: a
+    4-lane ``simulate_grid`` (PE_W, FF x none / EASY, 200 jobs); a
+    pipelined 4-lane EASY ensemble session (chunks of 64, capacity 16, a
+    cancel on lane 3, ``tick``, snapshot / restore / re-offer); 4-lane
+    partitioned sessions under least-loaded and best-acceptance routing
+    (the ``[N, E]`` probe and the fused matcher read every lane).  Fails
+    unless every decision, record and counter is equal and the lanes
+    live on as many cards as the lane mesh has."""
+    import torch
+    from repro_torch.launch.mesh import local_device_count
+    from repro_torch.sim import WorkloadParams, generate
+
+    n_cards = local_device_count(dev)
+    want = max(k for k in range(1, n_cards + 1) if PC_LANES % k == 0)
+    print(f"placement_cards: {n_cards} card(s): "
+          f"{[torch.cuda.get_device_name(i) for i in range(n_cards)]}")
+    jobs = generate(WorkloadParams(n_jobs=PC_JOBS, seed=0))
+    report = {"cards": n_cards, "lane_shards": want}
+    t0 = time.perf_counter()
+    g = {pl: _pc_grid(dev, pl) for pl in (None, "auto")}
+    if g["auto"][:2] != g[None][:2] or g["auto"][2] != want:
+        fail(f"placement_cards: grid auto {g['auto'][1:]} against None "
+             f"{g[None][1:]}")
+    report["grid_s"] = time.perf_counter() - t0
+    print(f"placement_cards: grid auto ({want} shards) == None, accepted "
+          f"{g[None][1]}")
+    t0 = time.perf_counter()
+    e = {pl: _pc_ensemble(dev, pl, jobs) for pl in (None, "auto")}
+    if e["auto"][0] != e[None][0] or e["auto"][1] != want or \
+            len(e["auto"][2]) != want:
+        fail(f"placement_cards: ensemble auto on {e['auto'][2]} "
+             f"({e['auto'][1]} shards) differs from None")
+    report["ensemble_s"] = time.perf_counter() - t0
+    print(f"placement_cards: ensemble session lanes on {e['auto'][2]}, == "
+          f"None; {e[None][0]['metrics']}")
+    for routing in ("least_loaded", "best_acceptance"):
+        t0 = time.perf_counter()
+        p = {pl: _pc_partitions(dev, pl, jobs, routing)
+             for pl in (None, "auto")}
+        if p["auto"][0] != p[None][0] or len(p["auto"][1]) != want:
+            fail(f"placement_cards: partitions [{routing}] auto on "
+                 f"{p['auto'][1]} differs from None")
+        report[f"{routing}_s"] = time.perf_counter() - t0
+        print(f"placement_cards: partition session [{routing}] lanes on "
+              f"{p['auto'][1]}, == None; accepted {p[None][0][2]}")
+    return report
+
+
+SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+SERVE_TOL = 0.12          # bf16 decode vs forward (the reference's)
+SERVE_TOL_INT8 = 0.25     # int8 KV decode vs forward (the reference's)
+SERVE_F32_TOL = 1e-4      # the card vs the CPU, float32, TF32 off
+SERVE_PROFILE_STEPS = 8
+
+
+def _generate(params, cfg, prompt, gen: int):
+    """Greedy prefill + decode on the card: ``(tokens [B, gen], logits
+    [B, gen, V] float32, prefill ms, decode ms per step)`` with a
+    synchronise around each timed region."""
+    import torch
+    from repro_torch.serve import engine
+
+    prefill = engine.make_prefill_step(cfg, max_len=prompt.shape[1] + gen)
+    decode = engine.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    tok = engine.greedy_token(logits)
+    toks, logs = [tok], [logits]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = decode(params, cache, tok)
+        tok = engine.greedy_token(logits)
+        toks.append(tok)
+        logs.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return (torch.cat(toks, 1), torch.stack(logs, 1), t_prefill * 1e3,
+            t_decode / (gen - 1) * 1e3)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Every MoE layer's expert ids, in call order, while it is open."""
+    from repro_torch.models import moe as moe_lib
+    real, log = moe_lib.route, []
+
+    def route(p, xf, cfg):
+        r = real(p, xf, cfg)
+        log.append(r.expert_ids.sort(dim=-1).values)
+        return r
+    moe_lib.route = route
+    try:
+        yield log
+    finally:
+        moe_lib.route = real
+
+
+def _same_routing(gen_log, fwd_log, n_layers: int, b: int, t: int,
+                  gen: int):
+    """bool ``[B, gen]``: whether generated position ``(b, i)`` took the
+    same experts in every layer in the decode (the prefill's last
+    position for ``i = 0``) as in the full forward."""
+    import torch
+    fwd = torch.stack([x.reshape(b, t + gen - 1, -1) for x in fwd_log])
+    same = torch.ones((b, gen), dtype=torch.bool, device=fwd.device)
+    pre = torch.stack([x.reshape(b, t, -1)[:, -1] for x in gen_log[:n_layers]])
+    same[:, 0] = (pre == fwd[:, :, t - 1]).all(-1).all(0)
+    for i in range(1, gen):
+        step = torch.stack(gen_log[i * n_layers:(i + 1) * n_layers])
+        same[:, i] = (step == fwd[:, :, t - 1 + i]).all(-1).all(0)
+    return same
+
+
+def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
+                 gen_log=None) -> str:
+    """Each generated position's decode logits against one full forward
+    over prompt + generated tokens: values within ``tol``, and the
+    decode's token the forward's top-1 wherever the forward's top-two
+    margin exceeds ``tol`` (closer pairs are near-ties, counted).  For
+    MoE (``gen_log``: the decode's routing) the positions whose tokens
+    took other experts in some layer than in the forward are counted and
+    left out: the dispatch is discrete, and a rounding difference
+    between the two paths moves a token across an expert boundary."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    b, t = prompt.shape
+    gen = tokens.shape[1]
+    with torch.inference_mode(), recorded_routing() as fwd_log:
+        seq = torch.cat([prompt, tokens[:, :-1].long()], 1)
+        hid = tf.forward(params, cfg, seq).hidden[:, t - 1:]
+        ref = (hid @ params.head).float()
+    held = torch.ones((b, gen), dtype=torch.bool, device=ref.device)
+    if gen_log is not None:
+        held = _same_routing(gen_log, fwd_log, cfg.n_layers, b, t, gen)
+        if not bool(held.any()):
+            fail(f"{label}: no generated position routes as the forward")
+    err = (logits - ref).abs()
+    bad = (err > tol + tol * ref.abs()) & held[..., None]
+    if bool(bad.any()):
+        fail(f"{label}: {int(bad.sum())} decode logits off the forward's by "
+             f"more than {tol} (max {float(err[held].max()):.4f})")
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > tol) & held
+    agree = ref.argmax(-1) == tokens.long()
+    if bool((clear & ~agree).any()):
+        fail(f"{label}: top-1 differs from the forward at "
+             f"{int((clear & ~agree).sum())} positions with margin > {tol}")
+    return (f"max |decode - forward| {float(err[held].max()):.4f} over "
+            f"{int(held.sum())}/{held.numel()} positions"
+            + ("" if gen_log is None else
+               f" (the other {int((~held).sum())} routed differently)")
+            + f", top-1 equal at {int(agree.sum())}/{agree.numel()} "
+            f"({int((held & ~clear).sum())} held within the {tol} margin)")
+
+
+def _decode_bound(cfg, params, ctx: int) -> tuple:
+    """(bytes, ms): the least a decode step reads, every weight but the
+    embedding table once (the port's MoE reads every expert) plus the KV
+    cache at ``ctx`` positions, over the HBM rate."""
+    emb = params.tok_embed.numel() * params.tok_embed.element_size()
+    w = sum(p.numel() * p.element_size() for p in params.parameters()) - emb
+    if params.lm_head is None:
+        w += emb                       # a tied head reads the table
+    kv_b = 1 + 2 / cfg.hd if cfg.kv_cache_dtype == "int8" else 2
+    kv = 2 * cfg.n_layers * SERVE_BATCH * ctx * cfg.n_kv_heads * cfg.hd * kv_b
+    n = w + kv
+    return n, n / HBM_BYTES_PER_S * 1e3
+
+
+def _decode_profile(params, cfg, prompt) -> tuple:
+    """(kernels per decode step, device ms per step) over
+    ``SERVE_PROFILE_STEPS`` steps in a counted :func:`profiled_window`."""
+    import torch
+    from repro_torch.serve import engine
+
+    prefill = engine.make_prefill_step(cfg, max_len=prompt.shape[1]
+                                       + SERVE_PROFILE_STEPS + 2)
+    decode = engine.make_decode_step(cfg)
+    logits, cache = prefill(params, prompt)
+    state = {"cache": cache, "tok": engine.greedy_token(logits)}
+
+    def step():
+        lg, state["cache"] = decode(params, state["cache"], state["tok"])
+        state["tok"] = engine.greedy_token(lg)
+    ms, per_step, _ = device_profile(step, SERVE_PROFILE_STEPS)
+    return per_step, ms
+
+
+def serve_f32_cpu(dev) -> None:
+    """The reduced float32 configs on the card against the same port on
+    the CPU, the same weights: prefill and decode logits within
+    ``SERVE_F32_TOL``, greedy tokens equal (TF32 off)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        cpu = tf.init_params(cfg, seed=0, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+        out = {}
+        for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            pre = engine.make_prefill_step(cfg, max_len=24)
+            dec = engine.make_decode_step(cfg)
+            logits, cache = pre(p, prompt.to(d))
+            logs, toks = [logits.cpu()], [engine.greedy_token(logits).cpu()]
+            for _ in range(6):
+                logits, cache = dec(p, cache, toks[-1].to(d))
+                logs.append(logits.cpu())
+                toks.append(engine.greedy_token(logits).cpu())
+            out[name] = (torch.stack(logs), torch.cat(toks, 1))
+        err = float((out["cpu"][0] - out["card"][0]).abs().max())
+        if err > SERVE_F32_TOL or not torch.equal(out["cpu"][1],
+                                                  out["card"][1]):
+            fail(f"serve_f32[{arch}]: the card is {err} from the CPU, tokens "
+                 f"{out['card'][1].tolist()} vs {out['cpu'][1].tolist()}")
+        print(f"serve_f32[{cfg.name}]: the card equals the CPU within "
+              f"{SERVE_F32_TOL} (max {err:.2e}) over prefill + 6 decode "
+              f"steps, greedy tokens equal")
+
+
+def serve_phase(dev, seed: int) -> dict:
+    """qwen3-4b and granite-moe-1b-a400m at full width, bfloat16, random
+    weights from ``seed``: greedy generation of ``SERVE_GEN`` tokens for
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` through
+    ``serve.engine`` (bf16 and int8 KV), timed after a warm-up, decode
+    held against one full forward (MoE at ``capacity_factor=100`` for
+    the check), the decode step profiled, and its bound."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import analysis as roof
+
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        g = torch.Generator(device=dev).manual_seed(seed)
+        prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                               generator=g, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"serve[{arch}]: {n_params / 1e9:.3f} G parameters "
+              f"({cfg.dtype}) initialised in {t_init:.1f} s")
+        ctx = SERVE_PROMPT + SERVE_GEN // 2
+        for kv in ("bfloat16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            _generate(params, c, prompt, SERVE_GEN)            # warm-up
+            toks, logits, pre_ms, step_ms = _generate(params, c, prompt,
+                                                      SERVE_GEN)
+            if toks.shape != (SERVE_BATCH, SERVE_GEN) or \
+                    not bool(torch.isfinite(logits).all()) or \
+                    not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+                fail(f"serve[{arch}, {kv}]: bad output {toks.shape}")
+            check = c if cfg.family != "moe" else dataclasses.replace(
+                c, capacity_factor=100.0)
+            gen_log = None
+            if check is not c:
+                with recorded_routing() as gen_log:
+                    toks, logits, _, _ = _generate(params, check, prompt,
+                                                   SERVE_GEN)
+            held = _hold_decode(f"serve[{arch}, {kv}]", params, check,
+                                prompt, toks, logits,
+                                SERVE_TOL if kv == "bfloat16"
+                                else SERVE_TOL_INT8, gen_log)
+            kernels, dev_ms = _decode_profile(params, c, prompt)
+            n_bytes, bound_ms = _decode_bound(c, params, ctx)
+            costs = roof.step_costs(c, ShapeConfig(
+                "serve_decode", ctx, SERVE_BATCH, "decode"),
+                {"data": 1, "model": 1}).terms(1)
+            row = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+                       tokens_per_s=SERVE_BATCH / step_ms * 1e3,
+                       device_ms_per_step=dev_ms,
+                       idle_share=None if dev_ms is None
+                       else 1 - dev_ms / step_ms,
+                       kernels_per_step=kernels, bound_ms=bound_ms,
+                       bound_bytes=n_bytes,
+                       roofline_memory_ms=costs["memory_s"] * 1e3,
+                       roofline_compute_ms=costs["compute_s"] * 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            out[f"{arch}/{kv}"] = row
+            idle = "not measured" if dev_ms is None \
+                else f"{row['idle_share']:.4f}"
+            print(f"serve[{arch}, {kv}]: prefill ({SERVE_BATCH} x "
+                  f"{SERVE_PROMPT} tok) {pre_ms:.2f} ms; decode "
+                  f"{step_ms:.3f} ms/step = {row['tokens_per_s']:.1f} tok/s "
+                  f"(bound {bound_ms:.3f} ms: {n_bytes / 1e9:.3f} GB at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; roofline.step_costs "
+                  f"memory {row['roofline_memory_ms']:.3f} ms, compute "
+                  f"{row['roofline_compute_ms']:.4f} ms); on the card "
+                  f"{_us(dev_ms)} a step in {kernels:.1f} kernels, idle "
+                  f"share {idle}; "
+                  f"peak memory {row['peak_mem_gb']:.2f} GB; {held}; "
+                  f"tokens[0,:8] {toks[0, :8].tolist()}")
+        del params
+        torch.cuda.empty_cache()
+    print(f"serve: {json.dumps(out)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3361,6 +3842,9 @@ def main(argv=None) -> int:
                     help="jobs for the per-operation event loops")
     ap.add_argument("--n-session", type=int, default=2_000,
                     help="jobs for the multi-resource session")
+    ap.add_argument("--placement-cards", action="store_true",
+                    help="only build the kernels and hold lane placement "
+                    "over every local card against one card")
     args = ap.parse_args(argv)
 
     import torch
@@ -3389,6 +3873,14 @@ def main(argv=None) -> int:
         for line in rep["lines"]:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {tag}: {line}")
+
+    if args.placement_cards:
+        print(json.dumps(placement_cards(dev)))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -3462,6 +3954,15 @@ def main(argv=None) -> int:
     partition_sessions(jobs, dev, rows)
     fleet_jobs(dev, rows)
     print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    placement_phase(jobs, dev, rows)
+    print(f"placement phase took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    serve_f32_cpu(dev)
+    serve_phase(dev, args.seed)
+    print(f"serve phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pipelined_paths(jobs_mr, dev, rows)

@@ -1,15 +1,15 @@
 """`ServiceConfig`: one declarative knob set for the reservation service.
 
 The port's copy of ``repro/api/config.py``.  It keeps every field the
-reference has except ``placement`` (device meshes) and ``bucketing``
-(the port always searches the smallest power-of-two prefix of the
-timeline that holds its records), validates each one as the reference
-does, and adds ``device``.  ``donate`` keeps its name and default but
-not its mechanism: PyTorch has no buffer donation, so the field only
-selects the reference's pipelined offer (see ``ServiceConfig``).  A
-session runs one device timeline, an ensemble of lanes
-(``lanes > 1``), partitions of one machine (``n_partitions > 1``), or
-one of the host engines.
+reference has, ``placement`` included, except ``bucketing`` (the port
+always searches the smallest power-of-two prefix of the timeline that
+holds its records), validates each one as the reference does, and adds
+``device``.  ``donate`` keeps its name and default but not its
+mechanism: PyTorch has no buffer donation, so the field only selects
+the reference's pipelined offer (see ``ServiceConfig``).  A session
+runs one device timeline, an ensemble of lanes (``lanes > 1``),
+partitions of one machine (``n_partitions > 1``), or one of the host
+engines.
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ ENGINE_NAMES = ("list", "host", "device")
 
 #: Partition routing strategies of the reference.
 ROUTINGS = ("round_robin", "least_loaded", "best_acceptance")
+
+#: Named lane placements; an int caps the shard count.
+PLACEMENTS = ("auto", "single", "host")
 
 #: Backfilling admission modes.
 BACKFILLS = tuple(m.value for m in BackfillMode)
@@ -99,9 +102,21 @@ class ServiceConfig:
         ``auto_release=False`` and a ``grace`` window ``tick`` reaps
         overdue reservations.  On ensemble sessions a tuple gives one
         spec per lane (``None`` leaves that lane single-tenant).
+    ``placement``
+        The cards ensemble lanes and partitions are placed on:
+        ``"auto"`` (default) spreads the lanes over every local card
+        (:func:`repro_torch.launch.mesh.make_lane_mesh`: the largest
+        divisor of the lane count that fits), lane ``i`` on card
+        ``i // (E / d)``; on one card this resolves to the one-device
+        host mesh.  ``"host"`` pins that mesh, an int caps the shard
+        count, ``"single"`` / ``None`` keep every lane on ``device``.
+        Decisions are the same on every placement;
+        ``metrics()["placement_shards"]`` of an ensemble session says
+        how many cards hold its lanes.
     ``device``
-        Where the session's state lives; ``None`` means cuda (raising
-        without a card).
+        Where the session's state lives (with a placement over several
+        cards, lane 0's card and where cross-lane results gather);
+        ``None`` means cuda (raising without a card).
     """
 
     n_pe: int
@@ -126,6 +141,7 @@ class ServiceConfig:
     index_tile: Optional[int] = None
     donate: bool = True
     engine_kwargs: Optional[Mapping[str, Any]] = None
+    placement: Union[None, str, int] = "auto"
     device: DeviceLike = None
 
     def __post_init__(self):
@@ -177,6 +193,7 @@ class ServiceConfig:
         if self.capacity < 2 or self.pending_capacity < 1:
             raise ValueError("capacity >= 2 and pending_capacity >= 1")
         self._check_backfill()
+        self._check_placement()
         self._check_tenants()
         self._check_resources()
         if self.index_tile is not None:
@@ -231,6 +248,22 @@ class ServiceConfig:
             if self.backfill_queue < 1:
                 raise ValueError(
                     "backfill_queue must be >= 1 when backfilling")
+
+    def _check_placement(self) -> None:
+        pl = self.placement
+        if isinstance(pl, bool) or not (
+                pl is None or isinstance(pl, (str, int))):
+            raise ValueError(
+                f"placement must be one of {PLACEMENTS}, a positive "
+                f"int shard cap, or None; got {pl!r}")
+        if isinstance(pl, str) and pl not in PLACEMENTS:
+            raise ValueError(
+                f"unknown placement {pl!r}; pick one of {PLACEMENTS} "
+                f"(or an int shard cap / None)")
+        if isinstance(pl, int) and pl < 1:
+            raise ValueError(
+                f"an int placement caps the shard count and must be "
+                f">= 1, got {pl}")
 
     def _check_tenants(self) -> None:
         """The reference's tenant validation, at construction."""

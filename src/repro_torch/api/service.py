@@ -74,6 +74,8 @@ from repro_torch.core.batch import Decision, RequestBatch, RequestRing
 from repro_torch.core.scheduler import DeviceEngine, _make_engine
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import data_shards, resolve_placement
+from repro_torch.sharding import rules as shard_rules
 from repro_torch.tenancy import lane_tables, telemetry
 
 
@@ -689,20 +691,21 @@ class _RingBackend(_BackendBase):
         lanes, and every lane's tenant telemetry (``[E, T]`` on an
         ensemble)."""
         lanes = self._lanes()
-        n_pending = sum((s.pend_te != T_INF).sum() for s in lanes)
+        dev = ens_lib.home(lanes)
+        n_pending = sum((s.pend_te != T_INF).sum().to(dev) for s in lanes)
         tables = [s.tenants for s in lanes if s.tenants is not None]
         if not self.cfg.backfilling and not tables:
             self._dev_metrics = dict(n_pending=int(n_pending))
             return
         vals = dict(n_pending=n_pending)
         if self.cfg.backfilling:
-            vals["n_parked_now"] = sum((s.park_seq != T_INF).sum()
+            vals["n_parked_now"] = sum((s.park_seq != T_INF).sum().to(dev)
                                        for s in lanes)
             for f in ("n_parked", "n_promoted", "n_moved"):
-                vals[f] = sum(getattr(s, f) for s in lanes)
+                vals[f] = sum(getattr(s, f).to(dev) for s in lanes)
         flat = torch.cat(
             [torch.stack([v.to(torch.int32) for v in vals.values()])]
-            + [telemetry.pack(t) for t in tables])
+            + [telemetry.pack(t).to(dev) for t in tables])
         host = flat.cpu().numpy()
         self._dev_metrics = dict(zip(vals, (int(v) for v in host)))
         if tables:
@@ -1072,11 +1075,15 @@ class _EnsembleBackend(_RingBackend):
         tables = None if self._lane_specs is None else lane_tables(
             self._lane_specs, cfg.pending_capacity, cfg.park_capacity,
             self.device)
-        self.states = ens_lib.init_ensemble(
-            cfg.lanes, cfg.capacity, cfg.n_pe, cfg.pending_capacity,
-            cfg.park_capacity, tenants=tables, rspec=cfg.rspec,
-            machine_units=cfg.machine_units, index_tile=cfg.index_tile,
-            device=self.device)
+        # lane i lives on card i // (E / d) of the placement's mesh;
+        # decisions are the same on every placement
+        self.mesh = resolve_placement(cfg.placement, cfg.lanes, self.device)
+        self.states = shard_rules.shard_ensemble(
+            self.mesh, ens_lib.init_ensemble(
+                cfg.lanes, cfg.capacity, cfg.n_pe, cfg.pending_capacity,
+                cfg.park_capacity, tenants=tables, rspec=cfg.rspec,
+                machine_units=cfg.machine_units, index_tile=cfg.index_tile,
+                device=self.device))
         self._bf_ids = ens_lib.backfill_ids(cfg.backfill, cfg.lanes)
 
     @property
@@ -1099,6 +1106,12 @@ class _EnsembleBackend(_RingBackend):
 
     def _capacities(self) -> Tuple[int, int]:
         return ens_lib.lane_capacity(self.states)
+
+    def metrics(self) -> Dict[str, Any]:
+        out = super().metrics()
+        out["placement_shards"] = 1 if self.mesh is None \
+            else data_shards(self.mesh)
+        return out
 
     def _lane(self, lane: int) -> int:
         if not 0 <= lane < self.cfg.lanes:
@@ -1149,7 +1162,8 @@ class _EnsembleBackend(_RingBackend):
             auto_release=self.cfg.auto_release,
             use_kernel=self.cfg.use_kernel, stats=self.stats)
         self.states = states
-        return dec, torch.stack([s.overflow for s in states]).any()
+        return dec, ens_lib.gather([s.overflow for s in states],
+                                   ens_lib.home(states)).any()
 
     def _grow_rollback(self) -> None:
         self.states = ens_lib.grow_rollback_ensemble(self.states, self.stats)
@@ -1241,7 +1255,8 @@ class _EnsembleBackend(_RingBackend):
         return self._result(ctx["decs"], ctx["batches"], ctx["valids"])
 
     def _n_released(self) -> int:
-        return int(torch.stack([s.n_released for s in self.states]).sum())
+        return int(ens_lib.gather([s.n_released for s in self.states],
+                                  ens_lib.home(self.states)).sum())
 
     def tick(self, t: int) -> int:
         if not self.cfg.auto_release:
@@ -1279,7 +1294,7 @@ class _EnsembleBackend(_RingBackend):
         one = self.states[self._lane(lane)]
         limit = None if self.cfg.rspec is not None else self.cfg.n_pe
         mask = tl_lib.ids_to_mask32(sorted(pe_ids), one.tl.words,
-                                    n_pe=limit, device=self.device)
+                                    n_pe=limit, device=one.tl.device)
         state, done = batch_lib.cancel_one(
             one, t_s, t_e, mask, require_pending=self.cfg.auto_release,
             max_growths=self.growth_budget)
@@ -1331,7 +1346,8 @@ class _PartitionBackend(_BackendBase):
         self.engine = PartitionedCore(
             cfg.n_pe, cfg.n_partitions, capacity=cfg.capacity,
             pending_capacity=cfg.pending_capacity,
-            use_kernel=cfg.use_kernel, device=cfg.device,
+            use_kernel=cfg.use_kernel, placement=cfg.placement,
+            device=cfg.device,
             park_capacity=cfg.park_capacity, backfill=cfg.backfill,
             auto_release=cfg.auto_release, index_tile=cfg.index_tile)
         self._accounts = None
@@ -1469,7 +1485,7 @@ class _PartitionBackend(_BackendBase):
         part, local = eng._split(pe_ids)
         state = eng.states[part]
         mask = tl_lib.ids_to_mask32(local, state.tl.words,
-                                    device=eng.device)
+                                    device=state.tl.device)
         state, done = batch_lib.cancel_one(state, t_s, t_e, mask,
                                            require_pending=True,
                                            max_growths=0)

@@ -26,6 +26,13 @@ lanes) and matches a stream to its earliest lanes
 (:func:`match_stream_ensemble`).  A probe is E searches (N x E for the
 batch) in turn; on indexed lanes every early-reject predicate of the
 probe crosses to the host in one read.
+
+Lanes may live on different cards (``ServiceConfig.placement``,
+:func:`repro_torch.sharding.rules.shard_ensemble`): each lane's step
+runs on its card with its row of the batch moved there, and every
+cross-lane read (decisions, latches, high-water marks, the probe)
+gathers the lanes' values on lane 0's card (:func:`gather`).  On one
+card these moves copy nothing.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from repro_torch.core.search import SearchResult
 from repro_torch.core.policies import policy_index
 from repro_torch.core.timeline import SchedulerState
 from repro_torch.core.types import T_INF, backfill_index
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, to_device
 
 Ensemble = Tuple[SchedulerState, ...]
 
@@ -145,8 +152,19 @@ def lane_of(batch, e: int):
     return type(batch)(*(None if x is None else x[e] for x in batch))
 
 
-def _stack_decisions(decs: Sequence[Decision]) -> Decision:
-    return Decision(*(torch.stack(f) for f in zip(*decs)))
+def home(states: Ensemble) -> torch.device:
+    """The device cross-lane results are gathered on: lane 0's."""
+    return states[0].tl.device
+
+
+def gather(xs: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Per-lane tensors stacked on ``device`` (lanes placed on other
+    cards are copied there first)."""
+    return torch.stack([x.to(device) for x in xs])
+
+
+def _stack_decisions(decs: Sequence[Decision], device) -> Decision:
+    return Decision(*(gather(f, device) for f in zip(*decs)))
 
 
 def _lane_args(states, pids, bids):
@@ -172,11 +190,12 @@ def admit_ensemble(states: Ensemble, reqs: RequestBatch, pids, bids=None,
     out, decs = [], []
     for e, s in enumerate(states):
         s, dec = batch_lib.admit(
-            s, lane_of(reqs, e), pids[e], bids[e], n_pe=n_pe,
-            auto_release=auto_release, use_kernel=use_kernel, stats=stats)
+            s, to_device(lane_of(reqs, e), s.tl.device), pids[e], bids[e],
+            n_pe=n_pe, auto_release=auto_release, use_kernel=use_kernel,
+            stats=stats)
         out.append(s)
         decs.append(dec)
-    return tuple(out), _stack_decisions(decs)
+    return tuple(out), _stack_decisions(decs, home(states))
 
 
 def admit_stream_ensemble(states: Ensemble, batches: RequestBatch, pids,
@@ -194,11 +213,12 @@ def admit_stream_ensemble(states: Ensemble, batches: RequestBatch, pids,
     out, decs = [], []
     for e, s in enumerate(states):
         s, dec = batch_lib.admit_stream(
-            s, lane_of(batches, e), pids[e], bids[e], n_pe=n_pe,
-            auto_release=auto_release, use_kernel=use_kernel, stats=stats)
+            s, to_device(lane_of(batches, e), s.tl.device), pids[e],
+            bids[e], n_pe=n_pe, auto_release=auto_release,
+            use_kernel=use_kernel, stats=stats)
         out.append(s)
         decs.append(dec)
-    return tuple(out), _stack_decisions(decs)
+    return tuple(out), _stack_decisions(decs, home(states))
 
 
 def admit_stream_ensemble_donated(
@@ -218,9 +238,9 @@ def admit_stream_ensemble_donated(
         states, batches, pids, bids, n_pe=n_pe, auto_release=auto_release,
         use_kernel=use_kernel, stats=stats)
     ovfs = [s.overflow | o.overflow for s, o in zip(states, outs)]
-    anyo = torch.stack(ovfs).any()
+    anyo = gather(ovfs, home(states)).any()
     return tuple(
-        batch_lib._where_state(anyo, s, o)._replace(
+        batch_lib._where_state(anyo.to(s.tl.device), s, o)._replace(
             overflow=v, hw_records=torch.maximum(s.hw_records, o.hw_records),
             hw_pending=torch.maximum(s.hw_pending, o.hw_pending))
         for s, o, v in zip(states, outs, ovfs)), dec
@@ -229,7 +249,7 @@ def admit_stream_ensemble_donated(
 def _any_overflow(states: Ensemble, stats: Optional[StreamStats] = None
                  ) -> bool:
     """One host read: is any lane's overflow latch set?"""
-    flag = bool(torch.stack([s.overflow for s in states]).any())
+    flag = bool(gather([s.overflow for s in states], home(states)).any())
     if stats is not None:
         stats.sync()
     return flag
@@ -249,8 +269,8 @@ def _grown(start: Ensemble, run: Ensemble,
 
     The marks of every lane cross in one read.
     """
-    hw = torch.stack([s.hw_records for s in run]
-                     + [s.hw_pending for s in run]).cpu().numpy()
+    hw = gather([s.hw_records for s in run] + [s.hw_pending for s in run],
+                home(run)).cpu().numpy()
     E = len(run)
     if stats is not None:
         stats.sync()
@@ -426,11 +446,12 @@ def _probe(states: Ensemble, rows: np.ndarray, demands: list, pid: int, *,
     """
     rejects = None
     if states[0].tl.ispec is not None and len(rows):
-        flags = torch.stack([
+        flags = gather([
             search_lib.index_reject(
                 s.tl, int(r[1]), int(r[2]), int(r[3]), int(r[4]),
-                rspec=s.rspec, demand_tail=d, valid_mask=s.lane_valid)
-            for r, d in zip(rows, demands) for s in states])
+                rspec=s.rspec, demand_tail=to_device(d, s.tl.device),
+                valid_mask=s.lane_valid)
+            for r, d in zip(rows, demands) for s in states], home(states))
         rejects = flags.cpu().numpy().reshape(len(rows), len(states))
         if stats is not None:
             stats.sync()
@@ -442,7 +463,8 @@ def _probe(states: Ensemble, rows: np.ndarray, demands: list, pid: int, *,
             rej = None if rejects is None else bool(rejects[i, e])
             lane_res.append(search_lib.search(
                 s.tl, t_r, t_du, t_dl, n_req, pid, t_a, n_pe=n_pe,
-                use_kernel=use_kernel, rspec=s.rspec, demand_tail=d,
+                use_kernel=use_kernel, rspec=s.rspec,
+                demand_tail=to_device(d, s.tl.device),
                 valid_mask=s.lane_valid, reject=rej))
             if stats is not None:
                 if rej:
@@ -453,9 +475,9 @@ def _probe(states: Ensemble, rows: np.ndarray, demands: list, pid: int, *,
     return out
 
 
-def _stack_results(results: Sequence[SearchResult], lead: Tuple[int, ...]
-                   ) -> SearchResult:
-    return SearchResult(*(torch.stack(f).reshape(lead + tuple(f[0].shape))
+def _stack_results(results: Sequence[SearchResult], lead: Tuple[int, ...],
+                   device: torch.device) -> SearchResult:
+    return SearchResult(*(gather(f, device).reshape(lead + tuple(f[0].shape))
                           for f in zip(*results)))
 
 
@@ -474,7 +496,7 @@ def find_allocation_ensemble(states: Ensemble, req, pid, *, n_pe: int,
     res = _probe(states, row[None, :], _demands(states, req, None),
                  batch_lib._policy_id(pid), n_pe=n_pe, use_kernel=use_kernel,
                  stats=stats)
-    return _stack_results(res[0], (len(states),))
+    return _stack_results(res[0], (len(states),), home(states))
 
 
 def find_allocations_ensemble(states: Ensemble, reqs: RequestBatch, pid, *,
@@ -503,7 +525,8 @@ def find_allocations_ensemble(states: Ensemble, reqs: RequestBatch, pid, *,
     res = _probe(states, rows, _demands(states, reqs, n),
                  batch_lib._policy_id(pid), n_pe=n_pe, use_kernel=use_kernel,
                  stats=stats)
-    return _stack_results([r for lane_res in res for r in lane_res], (n, E))
+    return _stack_results([r for lane_res in res for r in lane_res], (n, E),
+                          home(states))
 
 
 def match_stream_ensemble(states: Ensemble, reqs: RequestBatch, pid,
@@ -555,9 +578,9 @@ def match_stream_ensemble(states: Ensemble, reqs: RequestBatch, pid,
             n_pe=n_pe, use_kernel=use_kernel, stats=stats)[0])) if live \
             else {}
         no = torch.zeros((), dtype=tl_lib.I32, device=dev)
-        look = torch.stack([torch.stack(
+        look = torch.stack([gather(
             ([probe[e].found.to(tl_lib.I32), probe[e].t_s] if e in probe
-             else [no, no]) + [states[e].overflow.to(tl_lib.I32)])
+             else [no, no]) + [states[e].overflow.to(tl_lib.I32)], dev)
             for e in range(E)]).cpu().numpy()
         if stats is not None:
             stats.sync()
@@ -575,11 +598,12 @@ def match_stream_ensemble(states: Ensemble, reqs: RequestBatch, pid,
             req = (t_a, t_r, t_du, t_dl, n_req) if real else filler
             new[e], dec = batch_lib._admit_impl(
                 s, req, pid, bids[e], n_pe=n_pe, auto_release=auto_release,
-                use_kernel=use_kernel, stats=stats, demand=demands[i])
+                use_kernel=use_kernel, stats=stats,
+                demand=to_device(demands[i], s.tl.device))
             if stats is not None:
                 stats.steps += 1
             if e == lane:
-                mine = dec
+                mine = to_device(dec, dev)
         states = tuple(new)
         out_lanes.append(torch.where(mine.accepted, lane, -1).to(tl_lib.I32)
                          if feasible else

@@ -20,3 +20,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             f"device {str(dev)!r} requested but no CUDA device is "
             f"available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_device(tree, device: torch.device):
+    """A tree of tensors (named tuples and tuples; ``None`` and other
+    leaves kept) on ``device``.  A tensor already there is returned as
+    it is, so on one device this copies nothing."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(x, device) for x in tree))
+    if isinstance(tree, tuple):
+        return tuple(to_device(x, device) for x in tree)
+    return tree

@@ -53,7 +53,9 @@ from repro_torch.core.hostsched import merge_records
 from repro_torch.core.policies import policy_index
 from repro_torch.core.types import Allocation, ARRequest, Policy, T_INF
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import resolve_placement
 from repro_torch.roofline import analysis as roof
+from repro_torch.sharding import rules as shard_rules
 
 
 class JobState(str, enum.Enum):
@@ -237,8 +239,9 @@ class PartitionedCore:
     With ``backfill`` set (and ``auto_release=True``, required) every
     partition lane carries the deferral queue: rejected requests park
     (up to ``park_capacity``) and retry as completed reservations
-    release on :meth:`release_until`.  ``device`` holds every lane
-    (``None`` is cuda).
+    release on :meth:`release_until`.  ``placement`` places partition
+    ``i`` on card ``i // (E / d)`` of its mesh (``ServiceConfig.
+    placement``; one card: every lane on ``device``, ``None`` is cuda).
     """
 
     #: probe -> match -> commit rounds before the fused matcher takes the
@@ -247,7 +250,8 @@ class PartitionedCore:
 
     def __init__(self, n_chips: int, n_partitions: int,
                  capacity: int = 128, pending_capacity: int = 256,
-                 use_kernel: bool = True, device: DeviceLike = None,
+                 use_kernel: bool = True, placement="auto",
+                 device: DeviceLike = None,
                  park_capacity: int = 0, backfill: str = "none",
                  auto_release: bool = False,
                  match_rounds: Optional[int] = None,
@@ -270,6 +274,9 @@ class PartitionedCore:
         self.backfill = backfill
         self.auto_release = auto_release
         self.device = resolve_device(device)
+        # partition i lives on card i // (E / d) of the placement's mesh;
+        # decisions are the same on every placement
+        self.mesh = resolve_placement(placement, n_partitions, self.device)
         # probe -> match rounds pay only where the [N, E] probe evaluates
         # in parallel.  The port's probe is N x E searches one after
         # another, each the serial scan the fused matcher runs per step
@@ -282,9 +289,11 @@ class PartitionedCore:
         # [N, E] probe early-rejects summary-infeasible lanes to the
         # result a full search would give, prefiltering the matcher
         # without changing a routing decision
-        self.states = ens_lib.init_ensemble(
-            n_partitions, capacity, self.chips_per_part, pending_capacity,
-            park_capacity, index_tile=index_tile, device=self.device)
+        self.states = shard_rules.shard_ensemble(
+            self.mesh, ens_lib.init_ensemble(
+                n_partitions, capacity, self.chips_per_part,
+                pending_capacity, park_capacity, index_tile=index_tile,
+                device=self.device))
         self._backfills = ens_lib.backfill_ids(backfill, n_partitions)
         # committed PE-seconds per partition (least-loaded routing): a
         # float32 host ledger, the reference's authoritative copy
@@ -316,9 +325,9 @@ class PartitionedCore:
         lane = lanes.pop()
         return lane, [p - lane * self.chips_per_part for p in pes]
 
-    def _mask(self, local_pes: Sequence[int]) -> torch.Tensor:
-        return tl_lib.ids_to_mask32(local_pes, self.states[0].tl.words,
-                                    device=self.device)
+    def _mask(self, local_pes: Sequence[int], lane: int) -> torch.Tensor:
+        tl = self.states[lane].tl
+        return tl_lib.ids_to_mask32(local_pes, tl.words, device=tl.device)
 
     def _globalize(self, lane: int, alloc: Optional[Allocation]
                    ) -> Optional[Allocation]:
@@ -331,7 +340,7 @@ class PartitionedCore:
     # -- the three classic operations (global card ids) ------------------
     def _lane_update(self, lane: int, t_s: int, t_e: int,
                      local_pes: Sequence[int], is_add: bool) -> None:
-        mask = self._mask(local_pes)
+        mask = self._mask(local_pes, lane)
         for _ in range(batch_lib.MAX_DOUBLINGS + 1):
             one = self.states[lane]
             new_tl, overflow, n_keep = tl_lib.update(
@@ -612,8 +621,11 @@ class PartitionedCore:
     # -- debug / test view -------------------------------------------------
     def records(self) -> List[tuple]:
         """Merged (time, busy-global-card-set) view across partitions."""
-        times = torch.stack([s.tl.times for s in self.states]).cpu().numpy()
-        occ = torch.stack([s.tl.occ for s in self.states]).cpu().numpy()
+        dev = ens_lib.home(self.states)
+        times = ens_lib.gather([s.tl.times for s in self.states],
+                               dev).cpu().numpy()
+        occ = ens_lib.gather([s.tl.occ for s in self.states],
+                             dev).cpu().numpy()
         return merge_records([
             [(int(t), frozenset(p + lane * self.chips_per_part
                                 for p in batch_lib.mask32_to_ids(o)))

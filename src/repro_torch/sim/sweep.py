@@ -99,7 +99,8 @@ class GridSpec:
 def simulate_grid(spec: Optional[GridSpec] = None, *, capacity: int = 128,
                   pending_capacity: int = 256, use_kernel: bool = True,
                   cross_check: bool = False, record_decisions: bool = False,
-                  donate: bool = True, device: DeviceLike = None,
+                  placement="auto", donate: bool = True,
+                  device: DeviceLike = None,
                   **overrides) -> GridResult:
     """Run the whole experiment matrix as one ensemble offer.
 
@@ -111,9 +112,11 @@ def simulate_grid(spec: Optional[GridSpec] = None, *, capacity: int = 128,
     ``[policy, backfill, load, seed, flex]``.  ``cross_check=True``
     re-runs every cell on its host oracle and raises on the first
     divergence; ``record_decisions`` keeps each cell's ``(accepted,
-    t_s)`` trace.  ``donate=False`` takes the reference's non-donated
-    admission (the same decisions).  ``device`` places the lanes
-    (``None``: cuda).
+    t_s)`` trace.  ``placement`` places the cells over the local cards
+    (``ServiceConfig.placement``; the same decisions on every
+    placement).  ``donate=False`` takes the reference's non-donated
+    admission (the same decisions).  ``device`` holds the lanes on one
+    card (``None``: cuda).
     """
     spec = dataclasses.replace(spec or GridSpec(), **overrides)
     shape = spec.shape
@@ -159,7 +162,8 @@ def simulate_grid(spec: Optional[GridSpec] = None, *, capacity: int = 128,
         n_pe=spec.n_pe, lanes=len(cells), capacity=capacity,
         pending_capacity=pending_capacity, use_kernel=use_kernel,
         backfill=backfill, backfill_queue=spec.park_capacity,
-        chunk_size=None, donate=donate, resources=spec.resources,
+        chunk_size=None, placement=placement, donate=donate,
+        resources=spec.resources,
         tenants=(tuple(mixes[c[-2]] for c in cells) if tenancy else None),
         device=device)).session()
     t0 = _time.perf_counter()

@@ -18,7 +18,11 @@ from repro_torch.api import ReservationService, ServiceConfig
 from repro_torch.core import batch, ensemble, scheduler, timeline
 from repro_torch.core.resources import ResourceSpec, device_layout
 from repro_torch.core.types import ARRequest, Policy
+from repro_torch.configs import get_config
 from repro_torch.kernels import availscan, ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import transformer as tf_lib
 from repro_torch.runtime import FleetScheduler, PartitionedCore
 from repro_torch.sim import (GridSpec, pad_streams, run_policies, simulate,
                              simulate_batched, simulate_grid)
@@ -42,7 +46,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.runtime", "repro_torch.runtime.fleet",
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.qwen3_4b", "repro_torch.roofline",
-            "repro_torch.roofline.analysis"} <= set(mods)
+            "repro_torch.roofline.analysis", "repro_torch.launch",
+            "repro_torch.launch.mesh", "repro_torch.launch.serve",
+            "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.models", "repro_torch.models.common",
+            "repro_torch.models.mlp", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.transformer",
+            "repro_torch.serve", "repro_torch.serve.engine"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -148,6 +158,14 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: PartitionedCore(8, 2),
         lambda: FleetScheduler(n_chips=8),
         lambda: FleetScheduler(n_chips=8, n_partitions=2),
+        lambda: mesh_lib.make_host_mesh(),
+        lambda: mesh_lib.make_lane_mesh(4),
+        lambda: mesh_lib.resolve_placement("auto", 4),
+        lambda: tf_lib.init_params(get_config("qwen3-4b").reduced()),
+        lambda: tf_lib.Transformer(get_config("qwen3-4b").reduced()),
+        lambda: tf_lib.init_decode_cache(get_config("qwen3-4b").reduced(),
+                                         1, 8),
+        lambda: serve_main(["--arch", "qwen3-4b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -160,6 +178,8 @@ def test_entry_points_without_a_device_raise_when_no_card():
     assert init_table(TenantSpec(), 16, 4, "cpu").pend_tenant.shape == (16,)
     assert len(ensemble.init_ensemble(2, 16, 8, device="cpu")) == 2
     assert PartitionedCore(8, 2, device="cpu").chips_per_part == 4
+    assert tf_lib.init_params(get_config("qwen3-4b").reduced(),
+                              device="cpu").tok_embed.device.type == "cpu"
     # the host engines are named explicitly
     assert FleetScheduler(n_chips=8, engine="host").core.n_pe == 8
 

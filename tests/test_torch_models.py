@@ -1,0 +1,401 @@
+"""The port's model blocks against the JAX package, on the CPU.
+
+Each block of ``repro_torch.models`` (norms, RoPE, SwiGLU, attention
+in its full, blockwise and cached-decode forms, the MoE dispatch) and
+the dense and MoE families end to end (``forward``, ``prefill``,
+``decode_step``) get the same inputs as the reference: weights from
+the reference's ``init_params`` carried across with
+``params_from_reference``, activations drawn from a numpy seed.
+float32 runs agree within ``rtol = atol = 1e-4``; bfloat16 runs within
+the reference's own serving tolerance of 0.12; int8 KV values, the MoE
+expert ids, keep mask and slot table are equal.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as ref_config
+from repro.models import attention as ref_attn
+from repro.models import common as ref_common
+from repro.models import mlp as ref_mlp
+from repro.models import moe as ref_moe
+from repro.models import transformer as ref_tf
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import attention as attn
+from repro_torch.models import common
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer as tf
+
+F32 = dict(rtol=1e-4, atol=1e-4)
+BF16 = dict(rtol=0.12, atol=0.12)
+SERVED = ["qwen3-4b", "stablelm-1.6b", "starcoder2-7b", "minitron-8b",
+          "granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
+UNPORTED = ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-medium",
+            "llama-3.2-vision-11b"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these runs are many small ops, which extra
+    threads only slow when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(arch, dtype="float32", **kw):
+    """The reduced config of ``arch`` on both sides."""
+    return (dataclasses.replace(ref_config(arch).reduced(), dtype=dtype, **kw),
+            dataclasses.replace(get_config(arch).reduced(), dtype=dtype, **kw))
+
+
+def _models(arch, dtype="float32", seed=0, **kw):
+    rcfg, pcfg = _cfgs(arch, dtype, **kw)
+    rp = ref_tf.init_params(rcfg, jax.random.PRNGKey(seed))
+    pp = tf.params_from_reference(jax.tree.map(np.asarray, rp), pcfg, "cpu")
+    return rcfg, pcfg, rp, pp
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _pair(a, dtype):
+    """One numpy array on both sides in ``dtype``."""
+    return (jnp.asarray(a, jnp.float32).astype(dtype),
+            torch.from_numpy(np.asarray(a, np.float32)).to(
+                getattr(torch, dtype)))
+
+
+def _layer0(tree):
+    return jax.tree.map(lambda a: a[0], tree)
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm(dtype):
+    rng = np.random.default_rng(0)
+    jx, tx = _pair(rng.normal(size=(2, 5, 64)) * 3, dtype)
+    jw, tw = _pair(rng.normal(size=(64,)), dtype)
+    got = common.rms_norm(tx, tw, 1e-6)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(ref_common.rms_norm(jx, jw)),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+def test_rope_tables_and_rotation():
+    cos_r, sin_r = ref_common.rope_freqs(32, 300, 1e6)
+    cos_p, sin_p = common.rope_freqs(32, 300, 1e6)
+    np.testing.assert_allclose(cos_p.numpy(), np.asarray(cos_r), **F32)
+    np.testing.assert_allclose(sin_p.numpy(), np.asarray(sin_r), **F32)
+    # angles at given positions are the table's rows, bit for bit
+    pos = torch.tensor([[0, 7, 299], [5, 5, 1]])
+    c, s = common.rope_angles(32, 1e6, pos)
+    assert torch.equal(c, cos_p[pos]) and torch.equal(s, sin_p[pos])
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng.normal(size=(2, 3, 4, 32)), "float32")
+    np.testing.assert_allclose(
+        common.apply_rope(tx, cos_p, sin_p).numpy(),
+        np.asarray(ref_common.apply_rope(jx, cos_r, sin_r)), **F32)
+    np.testing.assert_allclose(
+        common.apply_rope(tx, cos_p, sin_p, pos).numpy(),
+        np.asarray(ref_common.apply_rope(jx, cos_r, sin_r,
+                                         jnp.asarray(pos.numpy()))), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp(dtype):
+    _, _, rp, pp = _models("stablelm-1.6b", dtype)
+    rng = np.random.default_rng(2)
+    jx, tx = _pair(rng.normal(size=(2, 6, 128)), dtype)
+    got = mlp_lib.mlp(pp.layers[0].mlp, tx)
+    want = ref_mlp.mlp(_layer0(rp["layers"]["mlp"]), jx)
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+def test_count_params_and_init():
+    for arch in SERVED:
+        rcfg, pcfg = _cfgs(arch)
+        rp = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
+        model = tf.init_params(pcfg, seed=0, device="cpu")
+        assert common.count_params(model) == ref_common.count_params(rp)
+        # the full-width model on the meta device counts the same
+        full = tf.Transformer(get_config(arch), device="meta")
+        want = jax.eval_shape(
+            lambda k: ref_tf.init_params(ref_config(arch), k),
+            jax.ShapeDtypeStruct((2,), jnp.uint32))
+        assert common.count_params(full) == ref_common.count_params(want)
+    # random init: float32 normals scaled and cast, norms at one
+    m = tf.init_params(_cfgs("qwen3-4b", "bfloat16")[1], seed=3, device="cpu")
+    assert m.layers[0].attn.wq.dtype == torch.bfloat16
+    assert torch.all(m.layers[1].attn.q_norm == 1)
+    assert abs(float(m.tok_embed.float().std()) - 0.02) < 2e-3
+    w = m.layers[0].mlp.w_down.float()
+    assert abs(float(w.std()) * np.sqrt(w.shape[0]) - 1.0) < 0.05
+    m2 = tf.init_params(_cfgs("qwen3-4b", "bfloat16")[1], seed=3,
+                        device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(m.parameters(),
+                                                 m2.parameters()))
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_refuse(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        tf.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        tf.Transformer(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        tf.init_decode_cache(cfg, 1, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _qkv(rng, b, t, s, hq, hkv, hd, dtype="float32"):
+    return (_pair(rng.normal(size=(b, t, hq, hd)), dtype),
+            _pair(rng.normal(size=(b, s, hkv, hd)), dtype),
+            _pair(rng.normal(size=(b, s, hkv, hd)), dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdpa_masked(dtype):
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 2, 6, 9, 4, 2, 16, dtype)
+    m = rng.random((2, 1, 6, 9)) < 0.7
+    m[..., 0] = True
+    got = attn._sdpa(tq, tk, tv, torch.from_numpy(m), 2)
+    want = ref_attn._sdpa(jq, jk, jv, jnp.asarray(m), 2)
+    assert got.dtype == tv.dtype
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_blockwise_sdpa(window):
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 2048, 2048, 2, 1, 16)
+    got = attn._blockwise_sdpa(tq, tk, tv, 2, window)
+    want = ref_attn._blockwise_sdpa(jq, jk, jv, 2, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_self_attention_qk_norm(dtype):
+    rcfg, pcfg, rp, pp = _models("qwen3-4b", dtype)
+    assert pp.layers[0].attn.q_norm is not None
+    rng = np.random.default_rng(5)
+    jx, tx = _pair(rng.normal(size=(2, 12, 128)), dtype)
+    got, (k, v) = attn.self_attention(
+        pp.layers[0].attn, tx, pcfg, attn.make_rope(pcfg, 12),
+        return_kv=True)
+    want, (rk, rv) = ref_attn.self_attention(
+        _layer0(rp["layers"]["attn"]), jx, rcfg, ref_attn.make_rope(rcfg, 12),
+        return_kv=True)
+    tol = F32 if dtype == "float32" else BF16
+    for a, b in ((got, want), (k, rk), (v, rv)):
+        np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+def test_quantize_kv_exact():
+    rng = np.random.default_rng(6)
+    for dtype in ("float32", "bfloat16"):
+        jx, tx = _pair(rng.normal(size=(2, 7, 4, 32)) * 2, dtype)
+        q, s = attn.quantize_kv(tx)
+        rq, rs = ref_attn.quantize_kv(jx)
+        assert q.dtype == torch.int8 and s.dtype == torch.bfloat16
+        np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+        np.testing.assert_array_equal(_np(s), _np(rs))
+        np.testing.assert_array_equal(
+            _np(attn.dequant_kv(q, s, tx.dtype)),
+            _np(ref_attn.dequant_kv(rq, rs, jx.dtype)))
+
+
+@pytest.mark.parametrize("case", ["full", "window", "int8"])
+def test_decode_attention(case):
+    kv = "int8" if case == "int8" else "bfloat16"
+    rcfg, pcfg, rp, pp = _models("qwen3-4b", kv_cache_dtype=kv)
+    window = 16 if case == "window" else 0
+    s_max, pos = (16, 37) if window else (24, 13)
+    rng = np.random.default_rng(7)
+    b, hkv, hd = 2, pcfg.n_kv_heads, pcfg.hd
+    cache_np = {"k": rng.normal(size=(b, s_max, hkv, hd)),
+                "v": rng.normal(size=(b, s_max, hkv, hd))}
+    if kv == "int8":
+        cache_np = {"k": rng.integers(-127, 128, (b, s_max, hkv, hd)),
+                    "v": rng.integers(-127, 128, (b, s_max, hkv, hd)),
+                    "k_scale": rng.random((b, s_max, hkv)) * 0.02,
+                    "v_scale": rng.random((b, s_max, hkv)) * 0.02}
+    rcache, pcache = {}, {}
+    for name, a in cache_np.items():
+        if name in ("k", "v") and kv == "int8":
+            rcache[name] = jnp.asarray(a, jnp.int8)
+            pcache[name] = torch.from_numpy(a.astype(np.int8))
+        else:
+            dt = "bfloat16" if name.endswith("scale") else "float32"
+            rcache[name], pcache[name] = _pair(a, dt)
+    jx, tx = _pair(rng.normal(size=(b, 1, 128)), "float32")
+    got, new = attn.decode_attention(
+        pp.layers[0].attn, tx, pcache, torch.tensor(pos, dtype=torch.int32),
+        pcfg, common.rope_angles(pcfg.hd, pcfg.rope_theta,
+                                 torch.full((b, 1), pos)), window=window)
+    want, rnew = ref_attn.decode_attention(
+        _layer0(rp["layers"]["attn"]), jx, rcache, jnp.int32(pos), rcfg,
+        ref_attn.make_rope(rcfg, 64), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    slot = pos % s_max if window else pos
+    for name in cache_np:
+        a, r = new[name], rnew[name]
+        if name in ("k", "v") and kv == "int8":
+            np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+        else:
+            np.testing.assert_allclose(_np(a), _np(r), **F32)
+        # only the slot changed, in place
+        keep = [i for i in range(s_max) if i != slot]
+        assert new[name] is pcache[name]
+        np.testing.assert_array_equal(_np(a)[:, keep],
+                                      np.asarray(cache_np[name],
+                                                 _np(a).dtype)[:, keep]
+                                      if name in ("k", "v") else
+                                      _np(rnew[name])[:, keep])
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def _spy_reference(monkeypatch):
+    seen = {}
+    top_k, slot_gate = jax.lax.top_k, ref_moe._slot_gate
+
+    def spy_top_k(x, k):
+        seen["gate_vals"], seen["expert_ids"] = out = top_k(x, k)
+        return out
+
+    def spy_slot_gate(g, keep, slot, e, cap):
+        seen["keep"], seen["slot"], seen["cap"] = keep, slot, cap
+        return slot_gate(g, keep, slot, e, cap)
+    monkeypatch.setattr(jax.lax, "top_k", spy_top_k)
+    monkeypatch.setattr(ref_moe, "_slot_gate", spy_slot_gate)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["drops", "ties", "quant", "bf16"])
+def test_moe_dispatch_exact_and_output_close(case, monkeypatch):
+    dtype = "bfloat16" if case == "bf16" else "float32"
+    rcfg, pcfg, rp, pp = _models("granite-moe-1b-a400m", dtype,
+                                 moe_quant_dispatch=case == "quant")
+    rmoe = _layer0(rp["layers"]["moe"])
+    pmoe = pp.layers[0].moe
+    if case == "ties":
+        # experts 3 and 5 get equal logits: top-k must take 3 first
+        router = np.asarray(rmoe["router"]).copy()
+        router[:, 5] = router[:, 3]
+        rmoe = dict(rmoe, router=jnp.asarray(router))
+        pmoe.router.copy_(torch.from_numpy(router))
+    rng = np.random.default_rng(8)
+    jx, tx = _pair(rng.normal(size=(2, 16, 128)), dtype)
+    seen = _spy_reference(monkeypatch)
+    want, raux = ref_moe.moe(rmoe, jx, rcfg)
+    r = moe_lib.route(pmoe, tx.reshape(-1, 128), pcfg)
+    got, aux = moe_lib.moe(pmoe, tx, pcfg)
+    np.testing.assert_array_equal(r.expert_ids.numpy(),
+                                  np.asarray(seen["expert_ids"]))
+    np.testing.assert_array_equal(r.keep.numpy(), np.asarray(seen["keep"]))
+    np.testing.assert_array_equal(r.slot.numpy(), np.asarray(seen["slot"]))
+    n, e, k, cap = 32, pcfg.n_experts, pcfg.top_k, seen["cap"]
+    table = np.full(e * cap + 1, n)
+    table[np.asarray(seen["slot"])] = np.repeat(np.arange(n), k)
+    np.testing.assert_array_equal(r.table.numpy(),
+                                  table[:-1].reshape(e, cap))
+    assert 0 < float(aux["dropped_frac"]) < 1     # capacity binds
+    if case == "ties":
+        ids = r.expert_ids.numpy()
+        both = (ids == 3).any(1) & (ids == 5).any(1)
+        pos3 = np.argmax(ids == 3, 1)
+        pos5 = np.argmax(ids == 5, 1)
+        assert both.any() and (pos3[both] < pos5[both]).all()
+    tol = F32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(r.gate_vals), _np(seen["gate_vals"]) /
+                               _np(seen["gate_vals"]).sum(1, keepdims=True),
+                               **F32)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    for name in raux:
+        np.testing.assert_allclose(float(aux[name]), float(raux[name]), **F32)
+
+
+# ---------------------------------------------------------------------------
+# the families end to end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", SERVED)
+def test_forward_prefill_decode_match_reference(arch, dtype):
+    # bfloat16 MoE: a rounding can move an assignment past the capacity
+    # cut on one side only, so those runs drop nothing (as the
+    # reference's serving tests do); float32 keeps the default capacity
+    kw = dict(capacity_factor=100.0) if dtype == "bfloat16" and \
+        get_config(arch).family == "moe" else {}
+    rcfg, pcfg, rp, pp = _models(arch, dtype, **kw)
+    tol = F32 if dtype == "float32" else BF16
+    rng = np.random.default_rng(9)
+    tok = rng.integers(0, rcfg.vocab, (2, 17)).astype(np.int32)
+    jt, tt = jnp.asarray(tok), torch.from_numpy(tok).long()
+    ro = ref_tf.forward(rp, rcfg, jt)
+    po = tf.forward(pp, pcfg, tt, collect=True)
+    if dtype == "float32" or pcfg.family == "dense":
+        np.testing.assert_allclose(_np(po.hidden), _np(ro.hidden), **tol)
+    # bfloat16 MoE: a rounding can flip a token's top-k choice on one
+    # side, which moves that token's hidden state by more than the
+    # tolerance; the logits are held as the reference holds its own
+    np.testing.assert_allclose(
+        _np(po.hidden[:, -1] @ pp.head),
+        _np(jnp.einsum("bd,dv->bv", ro.hidden[:, -1], rp["lm_head"])), **tol)
+    assert sorted(po.aux) == sorted(ro.aux)
+    for name in ro.aux:
+        np.testing.assert_allclose(float(po.aux[name]), float(ro.aux[name]),
+                                   **tol)
+    assert len(po.kv[0]) == pcfg.n_layers
+    for kind in ("", "int8") if dtype == "float32" else ("",):
+        rc = dataclasses.replace(rcfg, kv_cache_dtype=kind or "bfloat16")
+        pc = dataclasses.replace(pcfg, kv_cache_dtype=kind or "bfloat16")
+        rl, rcache = ref_tf.prefill(rp, rc, jt[:, :16], max_len=18)
+        pl, pcache = tf.prefill(pp, pc, tt[:, :16], max_len=18)
+        assert pl.dtype == torch.float32 and int(pcache["pos"]) == 16
+        assert pcache["attn"]["k"].shape == rcache["attn"]["k"].shape
+        assert str(pcache["attn"]["k"].dtype).split(".")[-1] == \
+            str(rcache["attn"]["k"].dtype)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(rl), **tol)
+        rg, rcache = ref_tf.decode_step(rp, rc, rcache, jt[:, 16:])
+        pg, pcache = tf.decode_step(pp, pc, pcache, tt[:, 16:])
+        np.testing.assert_allclose(pg.numpy(), np.asarray(rg), **tol)
+        if dtype == "float32":
+            assert (pg.argmax(-1).numpy() == np.asarray(rg).argmax(-1)).all()
+        assert int(pcache["pos"]) == 17
+
+
+def test_params_from_reference_roundtrip():
+    rcfg, pcfg, rp, pp = _models("granite-moe-1b-a400m", "bfloat16")
+    flat = dict(pp.named_parameters())
+    np.testing.assert_array_equal(
+        _np(flat["layers.2.moe.w_gate"]),
+        np.asarray(rp["layers"]["moe"]["w_gate"][2], np.float32))
+    assert flat["layers.2.moe.router"].dtype == torch.float32
+    assert flat["tok_embed"].dtype == torch.bfloat16
+    bad = dict(jax.tree.map(np.asarray, rp), extra=np.zeros(3))
+    with pytest.raises(ValueError, match="no port parameter"):
+        tf.params_from_reference(bad, pcfg, "cpu")
+    assert "qwen3-4b" in ARCH_IDS

@@ -327,8 +327,11 @@ def test_config_properties_match_reference():
                dict(engine="list", engine_kwargs=None)):
         assert ServiceConfig(n_pe=8, **kw).replace() == ServiceConfig(
             n_pe=8, **kw)
-    with pytest.raises(TypeError):
-        ServiceConfig(n_pe=8, placement=None)
+    # placement is ported: the reference's default and its values
+    assert ServiceConfig(n_pe=8).placement == RefConfig(n_pe=8).placement
+    for pl in (None, "single", "host", "auto", 2):
+        assert ServiceConfig(n_pe=8, placement=pl).placement == \
+            RefConfig(n_pe=8, placement=pl).placement == pl
 
 
 def _ring_rows(ring):
