@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--n-jobs 2000] [--n-event-loop 300]
-                          [--n-session 2000] [--placement-cards]
+    python3 chip_smoke.py [--seed 0] [--n-jobs 1000] [--n-event-loop 300]
+                          [--n-session 1000] [--placement-cards]
+                          [--phases main,index,...,train,service]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -25,9 +26,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernel on the card (profiler), and times an empty kernel of the same
    library at the launch shape (the launch floor);
 3. main path: ``simulate_batched`` on the paper stream (1024 PEs,
-   ``WorkloadParams(n_jobs=2000, seed=0)``, PE_W; the paper's 10,000
-   jobs with ``--n-jobs 10000``, cut by default to keep the run short
-   now that phase 6 drives a 2,000-job session) on the card, its
+   ``WorkloadParams(n_jobs=1000, seed=0)``, PE_W; the paper's 10,000
+   jobs with ``--n-jobs 10000``, cut by default to keep the run short)
+   on the card, its
    decisions, slowdowns and busy area held against the host event loop;
    then the per-operation event loop ``simulate(engine="device")`` on
    the stream's first jobs, held against the host loop; then the
@@ -79,7 +80,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    whole early reject (``search._rejected``, one kernel a call);
 6. multi-resource session: ``ReservationService(ServiceConfig(n_pe=1024,
    resources=(1024, 128, 64, 256), policy=PE_W, use_kernel=True,
-   chunk_size=64, ring_capacity=256))`` on 2,000 jobs of the paper stream
+   chunk_size=64, ring_capacity=256))`` on 1,000 jobs of the paper stream
    (``--n-session 10000`` for the 10,000 of the paper; cut for the run's
    time)
    stamped with half-intensity secondary demands, offered in pieces of
@@ -92,7 +93,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    each held against the oracle or the plain version.  The session runs
    the pipelined offer (``donate=True``, the default);
 7. service (after phase 6): the eager offer (``donate=False``) and the
-   pipelined one on the first 2,000 stamped jobs against the oracle
+   pipelined one on the session's stamped jobs against the oracle
    (host syncs per request side by side); a session from
    capacity 16 that grows mid-stream on both offers, against the
    oracle, each other, and the same session's counters on the CPU;
@@ -130,7 +131,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    and a ``lanes=2`` session with ``tenants=(spec, None)`` and
    ``auto_release=False`` that reaps on the spec's lane only.  Each
    path's select launches equal its lane steps' searches;
-6e. fleet (after phase 6d): ``fleet_routing``: 500 paper jobs through
+6e. fleet (after phase 6d): ``fleet_routing``: 300 paper jobs (the
+   reference's gate runs 1,000; cut for the run's time) through
    ``PartitionedCore`` at 1024 PEs in 4 partitions of 256 (capacity 128,
    PE_W) under round robin, least loaded, best acceptance (fused; the
    rounds protocol under PE_W and FF; tile 32), each held against the
@@ -169,13 +171,37 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    out), 8 decode steps profiled (kernels a step, device time, idle
    share), the step's bound (every weight but the embedding table and
    the KV cache, over 3.35 TB/s) beside ``roofline.analysis.step_costs``
-   for the same shape, and the peak memory.  The serving path runs none
-   of the CUDA kernels (its work is PyTorch's matmuls and elementwise
-   operations).
+   for the same shape, and the peak memory.  Then
+   zamba2-7b (hybrid: Mamba2 and a shared attention block) and
+   xlstm-1.3b (ssm: mLSTM and sLSTM) at full width and depth, bf16 KV
+   only, their bound counting the recurrent states read and written,
+   and their reduced float32 configs in the card-against-CPU check.
+   The serving path runs none of the CUDA kernels (its work is
+   PyTorch's matmuls and elementwise operations);
+6h. training (after 6g): one microbatched train step of each
+   family's reduced float32 config (stablelm, granite-moe at
+   ``capacity_factor=100``, zamba2, xlstm) on the card against the same
+   step on the CPU (loss, grad norm and every parameter within 1e-4,
+   TF32 off); then stablelm-1.6b at full width and depth (1.64 G
+   parameters, bf16, float32 Adam moments) through
+   ``repro_torch.launch.train.run``: 8 steps of 8 x 256 tokens in 2
+   microbatches with the loss falling, checkpoints at steps 4 and 8 in
+   a temporary directory, the step-8 checkpoint restored and held
+   bit-equal against the live state, the step-8 checkpoint dropped and
+   the run resumed from step 4 with its losses within 1e-3 of the
+   straight run's, one step profiled (kernels a step, device time, idle
+   share) beside its bound (``roofline.analysis.step_costs`` with 2
+   microbatches: FLOPs over 989.4 TFLOP/s, bytes over 3.35 TB/s), step
+   ms, tokens/s and the peak memory.  It runs none of the CUDA kernels.
 
 ``--placement-cards`` builds the kernels and runs only
 :func:`placement_cards`, which holds lane placement over every local
-card against one card.
+card against one card.  ``--phases`` runs only the named phase groups
+(``main``, ``index``, ``claims``, ``session``, ``backfill``, ``tenancy``,
+``ensemble``, ``fleet``, ``placement``, ``serve``, ``train``,
+``service``; each with the groups whose results it needs) after the
+build and the kernel phases; an unknown name exits non-zero before any
+work.  With no flag every group runs.
 
 The line before the last is one JSON object with every kernel's
 launches, error, times and bound; the last line is the run's verdict.
@@ -1853,7 +1879,8 @@ def pipelined_paths(jobs_mr, dev, rows: dict) -> None:
     K.reset_launches()
     got_p, recs_p, m_p, wall_p = run(cut, True, dev)
     if got_p != got or recs_p != recs:
-        fail("pipelined and eager sessions differ on the 2,000-job cut")
+        fail(f"pipelined and eager sessions differ on the {len(cut)}-job "
+             f"cut")
     if K.LAUNCHES["availscan_select_mr"] != m_p["steps"]:
         fail("pipelined session: select launches differ from the steps")
     n = len(cut)
@@ -2900,7 +2927,7 @@ def _tenant_lanes(jobs, dev, base, rows: dict) -> None:
           f"lane 1 to the one-lane session")
 
 
-FLEET_JOBS = 500          # fleet_routing's paper jobs (the reference's gate: 1,000)
+FLEET_JOBS = 300          # fleet_routing's paper jobs (the reference's gate: 1,000)
 FLEET_PARTS = 4           # partitions of 256 PEs (8 words each)
 PART_OFFERS = (20, 50)    # partition_sessions: offers x requests each
 FLEET_BATCHES = (8, 25)   # fleet_jobs: submit_batch calls x jobs each
@@ -3567,10 +3594,11 @@ def placement_cards(dev) -> dict:
     return report
 
 
-SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m")
+SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "zamba2-7b", "xlstm-1.3b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
 SERVE_TOL = 0.12          # bf16 decode vs forward (the reference's)
 SERVE_TOL_INT8 = 0.25     # int8 KV decode vs forward (the reference's)
+SERVE_CUT_LAYERS = 2      # the recurrent families' bf16 hold, full width
 SERVE_F32_TOL = 1e-4      # the card vs the CPU, float32, TF32 off
 SERVE_PROFILE_STEPS = 8
 
@@ -3662,12 +3690,12 @@ def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
             fail(f"{label}: no generated position routes as the forward")
     err = (logits - ref).abs()
     bad = (err > tol + tol * ref.abs()) & held[..., None]
-    if bool(bad.any()):
-        fail(f"{label}: {int(bad.sum())} decode logits off the forward's by "
-             f"more than {tol} (max {float(err[held].max()):.4f})")
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1] > tol) & held
     agree = ref.argmax(-1) == tokens.long()
+    if bool(bad.any()):
+        fail(f"{label}: {int(bad.sum())} decode logits off the forward's by "
+             f"more than {tol} (max {float(err[held].max()):.4f})")
     if bool((clear & ~agree).any()):
         fail(f"{label}: top-1 differs from the forward at "
              f"{int((clear & ~agree).sum())} positions with margin > {tol}")
@@ -3679,17 +3707,33 @@ def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
             f"({int((held & ~clear).sum())} held within the {tol} margin)")
 
 
+def _nbytes(tree) -> int:
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return sum(_nbytes(v) for v in tree)
+
+
 def _decode_bound(cfg, params, ctx: int) -> tuple:
-    """(bytes, ms): the least a decode step reads, every weight but the
-    embedding table once (the port's MoE reads every expert) plus the KV
-    cache at ``ctx`` positions, over the HBM rate."""
+    """(bytes, ms): the least a decode step moves, every weight but the
+    embedding table read once (the port's MoE reads every expert), the
+    KV cache (every attention layer's, or every application of the
+    hybrid's shared block) read at ``ctx`` positions, and the recurrent
+    states (Mamba2, mLSTM, sLSTM) read and written once, over the HBM
+    rate."""
+    from repro_torch.models import transformer as tf
+
     emb = params.tok_embed.numel() * params.tok_embed.element_size()
     w = sum(p.numel() * p.element_size() for p in params.parameters()) - emb
     if params.lm_head is None:
         w += emb                       # a tied head reads the table
-    kv_b = 1 + 2 / cfg.hd if cfg.kv_cache_dtype == "int8" else 2
-    kv = 2 * cfg.n_layers * SERVE_BATCH * ctx * cfg.n_kv_heads * cfg.hd * kv_b
-    n = w + kv
+    cache = tf.init_decode_cache(cfg, SERVE_BATCH, ctx, device="meta")
+    kv = _nbytes(cache.get("attn", {}))
+    states = sum(_nbytes(cache[k]) for k in ("ssm", "mlstm", "slstm")
+                 if k in cache)
+    n = w + kv + 2 * states
     return n, n / HBM_BYTES_PER_S * 1e3
 
 
@@ -3750,17 +3794,102 @@ def serve_f32_cpu(dev) -> None:
               f"steps, greedy tokens equal")
 
 
+def _recurrent_drift(params, cfg, prompt, tokens, logits) -> str:
+    """The hybrid and ssm families' bf16 decode against one full forward
+    at full depth, measured: max ``|decode - forward|`` by generated
+    position.  Position 0 is the prefill's logits, the same chunked
+    forward over the prompt alone, so it is the forward's own spread
+    between two sequence lengths on the card.  Held at full width by
+    :func:`_hold_recurrent_bf16` at the depth where that spread is
+    within the tolerance, and at full depth in float32 by
+    :func:`_hold_recurrent_f32` (PERF.md section 6)."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    t = prompt.shape[1]
+    with torch.inference_mode():
+        seq = torch.cat([prompt, tokens[:, :-1].long()], 1)
+        ref = (tf.forward(params, cfg, seq).hidden[:, t - 1:]
+               @ params.head).float()
+    err = (logits - ref).abs()
+    per_pos = err.amax(dim=(0, 2))
+    bad = err > SERVE_TOL + SERVE_TOL * ref.abs()
+    return (f"bf16 drift at full depth (measured; held at "
+            f"{SERVE_CUT_LAYERS} layers in bf16 and at full depth in "
+            f"float32): max |decode - forward| {float(per_pos.max()):.4f}, "
+            f"at position 0 (prefill over {t} tokens against the forward "
+            f"over {seq.shape[1]}) {float(per_pos[0]):.4f}; "
+            f"{int(bad.sum())} of {bad.numel()} logits beyond {SERVE_TOL}")
+
+
+def _hold_recurrent_bf16(arch, cfg, seed, prompt) -> str:
+    """The recurrent families' bf16 decode held against their forward at
+    full width, cut to ``SERVE_CUT_LAYERS`` layers (zamba2: the shared
+    attention block and two Mamba2 layers; xlstm: an mLSTM and an sLSTM
+    layer, ``slstm_every=2`` as in the reduced config): within
+    ``SERVE_TOL`` at every generated position, top-1 at every clear
+    margin.  Deeper, the card's forward alone, over the prompt and over
+    prompt + generated tokens, moves by as much as the tolerance
+    (``tools/bf16_drift.py``, the final hidden state: 0.10 after 4
+    zamba2 layers and 0.27 after 8, 0.19 after 12 xlstm layers, 1.4 and
+    1.6 at full depth), so no decode can be held to it there."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    kw = dict(n_layers=SERVE_CUT_LAYERS)
+    if cfg.family == "ssm":
+        kw["slstm_every"] = SERVE_CUT_LAYERS
+    c = dataclasses.replace(cfg, **kw)
+    params = tf.init_params(c, seed=seed, device=prompt.device)
+    toks, logits, _, _ = _generate(params, c, prompt, SERVE_GEN)
+    held = _hold_decode(f"serve[{arch}, bfloat16, {SERVE_CUT_LAYERS} "
+                        f"layers]", params, c, prompt, toks, logits,
+                        SERVE_TOL)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve[{arch}, bfloat16, {SERVE_CUT_LAYERS} layers]: {held}")
+    return held
+
+
+def _hold_recurrent_f32(arch, cfg, params, prompt) -> dict:
+    """The recurrent families' decode held against their forward at full
+    width in float32 (the bf16 weights widened in place, TF32 off):
+    within ``SERVE_TOL`` at every generated position, top-1 at every
+    clear margin.  In bf16 at full depth the card's rounding spread is
+    larger than the tolerance: see :func:`_hold_recurrent_bf16`."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params.float()
+    _generate(params, c32, prompt, SERVE_GEN)                  # warm-up
+    toks, logits, pre_ms, step_ms = _generate(params, c32, prompt, SERVE_GEN)
+    held = _hold_decode(f"serve[{arch}, float32]", params, c32, prompt,
+                        toks, logits, SERVE_TOL)
+    row = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"serve[{arch}, float32]: prefill {pre_ms:.2f} ms; decode "
+          f"{step_ms:.3f} ms/step; peak memory {row['peak_mem_gb']:.2f} GB; "
+          f"{held}")
+    return row
+
+
 def serve_phase(dev, seed: int) -> dict:
-    """qwen3-4b and granite-moe-1b-a400m at full width, bfloat16, random
-    weights from ``seed``: greedy generation of ``SERVE_GEN`` tokens for
-    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` through
-    ``serve.engine`` (bf16 and int8 KV), timed after a warm-up, decode
-    held against one full forward (MoE at ``capacity_factor=100`` for
-    the check), the decode step profiled, and its bound."""
+    """qwen3-4b, granite-moe-1b-a400m, zamba2-7b and xlstm-1.3b at full
+    width and depth, bfloat16, random weights from ``seed``: greedy
+    generation of ``SERVE_GEN`` tokens for ``SERVE_BATCH`` prompts of
+    ``SERVE_PROMPT`` through ``serve.engine`` (bf16 KV, and int8 for
+    the dense and MoE families), timed after a warm-up, decode held
+    against one full forward (MoE at ``capacity_factor=100`` for the
+    check; the hybrid and ssm families in bf16 at full width cut to
+    ``SERVE_CUT_LAYERS`` layers, :func:`_hold_recurrent_bf16`, and at
+    full depth in float32, :func:`_hold_recurrent_f32`, their full-depth
+    bf16 drift measured), the decode step profiled, and its bound."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import transformer as tf
     from repro_torch.roofline import analysis as roof
+    from repro_torch.serve import engine
 
     out = {}
     for arch in SERVE_ARCHS:
@@ -3777,7 +3906,11 @@ def serve_phase(dev, seed: int) -> dict:
         print(f"serve[{arch}]: {n_params / 1e9:.3f} G parameters "
               f"({cfg.dtype}) initialised in {t_init:.1f} s")
         ctx = SERVE_PROMPT + SERVE_GEN // 2
-        for kv in ("bfloat16", "int8"):
+        # the int8 cache is the dense and MoE families' option; the
+        # recurrent families are held in bf16
+        kvs = ("bfloat16", "int8") if cfg.family in ("dense", "moe") \
+            else ("bfloat16",)
+        for kv in kvs:
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
             _generate(params, c, prompt, SERVE_GEN)            # warm-up
             toks, logits, pre_ms, step_ms = _generate(params, c, prompt,
@@ -3796,8 +3929,14 @@ def serve_phase(dev, seed: int) -> dict:
             held = _hold_decode(f"serve[{arch}, {kv}]", params, check,
                                 prompt, toks, logits,
                                 SERVE_TOL if kv == "bfloat16"
-                                else SERVE_TOL_INT8, gen_log)
+                                else SERVE_TOL_INT8, gen_log) \
+                if cfg.family in ("dense", "moe") else \
+                _recurrent_drift(params, c, prompt, toks, logits)
             kernels, dev_ms = _decode_profile(params, c, prompt)
+            pre_fn = engine.make_prefill_step(c, max_len=SERVE_PROMPT
+                                              + SERVE_GEN)
+            pre_dev_ms, pre_kernels, _ = device_profile(
+                lambda: pre_fn(params, prompt), reps=1)
             n_bytes, bound_ms = _decode_bound(c, params, ctx)
             costs = roof.step_costs(c, ShapeConfig(
                 "serve_decode", ctx, SERVE_BATCH, "decode"),
@@ -3808,6 +3947,8 @@ def serve_phase(dev, seed: int) -> dict:
                        idle_share=None if dev_ms is None
                        else 1 - dev_ms / step_ms,
                        kernels_per_step=kernels, bound_ms=bound_ms,
+                       prefill_kernels=pre_kernels,
+                       prefill_device_ms=pre_dev_ms,
                        bound_bytes=n_bytes,
                        roofline_memory_ms=costs["memory_s"] * 1e3,
                        roofline_compute_ms=costs["compute_s"] * 1e3,
@@ -3816,7 +3957,8 @@ def serve_phase(dev, seed: int) -> dict:
             idle = "not measured" if dev_ms is None \
                 else f"{row['idle_share']:.4f}"
             print(f"serve[{arch}, {kv}]: prefill ({SERVE_BATCH} x "
-                  f"{SERVE_PROMPT} tok) {pre_ms:.2f} ms; decode "
+                  f"{SERVE_PROMPT} tok) {pre_ms:.2f} ms in {pre_kernels:.0f} "
+                  f"kernels ({_us(pre_dev_ms)} on the card); decode "
                   f"{step_ms:.3f} ms/step = {row['tokens_per_s']:.1f} tok/s "
                   f"(bound {bound_ms:.3f} ms: {n_bytes / 1e9:.3f} GB at "
                   f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; roofline.step_costs "
@@ -3826,26 +3968,254 @@ def serve_phase(dev, seed: int) -> dict:
                   f"share {idle}; "
                   f"peak memory {row['peak_mem_gb']:.2f} GB; {held}; "
                   f"tokens[0,:8] {toks[0, :8].tolist()}")
+        if cfg.family in ("hybrid", "ssm"):
+            _hold_recurrent_bf16(arch, cfg, seed, prompt)
+            out[f"{arch}/float32"] = _hold_recurrent_f32(arch, cfg, params,
+                                                         prompt)
         del params
         torch.cuda.empty_cache()
     print(f"serve: {json.dumps(out)}")
     return out
 
 
+TRAIN_F32_ARCHS = (("stablelm-1.6b", {}),
+                   ("granite-moe-1b-a400m", {"capacity_factor": 100.0}),
+                   ("zamba2-7b", {}), ("xlstm-1.3b", {}))
+TRAIN_F32_TOL = 1e-4      # the card vs the CPU, float32, TF32 off
+TRAIN_F32_LR = 1e-5       # Adam's first step moves a weight by ~lr * sign(g)
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 8, 8, 256, 2
+TRAIN_CKPT_EVERY = 4
+TRAIN_RESUME_RTOL = 1e-3  # resumed losses vs the straight run's, bf16
+BF16_FLOPS_PER_S = 989.4e12   # H100 SXM5 dense bf16 (roofline/analysis.py)
+
+
+def train_f32_cpu(dev) -> None:
+    """One microbatched train step (2 x 2 sequences of 16) of each
+    family's reduced float32 config on the card against the same step
+    on the CPU, the same weights and batch: loss and grad norm within
+    ``TRAIN_F32_TOL`` relative, every parameter within it absolute (TF32
+    off).  At ``TRAIN_F32_LR`` a gradient within rounding of zero that
+    takes the other sign on one side moves its weight by 2e-5, inside
+    the tolerance."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, kw in TRAIN_F32_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  **kw)
+        ocfg = optim.OptConfig(lr=TRAIN_F32_LR, warmup_steps=0,
+                               total_steps=10)
+        cpu, cpu_opt = step_lib.init_train_state(cfg, ocfg, 0, "cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        card_opt = optim.init(card, ocfg)
+        batch = TokenPipeline(cfg.vocab, 16, 4, microbatches=2,
+                              seed=1).batch_at(0)
+        step = step_lib.make_train_step(cfg, ocfg, 2)
+        out = {}
+        for name, p, o, d in (("cpu", cpu, cpu_opt, "cpu"),
+                              ("card", card, card_opt, dev)):
+            p, o, m = step(p, o, {k: torch.from_numpy(v).to(d)
+                                  for k, v in batch.items()})
+            out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                         [t.detach().cpu() for t in p.parameters()],
+                         int(o.step))
+        (l0, g0, p0, s0), (l1, g1, p1, s1) = out["cpu"], out["card"]
+        dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+        dp = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+        if not (dl <= TRAIN_F32_TOL and dg <= TRAIN_F32_TOL
+                and dp <= TRAIN_F32_TOL and s0 == s1 == 1):
+            fail(f"train_f32[{arch}]: the card is off the CPU: loss "
+                 f"{l1} vs {l0}, grad norm {g1} vs {g0}, parameters by "
+                 f"{dp}")
+        print(f"train_f32[{cfg.name}]: the card equals the CPU within "
+              f"{TRAIN_F32_TOL} over one 2-microbatch step: loss {l1:.6f} "
+              f"(rel {dl:.1e}), grad norm {g1:.6f} (rel {dg:.1e}), "
+              f"parameters max |diff| {dp:.1e}")
+
+
+def train_phase(dev, seed: int) -> dict:
+    """``stablelm-1.6b`` at full width and depth (bf16 weights, float32
+    Adam moments) through ``launch.train.run``: ``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens in ``TRAIN_MB`` microbatches
+    with the loss falling, checkpoints every ``TRAIN_CKPT_EVERY`` steps
+    in a temporary directory; the last checkpoint restored and held
+    bit-equal against the live state; then the last checkpoint dropped
+    and the run resumed from the one before, its losses held against
+    the straight run's; one step profiled; beside the step's bound."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_lib
+
+    cfg = get_config(TRAIN_ARCH)
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    kw = dict(steps=TRAIN_STEPS, smoke=False, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
+              microbatches=TRAIN_MB, log_every=1, device=dev, seed=seed)
+    row = {}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_run(TRAIN_ARCH, **kw)
+        row["run_s"] = time.perf_counter() - t0
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        losses = out["losses"]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            fail(f"train[{TRAIN_ARCH}]: losses {losses} do not fall")
+        params, opt = out["state"]
+        n_params = sum(p.numel() for p in params.parameters())
+        step_ms = float(np.median(out["step_s"][1:])) * 1e3
+        row.update(n_params=n_params, losses=losses, step_ms=step_ms,
+                   first_step_ms=out["step_s"][0] * 1e3,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3)
+        mgr = CheckpointManager(ckpt)
+        if mgr.all_steps() != [TRAIN_STEPS - TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+            fail(f"train: checkpoints {mgr.all_steps()}")
+        ck_bytes = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+        # the last checkpoint against the live state, leaf by leaf
+        t0 = time.perf_counter()
+        live = tf.state_to_reference(params, opt)
+        restored, step, meta = mgr.restore(
+            tf.state_to_reference(params, opt, device="meta"), device="cpu")
+        row["restore_s"] = time.perf_counter() - t0
+        mine, back = flatten(live)[0], flatten(restored)[0]
+        if step != TRAIN_STEPS or len(mine) != len(back) or not all(
+                a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+                for a, b in zip(mine, back)):
+            fail("train: the restored checkpoint is not the live state")
+        del live, restored, mine, back, params, opt, out
+        torch.cuda.empty_cache()
+        # resume from the checkpoint before the last
+        shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:08d}")
+        t0 = time.perf_counter()
+        out2 = train_run(TRAIN_ARCH, **kw)
+        row["resume_run_s"] = time.perf_counter() - t0
+        want = losses[TRAIN_STEPS - TRAIN_CKPT_EVERY:]
+        dl = max(abs(a - b) / abs(b) for a, b in zip(out2["losses"], want))
+        if out2["resumed_from"] != TRAIN_STEPS - TRAIN_CKPT_EVERY or \
+                len(out2["losses"]) != TRAIN_CKPT_EVERY or \
+                dl > TRAIN_RESUME_RTOL:
+            fail(f"train: resumed from {out2['resumed_from']} with losses "
+                 f"{out2['losses']}, the straight run's {want}")
+        row["resume_max_rel_loss_diff"] = dl
+        # one step of the resumed state, profiled
+        params, opt = out2["state"]
+        del out2
+        ocfg = optim.OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+        step = step_lib.make_train_step(cfg, ocfg, TRAIN_MB)
+        pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                             microbatches=TRAIN_MB, seed=0)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        state = {"p": params, "o": opt}
+
+        def one():
+            state["p"], state["o"], m = step(state["p"], state["o"], batch)
+            return m
+        dev_ms, kernels, _ = device_profile(one, reps=1)
+        costs = roof.step_costs(cfg, ShapeConfig(
+            "train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train",
+            microbatches=TRAIN_MB), {"data": 1, "model": 1},
+            microbatches=TRAIN_MB)
+        flops_ms = costs.flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = costs.hbm_bytes / HBM_BYTES_PER_S * 1e3
+        row.update(device_ms_per_step=dev_ms, kernels_per_step=kernels,
+                   idle_share=None if dev_ms is None else 1 - dev_ms / step_ms,
+                   bound_ms=max(flops_ms, bytes_ms),
+                   bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                   step_flops=costs.flops, step_hbm_bytes=costs.hbm_bytes,
+                   checkpoint_gb=ck_bytes / 2 / 1e9)
+        idle = "not measured" if dev_ms is None \
+            else f"{row['idle_share']:.4f}"
+        print(f"train[{TRAIN_ARCH}]: {n_params / 1e9:.3f} G parameters "
+              f"(bf16, float32 Adam state), {TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches: "
+              f"losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
+              f"(median of steps 2-{TRAIN_STEPS}; first "
+              f"{row['first_step_ms']:.1f} ms) = {row['tokens_per_s']:.0f} "
+              f"tokens/s (bound {row['bound_ms']:.2f} ms by "
+              f"{row['bound_by']}: {costs.flops / 1e12:.2f} TFLOP at "
+              f"{BF16_FLOPS_PER_S / 1e12:.1f} TFLOP/s, "
+              f"{costs.hbm_bytes / 1e9:.2f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); on the card "
+              f"{_us(dev_ms)} a step in {kernels:.0f} kernels, idle share "
+              f"{idle}; peak memory {row['peak_mem_gb']:.2f} GB; "
+              f"checkpoint {row['checkpoint_gb']:.2f} GB a step, restored "
+              f"bit-equal in {row['restore_s']:.1f} s; resumed from step "
+              f"{TRAIN_STEPS - TRAIN_CKPT_EVERY}, losses within "
+              f"{dl:.1e} of the straight run's; run {row['run_s']:.1f} s, "
+              f"resumed run {row['resume_run_s']:.1f} s")
+        del params, opt, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"train: {json.dumps(row)}")
+    return row
+
+
+#: the phase groups ``--phases`` names, in the order they run, and the
+#: groups whose results each needs
+PHASES = ("main", "index", "claims", "session", "backfill", "tenancy",
+          "ensemble", "fleet", "placement", "serve", "train", "service")
+PHASE_NEEDS = {"index": ("main",), "backfill": ("main",),
+               "tenancy": ("main", "backfill")}
+
+
+def parse_phases(text) -> tuple:
+    """The groups to run for ``--phases`` (all when ``None``), with the
+    groups they need, in run order; ``ValueError`` on an unknown name."""
+    if text is None:
+        return PHASES
+    names = [n.strip() for n in text.split(",") if n.strip()]
+    bad = [n for n in names if n not in PHASES]
+    if bad or not names:
+        raise ValueError(f"unknown phase group(s) {bad or [text]}; "
+                         f"known: {', '.join(PHASES)}")
+    want = set(names)
+    for n in names:
+        want.update(PHASE_NEEDS.get(n, ()))
+    return tuple(p for p in PHASES if p in want)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n-jobs", type=int, default=2_000,
+    ap.add_argument("--n-jobs", type=int, default=1_000,
                     help="jobs of the single-resource paper stream (also "
                     "the indexed stream's)")
     ap.add_argument("--n-event-loop", type=int, default=300,
                     help="jobs for the per-operation event loops")
-    ap.add_argument("--n-session", type=int, default=2_000,
+    ap.add_argument("--n-session", type=int, default=1_000,
                     help="jobs for the multi-resource session")
     ap.add_argument("--placement-cards", action="store_true",
                     help="only build the kernels and hold lane placement "
                     "over every local card against one card")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase groups to run after the "
+                    "build and the kernel checks (default: all): "
+                    + ", ".join(PHASES))
     args = ap.parse_args(argv)
+    try:
+        phases = parse_phases(args.phases)
+    except ValueError as e:
+        ap.error(str(e))
 
     import torch
     if not torch.cuda.is_available():
@@ -3896,79 +4266,100 @@ def main(argv=None) -> int:
     pruned_phase(rng, dev, rows)
     print(f"pruned starts took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
+    if phases != PHASES:
+        print(f"phase groups: {', '.join(phases)} (of {', '.join(PHASES)})")
     jobs = generate(WorkloadParams(n_jobs=args.n_jobs, seed=args.seed))
-    plain = main_path(jobs, dev, rows, args.n_event_loop)
-    profile_steps(jobs, dev)
-    print(f"main path took {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    indexed_stream(jobs, plain, dev, rows)
-    saturated_stream(dev, rows, report)
-    print(f"index phases took {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    paper_claims(dev)
-    print(f"paper claims took {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
     paper = generate(WorkloadParams(n_jobs=max(args.n_session, 2000),
                                     seed=args.seed))
     jobs_mr = stamp(paper[:args.n_session], MR_UNITS)
-    session_path(jobs_mr, dev, rows)
-    profile_session(jobs_mr, dev)
-    session_variants(jobs_mr, paper, dev, args.n_event_loop)
-    print(f"multi-resource session phases took "
-          f"{time.perf_counter() - t0:.1f} s")
-
     # the backfill and tenancy phases run the paper stream's first
     # BF_JOBS jobs: a prefix of the main path's, which decides them alike
-    t0 = time.perf_counter()
     bf_jobs = jobs[:BF_JOBS]
-    bf_plain = dataclasses.replace(plain, decisions=plain.decisions[:BF_JOBS])
-    bf = backfill_streams(bf_jobs, bf_plain, dev, rows)
-    backfill_session(bf_jobs, dev, rows)
-    bf["mr"] = backfill_mr(stamp(bf_jobs, MR_UNITS), dev, rows)
-    bf["indexed"] = backfill_indexed(bf_jobs, bf["easy"], dev, rows)
-    backfill_profile(bf_jobs, dev)
-    print(f"backfill phases took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    tjobs = tenanted(bf_jobs)
-    tenancy_streams(tjobs, bf, dev, rows)
-    tenancy_neutral(tjobs, bf_plain, bf, dev, rows)
-    tenancy_session(tjobs, dev, rows)
-    tenancy_profile(tjobs, dev)
-    print(f"tenancy phases took {time.perf_counter() - t0:.1f} s")
+    if "main" in phases:
+        t0 = time.perf_counter()
+        plain = main_path(jobs, dev, rows, args.n_event_loop)
+        profile_steps(jobs, dev)
+        print(f"main path took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    grid_paper(dev, rows)
-    grid_profile(dev)
-    grid_backfill(dev, rows)
-    grid_mixes(dev, rows)
-    ensemble_session(jobs, dev, rows)
-    print(f"ensemble phases took {time.perf_counter() - t0:.1f} s")
+    if "index" in phases:
+        t0 = time.perf_counter()
+        indexed_stream(jobs, plain, dev, rows)
+        saturated_stream(dev, rows, report)
+        print(f"index phases took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    fleet_routing(jobs[:FLEET_JOBS], dev, rows)
-    partition_sessions(jobs, dev, rows)
-    fleet_jobs(dev, rows)
-    print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
+    if "claims" in phases:
+        t0 = time.perf_counter()
+        paper_claims(dev)
+        print(f"paper claims took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    placement_phase(jobs, dev, rows)
-    print(f"placement phase took {time.perf_counter() - t0:.1f} s")
+    if "session" in phases:
+        t0 = time.perf_counter()
+        session_path(jobs_mr, dev, rows)
+        profile_session(jobs_mr, dev)
+        session_variants(jobs_mr, paper, dev, args.n_event_loop)
+        print(f"multi-resource session phases took "
+              f"{time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    serve_f32_cpu(dev)
-    serve_phase(dev, args.seed)
-    print(f"serve phases took {time.perf_counter() - t0:.1f} s")
+    if "backfill" in phases:
+        t0 = time.perf_counter()
+        bf_plain = dataclasses.replace(plain,
+                                       decisions=plain.decisions[:BF_JOBS])
+        bf = backfill_streams(bf_jobs, bf_plain, dev, rows)
+        backfill_session(bf_jobs, dev, rows)
+        bf["mr"] = backfill_mr(stamp(bf_jobs, MR_UNITS), dev, rows)
+        bf["indexed"] = backfill_indexed(bf_jobs, bf["easy"], dev, rows)
+        backfill_profile(bf_jobs, dev)
+        print(f"backfill phases took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    pipelined_paths(jobs_mr, dev, rows)
-    session_verbs(paper, dev)
-    host_engines(paper, dev)
-    print(f"service phases took {time.perf_counter() - t0:.1f} s")
+    if "tenancy" in phases:
+        t0 = time.perf_counter()
+        tjobs = tenanted(bf_jobs)
+        tenancy_streams(tjobs, bf, dev, rows)
+        tenancy_neutral(tjobs, bf_plain, bf, dev, rows)
+        tenancy_session(tjobs, dev, rows)
+        tenancy_profile(tjobs, dev)
+        print(f"tenancy phases took {time.perf_counter() - t0:.1f} s")
+
+    if "ensemble" in phases:
+        t0 = time.perf_counter()
+        grid_paper(dev, rows)
+        grid_profile(dev)
+        grid_backfill(dev, rows)
+        grid_mixes(dev, rows)
+        ensemble_session(jobs, dev, rows)
+        print(f"ensemble phases took {time.perf_counter() - t0:.1f} s")
+
+    if "fleet" in phases:
+        t0 = time.perf_counter()
+        fleet_routing(jobs[:FLEET_JOBS], dev, rows)
+        partition_sessions(jobs, dev, rows)
+        fleet_jobs(dev, rows)
+        print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
+
+    if "placement" in phases:
+        t0 = time.perf_counter()
+        placement_phase(jobs, dev, rows)
+        print(f"placement phase took {time.perf_counter() - t0:.1f} s")
+
+    if "serve" in phases:
+        t0 = time.perf_counter()
+        serve_f32_cpu(dev)
+        serve_phase(dev, args.seed)
+        print(f"serve phases took {time.perf_counter() - t0:.1f} s")
+
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train_f32_cpu(dev)
+        train_phase(dev, args.seed)
+        print(f"train phases took {time.perf_counter() - t0:.1f} s")
+
+    if "service" in phases:
+        t0 = time.perf_counter()
+        pipelined_paths(jobs_mr, dev, rows)
+        session_verbs(paper, dev)
+        host_engines(paper, dev)
+        print(f"service phases took {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -1,0 +1,2 @@
+"""Atomic async checkpointing."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,8 +22,13 @@ from repro_torch.core.types import ARRequest, Policy
 from repro_torch.configs import get_config
 from repro_torch.kernels import availscan, ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import run as train_run
 from repro_torch.models import transformer as tf_lib
+from repro_torch.train import optim
+from repro_torch.train import step as step_lib
 from repro_torch.runtime import FleetScheduler, PartitionedCore
 from repro_torch.sim import (GridSpec, pad_streams, run_policies, simulate,
                              simulate_batched, simulate_grid)
@@ -52,7 +58,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models", "repro_torch.models.common",
             "repro_torch.models.mlp", "repro_torch.models.attention",
             "repro_torch.models.moe", "repro_torch.models.transformer",
-            "repro_torch.serve", "repro_torch.serve.engine"} <= set(mods)
+            "repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.train", "repro_torch.train.optim",
+            "repro_torch.train.step", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+            "repro_torch.models.ssm", "repro_torch.models.xlstm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -104,7 +115,7 @@ def test_importing_the_service_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_without_a_device_raise_when_no_card():
+def test_entry_points_without_a_device_raise_when_no_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None means cuda there")
     job = ARRequest(0, 0, 5, 10, 1)
@@ -166,7 +177,24 @@ def test_entry_points_without_a_device_raise_when_no_card():
         lambda: tf_lib.init_decode_cache(get_config("qwen3-4b").reduced(),
                                          1, 8),
         lambda: serve_main(["--arch", "qwen3-4b", "--smoke"]),
+        lambda: tf_lib.init_params(get_config("zamba2-7b").reduced()),
+        lambda: tf_lib.init_params(get_config("xlstm-1.3b").reduced()),
+        lambda: tf_lib.init_decode_cache(get_config("zamba2-7b").reduced(),
+                                         1, 8),
+        lambda: tf_lib.init_decode_cache(get_config("xlstm-1.3b").reduced(),
+                                         1, 8),
+        lambda: step_lib.init_train_state(
+            get_config("stablelm-1.6b").reduced(), optim.OptConfig()),
+        lambda: train_run("stablelm-1.6b", steps=1, smoke=True, batch=2,
+                          seq=8, ckpt_dir=str(tmp_path / "ck"),
+                          ckpt_every=1, microbatches=1),
+        lambda: train_main(["--arch", "stablelm-1.6b", "--smoke",
+                            "--ckpt-dir", str(tmp_path / "ck2")]),
+        lambda: CheckpointManager(tmp_path / "saved").restore(
+            {"w": np.zeros(3, np.float32)}),
     ]
+    CheckpointManager(tmp_path / "saved").save(
+        1, {"w": torch.zeros(3)})
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -180,6 +208,11 @@ def test_entry_points_without_a_device_raise_when_no_card():
     assert PartitionedCore(8, 2, device="cpu").chips_per_part == 4
     assert tf_lib.init_params(get_config("qwen3-4b").reduced(),
                               device="cpu").tok_embed.device.type == "cpu"
+    assert tf_lib.init_params(get_config("zamba2-7b").reduced(),
+                              device="cpu").shared_attn is not None
+    restored, _, _ = CheckpointManager(tmp_path / "saved").restore(
+        {"w": np.zeros(3, np.float32)}, device="cpu")
+    assert restored["w"].device.type == "cpu"
     # the host engines are named explicitly
     assert FleetScheduler(n_chips=8, engine="host").core.n_pe == 8
 
@@ -239,3 +272,28 @@ def test_kernel_wrappers_never_fall_back():
     row = ops.search_select(mr, starts, 4, 0, 1, 0, 64, rspec=spec,
                             demand_tail=torch.tensor([8], dtype=torch.int32))
     assert bool(row["found"]) and int(row["best"]) == 0
+
+
+def test_chip_smoke_phase_selector():
+    """``--phases`` names phase groups; an unknown name exits non-zero
+    before any work (before the device check, which exits too without a
+    card), and a group brings the groups whose results it needs."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--phases",
+         "serve,bogus"], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode != 0
+    assert "unknown phase group" in proc.stderr and "bogus" in proc.stderr
+    assert "no CUDA device" not in proc.stderr and not proc.stdout
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.parse_phases(None) == chip_smoke.PHASES
+    assert chip_smoke.parse_phases("train, serve") == ("serve", "train")
+    assert chip_smoke.parse_phases("tenancy") == ("main", "backfill",
+                                                  "tenancy")
+    for bad in ("", "train,nope"):
+        with pytest.raises(ValueError, match="unknown phase group"):
+            chip_smoke.parse_phases(bad)

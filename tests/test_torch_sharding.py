@@ -88,7 +88,9 @@ def test_param_specs_equal_reference(arch):
     n_model = sum(ax == "model" for spec in got.values() for ax in spec)
     assert n_model > 0, f"{arch}: nothing sharded at all"
     # the port's model, where its family is ported: layer i's spec is
-    # the stacked leaf's past the layer axis
+    # the stacked leaf's past the layer axis (``layers``, and the ssm
+    # family's ``slstm_layers``); unstacked leaves (the hybrid family's
+    # ``shared_attn``) take the reference's own
     cfg = get_config(arch)
     if cfg.family not in tf.FAMILIES:
         with pytest.raises(NotImplementedError):
@@ -96,12 +98,14 @@ def test_param_specs_equal_reference(arch):
         return
     model = tf.Transformer(cfg, device="meta")
     specs = rules.param_specs(model)
-    assert len(specs) == sum(
-        cfg.n_layers if k[0] == "layers" else 1 for k in want)
+    stacked = ("layers", "slstm_layers")
+    rows = {k: _flat(shapes)[k].shape[0] for k in want if k[0] in stacked}
+    assert len(specs) == sum(rows.get(k, 1) for k in want)
     for name, spec in specs.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            ref = want[("layers",) + tuple(parts[2:])]
+        if parts[0] in stacked:
+            assert parts[1].isdigit(), name
+            ref = want[(parts[0],) + tuple(parts[2:])]
             assert ref[0] is None and spec == ref[1:], name
         else:
             assert spec == want[tuple(parts)], name
