@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--n-jobs 1000] [--n-event-loop 300]
                           [--n-session 1000] [--placement-cards]
-                          [--phases main,index,...,train,service]
+                          [--phases main,index,...,train,dryrun,service]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -155,8 +155,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    ``placement="auto"``, each equal to ``placement=None`` (decisions,
    records, accepted counts, partition loads), select launches counted
    per run, ``placement_shards`` the lane mesh's;
-6g. serving (after phase 6f): the reduced float32 qwen3-4b and
-   granite-moe on the card against the same port on the CPU with the
+6g. serving (after phase 6f): the reduced float32 configs of every
+   served family on the card against the same port on the CPU with the
    same weights (prefill + 6 decode steps, logits within 1e-4, greedy
    tokens equal, TF32 off); then qwen3-4b (4.41 G parameters) and
    granite-moe-1b-a400m (1.38 G) at full width, bfloat16, random
@@ -175,12 +175,24 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    zamba2-7b (hybrid: Mamba2 and a shared attention block) and
    xlstm-1.3b (ssm: mLSTM and sLSTM) at full width and depth, bf16 KV
    only, their bound counting the recurrent states read and written,
-   and their reduced float32 configs in the card-against-CPU check.
+   and their reduced float32 configs in the card-against-CPU check;
+   then seamless-m4t-medium (encdec: a 12-layer encoder over 1,536 stub
+   audio frames, 12 decoder layers each with a cross block; 1.13 G)
+   and llama-3.2-vision-11b (vlm: 40 layers, a gated cross block over
+   1,601 stub image tokens after every fifth; 11.52 G) as the dense
+   families, bf16 and int8 KV, frontend inputs from the seed, the vlm
+   gates set nonzero from it (at their initial zero the image would
+   change nothing), their bound counting the cross K / V and leaving
+   out the weights only the prefill reads, the largest logit change the
+   cross path makes printed (gates set against zero; a second draw of
+   audio frames), and their reduced float32 configs in the
+   card-against-CPU check.
    The serving path runs none of the CUDA kernels (its work is
    PyTorch's matmuls and elementwise operations);
 6h. training (after 6g): one microbatched train step of each
    family's reduced float32 config (stablelm, granite-moe at
-   ``capacity_factor=100``, zamba2, xlstm) on the card against the same
+   ``capacity_factor=100``, zamba2, xlstm, seamless, llama-vision with
+   their frontend inputs) on the card against the same
    step on the CPU (loss, grad norm and every parameter within 1e-4,
    TF32 off); then stablelm-1.6b at full width and depth (1.64 G
    parameters, bf16, float32 Adam moments) through
@@ -192,14 +204,19 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    straight run's, one step profiled (kernels a step, device time, idle
    share) beside its bound (``roofline.analysis.step_costs`` with 2
    microbatches: FLOPs over 989.4 TFLOP/s, bytes over 3.35 TB/s), step
-   ms, tokens/s and the peak memory.  It runs none of the CUDA kernels.
+   ms, tokens/s and the peak memory.  It runs none of the CUDA kernels;
+6i. dry-run (after 6h): ``repro_torch.launch.dryrun``'s 80 cells on the
+   host CPU (no JAX): 64 ok, 16 skipped (the ``long_500k`` cells of the
+   full-attention archs), none failed, each decode cell's step run on
+   the ``meta`` device at full size, every decode cell memory-bound and
+   every serve cell within 80 GB a card.
 
 ``--placement-cards`` builds the kernels and runs only
 :func:`placement_cards`, which holds lane placement over every local
 card against one card.  ``--phases`` runs only the named phase groups
 (``main``, ``index``, ``claims``, ``session``, ``backfill``, ``tenancy``,
 ``ensemble``, ``fleet``, ``placement``, ``serve``, ``train``,
-``service``; each with the groups whose results it needs) after the
+``dryrun``, ``service``; each with the groups whose results it needs) after the
 build and the kernel phases; an unknown name exits non-zero before any
 work.  With no flag every group runs.
 
@@ -3594,7 +3611,8 @@ def placement_cards(dev) -> dict:
     return report
 
 
-SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "zamba2-7b", "xlstm-1.3b")
+SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "zamba2-7b", "xlstm-1.3b",
+               "seamless-m4t-medium", "llama-3.2-vision-11b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
 SERVE_TOL = 0.12          # bf16 decode vs forward (the reference's)
 SERVE_TOL_INT8 = 0.25     # int8 KV decode vs forward (the reference's)
@@ -3603,10 +3621,29 @@ SERVE_F32_TOL = 1e-4      # the card vs the CPU, float32, TF32 off
 SERVE_PROFILE_STEPS = 8
 
 
-def _generate(params, cfg, prompt, gen: int):
+def set_gates(params, seed: int) -> None:
+    """The vlm family's gates set to nonzero values (``|g|`` in [0.5,
+    1.5), either sign) drawn from ``seed``: they start at zero, where a
+    gated cross block returns its input whatever the image, and a check
+    at zero would pass a port that ignored the image.  Other families
+    are left as they are."""
+    import torch
+    if params.cfg.family != "vlm":
+        return
+    n = len(params.cross_layers)
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0.5, 1.5, (2, n)) * rng.choice([-1.0, 1.0], (2, n))
+    with torch.no_grad():
+        for blk, ga, gm in zip(params.cross_layers, g[0], g[1]):
+            blk.gate_attn.fill_(float(ga))
+            blk.gate_mlp.fill_(float(gm))
+
+
+def _generate(params, cfg, prompt, gen: int, extra=None):
     """Greedy prefill + decode on the card: ``(tokens [B, gen], logits
     [B, gen, V] float32, prefill ms, decode ms per step)`` with a
-    synchronise around each timed region."""
+    synchronise around each timed region; ``extra``: the encdec and vlm
+    families' frontend inputs."""
     import torch
     from repro_torch.serve import engine
 
@@ -3614,14 +3651,14 @@ def _generate(params, cfg, prompt, gen: int):
     decode = engine.make_decode_step(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, prompt, extra)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     tok = engine.greedy_token(logits)
     toks, logs = [tok], [logits]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, cache = decode(params, cache, tok)
+        logits, cache = decode(params, cache, tok, extra)
         tok = engine.greedy_token(logits)
         toks.append(tok)
         logs.append(logits)
@@ -3665,7 +3702,7 @@ def _same_routing(gen_log, fwd_log, n_layers: int, b: int, t: int,
 
 
 def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
-                 gen_log=None) -> str:
+                 gen_log=None, extra=None) -> str:
     """Each generated position's decode logits against one full forward
     over prompt + generated tokens: values within ``tol``, and the
     decode's token the forward's top-1 wherever the forward's top-two
@@ -3681,7 +3718,7 @@ def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
     gen = tokens.shape[1]
     with torch.inference_mode(), recorded_routing() as fwd_log:
         seq = torch.cat([prompt, tokens[:, :-1].long()], 1)
-        hid = tf.forward(params, cfg, seq).hidden[:, t - 1:]
+        hid = tf.forward(params, cfg, seq, extra).hidden[:, t - 1:]
         ref = (hid @ params.head).float()
     held = torch.ones((b, gen), dtype=torch.bool, device=ref.device)
     if gen_log is not None:
@@ -3716,28 +3753,35 @@ def _nbytes(tree) -> int:
     return sum(_nbytes(v) for v in tree)
 
 
-def _decode_bound(cfg, params, ctx: int) -> tuple:
-    """(bytes, ms): the least a decode step moves, every weight but the
-    embedding table read once (the port's MoE reads every expert), the
-    KV cache (every attention layer's, or every application of the
-    hybrid's shared block) read at ``ctx`` positions, and the recurrent
-    states (Mamba2, mLSTM, sLSTM) read and written once, over the HBM
-    rate."""
-    from repro_torch.models import transformer as tf
+#: weights no decode step reads: the encoder and the image projection
+#: (prefill only) and the cross layers' K / V projections (their K / V
+#: are cached)
+_PREFILL_ONLY = re.compile(r"^(enc_|img_proj)|^cross_layers\.\d+\.attn\.w[kv]$")
 
-    emb = params.tok_embed.numel() * params.tok_embed.element_size()
-    w = sum(p.numel() * p.element_size() for p in params.parameters()) - emb
-    if params.lm_head is None:
-        w += emb                       # a tied head reads the table
-    cache = tf.init_decode_cache(cfg, SERVE_BATCH, ctx, device="meta")
-    kv = _nbytes(cache.get("attn", {}))
+
+def _decode_bound(cfg, params, ctx: int) -> tuple:
+    """(bytes, ms): the least a decode step moves, every weight the step
+    reads read once (all but the embedding table and
+    ``_PREFILL_ONLY``; the port's MoE reads every expert), the KV cache
+    (every attention layer's, or every application of the hybrid's
+    shared block) read at ``ctx`` positions, the encdec and vlm
+    families' cross K / V read once, and the recurrent states (Mamba2,
+    mLSTM, sLSTM) read and written once, over the HBM rate."""
+    from repro_torch.launch import specs
+
+    w = sum(p.numel() * p.element_size()
+            for name, p in params.named_parameters()
+            if not _PREFILL_ONLY.match(name)
+            and (name != "tok_embed" or params.lm_head is None))
+    cache = specs.decode_cache(cfg, SERVE_BATCH, ctx)
+    kv = _nbytes(cache.get("attn", {})) + _nbytes(cache.get("cross_kv", ()))
     states = sum(_nbytes(cache[k]) for k in ("ssm", "mlstm", "slstm")
                  if k in cache)
     n = w + kv + 2 * states
     return n, n / HBM_BYTES_PER_S * 1e3
 
 
-def _decode_profile(params, cfg, prompt) -> tuple:
+def _decode_profile(params, cfg, prompt, extra=None) -> tuple:
     """(kernels per decode step, device ms per step) over
     ``SERVE_PROFILE_STEPS`` steps in a counted :func:`profiled_window`."""
     import torch
@@ -3746,11 +3790,12 @@ def _decode_profile(params, cfg, prompt) -> tuple:
     prefill = engine.make_prefill_step(cfg, max_len=prompt.shape[1]
                                        + SERVE_PROFILE_STEPS + 2)
     decode = engine.make_decode_step(cfg)
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, prompt, extra)
     state = {"cache": cache, "tok": engine.greedy_token(logits)}
 
     def step():
-        lg, state["cache"] = decode(params, state["cache"], state["tok"])
+        lg, state["cache"] = decode(params, state["cache"], state["tok"],
+                                    extra)
         state["tok"] = engine.greedy_token(lg)
     ms, per_step, _ = device_profile(step, SERVE_PROFILE_STEPS)
     return per_step, ms
@@ -3758,8 +3803,9 @@ def _decode_profile(params, cfg, prompt) -> tuple:
 
 def serve_f32_cpu(dev) -> None:
     """The reduced float32 configs on the card against the same port on
-    the CPU, the same weights: prefill and decode logits within
-    ``SERVE_F32_TOL``, greedy tokens equal (TF32 off)."""
+    the CPU, the same weights (vlm gates set, :func:`set_gates`) and
+    frontend inputs: prefill and decode logits within ``SERVE_F32_TOL``,
+    greedy tokens equal (TF32 off)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
@@ -3770,14 +3816,17 @@ def serve_f32_cpu(dev) -> None:
     for arch in SERVE_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         cpu = tf.init_params(cfg, seed=0, device="cpu")
+        set_gates(cpu, 0)
         card = copy.deepcopy(cpu).to(dev)
         g = torch.Generator().manual_seed(1)
         prompt = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+        extra = engine.frontend_inputs(cfg, 2, g)
         out = {}
         for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
             pre = engine.make_prefill_step(cfg, max_len=24)
             dec = engine.make_decode_step(cfg)
-            logits, cache = pre(p, prompt.to(d))
+            logits, cache = pre(p, prompt.to(d),
+                                {k: v.to(d) for k, v in extra.items()})
             logs, toks = [logits.cpu()], [engine.greedy_token(logits).cpu()]
             for _ in range(6):
                 logits, cache = dec(p, cache, toks[-1].to(d))
@@ -3874,17 +3923,62 @@ def _hold_recurrent_f32(arch, cfg, params, prompt) -> dict:
     return row
 
 
+def _cross_live(params, cfg, prompt, extra, seed: int) -> float:
+    """The largest change of the full forward's logits that the cross
+    path makes: vlm with the gates set (:func:`set_gates`) against the
+    gates at zero; encdec with ``extra``'s audio frames against a second
+    draw.  Fails unless it exceeds ``SERVE_TOL``."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+
+    def logits(ex):
+        with torch.inference_mode():
+            return (tf.forward(params, cfg, prompt, ex).hidden
+                    @ params.head).float()
+    base = logits(extra)
+    if cfg.family == "vlm":
+        gates = [(b.gate_attn.clone(), b.gate_mlp.clone())
+                 for b in params.cross_layers]
+        with torch.no_grad():
+            for b in params.cross_layers:
+                b.gate_attn.zero_()
+                b.gate_mlp.zero_()
+        other = logits(extra)
+        with torch.no_grad():
+            for b, (ga, gm) in zip(params.cross_layers, gates):
+                b.gate_attn.copy_(ga)
+                b.gate_mlp.copy_(gm)
+        what = "gates set vs gates zero"
+    else:
+        g = torch.Generator(device=prompt.device).manual_seed(seed + 1)
+        other = logits(engine.frontend_inputs(cfg, prompt.shape[0], g,
+                                              prompt.device))
+        what = "audio frames vs a second draw"
+    delta = float((base - other).abs().max())
+    if not delta > SERVE_TOL:
+        fail(f"serve[{cfg.name}]: the cross path moves the logits by "
+             f"{delta} ({what}), not more than {SERVE_TOL}")
+    print(f"serve[{cfg.name}]: cross path live: max |logit change| "
+          f"{delta:.4f} ({what})")
+    return delta
+
+
 def serve_phase(dev, seed: int) -> dict:
-    """qwen3-4b, granite-moe-1b-a400m, zamba2-7b and xlstm-1.3b at full
-    width and depth, bfloat16, random weights from ``seed``: greedy
-    generation of ``SERVE_GEN`` tokens for ``SERVE_BATCH`` prompts of
-    ``SERVE_PROMPT`` through ``serve.engine`` (bf16 KV, and int8 for
-    the dense and MoE families), timed after a warm-up, decode held
-    against one full forward (MoE at ``capacity_factor=100`` for the
-    check; the hybrid and ssm families in bf16 at full width cut to
-    ``SERVE_CUT_LAYERS`` layers, :func:`_hold_recurrent_bf16`, and at
-    full depth in float32, :func:`_hold_recurrent_f32`, their full-depth
-    bf16 drift measured), the decode step profiled, and its bound."""
+    """qwen3-4b, granite-moe-1b-a400m, zamba2-7b, xlstm-1.3b,
+    seamless-m4t-medium and llama-3.2-vision-11b at full width and
+    depth, bfloat16, random weights from ``seed`` (the vlm gates set
+    nonzero, :func:`set_gates`; the encdec and vlm families' frontend
+    inputs from the seeded generator): greedy generation of
+    ``SERVE_GEN`` tokens for ``SERVE_BATCH`` prompts of ``SERVE_PROMPT``
+    through ``serve.engine`` (bf16 KV, and int8 for the attention
+    families), timed after a warm-up, decode held against one full
+    forward (MoE at ``capacity_factor=100`` for the check; the hybrid
+    and ssm families in bf16 at full width cut to ``SERVE_CUT_LAYERS``
+    layers, :func:`_hold_recurrent_bf16`, and at full depth in float32,
+    :func:`_hold_recurrent_f32`, their full-depth bf16 drift measured),
+    the decode step profiled, and its bound; for the encdec and vlm
+    families the cross path shown live (:func:`_cross_live`)."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import transformer as tf
@@ -3899,22 +3993,24 @@ def serve_phase(dev, seed: int) -> dict:
         params = tf.init_params(cfg, seed=seed, device=dev)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
+        set_gates(params, seed)
         g = torch.Generator(device=dev).manual_seed(seed)
         prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                                generator=g, device=dev)
+        extra = engine.frontend_inputs(cfg, SERVE_BATCH, g, dev)
         n_params = sum(p.numel() for p in params.parameters())
         print(f"serve[{arch}]: {n_params / 1e9:.3f} G parameters "
               f"({cfg.dtype}) initialised in {t_init:.1f} s")
         ctx = SERVE_PROMPT + SERVE_GEN // 2
-        # the int8 cache is the dense and MoE families' option; the
+        # the int8 cache is the attention families' option; the
         # recurrent families are held in bf16
-        kvs = ("bfloat16", "int8") if cfg.family in ("dense", "moe") \
-            else ("bfloat16",)
+        attention = cfg.family in ("dense", "moe", "encdec", "vlm")
+        kvs = ("bfloat16", "int8") if attention else ("bfloat16",)
         for kv in kvs:
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
-            _generate(params, c, prompt, SERVE_GEN)            # warm-up
+            _generate(params, c, prompt, SERVE_GEN, extra)     # warm-up
             toks, logits, pre_ms, step_ms = _generate(params, c, prompt,
-                                                      SERVE_GEN)
+                                                      SERVE_GEN, extra)
             if toks.shape != (SERVE_BATCH, SERVE_GEN) or \
                     not bool(torch.isfinite(logits).all()) or \
                     not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
@@ -3929,14 +4025,14 @@ def serve_phase(dev, seed: int) -> dict:
             held = _hold_decode(f"serve[{arch}, {kv}]", params, check,
                                 prompt, toks, logits,
                                 SERVE_TOL if kv == "bfloat16"
-                                else SERVE_TOL_INT8, gen_log) \
-                if cfg.family in ("dense", "moe") else \
+                                else SERVE_TOL_INT8, gen_log, extra) \
+                if attention else \
                 _recurrent_drift(params, c, prompt, toks, logits)
-            kernels, dev_ms = _decode_profile(params, c, prompt)
+            kernels, dev_ms = _decode_profile(params, c, prompt, extra)
             pre_fn = engine.make_prefill_step(c, max_len=SERVE_PROMPT
                                               + SERVE_GEN)
             pre_dev_ms, pre_kernels, _ = device_profile(
-                lambda: pre_fn(params, prompt), reps=1)
+                lambda: pre_fn(params, prompt, extra), reps=1)
             n_bytes, bound_ms = _decode_bound(c, params, ctx)
             costs = roof.step_costs(c, ShapeConfig(
                 "serve_decode", ctx, SERVE_BATCH, "decode"),
@@ -3972,6 +4068,9 @@ def serve_phase(dev, seed: int) -> dict:
             _hold_recurrent_bf16(arch, cfg, seed, prompt)
             out[f"{arch}/float32"] = _hold_recurrent_f32(arch, cfg, params,
                                                          prompt)
+        if cfg.family in ("encdec", "vlm"):
+            out[f"{arch}/cross_live_max_logit_change"] = _cross_live(
+                params, cfg, prompt, extra, seed)
         del params
         torch.cuda.empty_cache()
     print(f"serve: {json.dumps(out)}")
@@ -3980,7 +4079,8 @@ def serve_phase(dev, seed: int) -> dict:
 
 TRAIN_F32_ARCHS = (("stablelm-1.6b", {}),
                    ("granite-moe-1b-a400m", {"capacity_factor": 100.0}),
-                   ("zamba2-7b", {}), ("xlstm-1.3b", {}))
+                   ("zamba2-7b", {}), ("xlstm-1.3b", {}),
+                   ("seamless-m4t-medium", {}), ("llama-3.2-vision-11b", {}))
 TRAIN_F32_TOL = 1e-4      # the card vs the CPU, float32, TF32 off
 TRAIN_F32_LR = 1e-5       # Adam's first step moves a weight by ~lr * sign(g)
 TRAIN_ARCH = "stablelm-1.6b"
@@ -3995,12 +4095,14 @@ def train_f32_cpu(dev) -> None:
     family's reduced float32 config on the card against the same step
     on the CPU, the same weights and batch: loss and grad norm within
     ``TRAIN_F32_TOL`` relative, every parameter within it absolute (TF32
-    off).  At ``TRAIN_F32_LR`` a gradient within rounding of zero that
+    off); the encdec and vlm families with their frontend inputs in the
+    batch and the vlm gates set (:func:`set_gates`).  At ``TRAIN_F32_LR`` a gradient within rounding of zero that
     takes the other sign on one side moves its weight by 2e-5, inside
     the tolerance."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import frontend_shapes
     from repro_torch.train import optim
     from repro_torch.train import step as step_lib
 
@@ -4012,9 +4114,11 @@ def train_f32_cpu(dev) -> None:
         ocfg = optim.OptConfig(lr=TRAIN_F32_LR, warmup_steps=0,
                                total_steps=10)
         cpu, cpu_opt = step_lib.init_train_state(cfg, ocfg, 0, "cpu")
+        set_gates(cpu, 0)
         card = copy.deepcopy(cpu).to(dev)
         card_opt = optim.init(card, ocfg)
         batch = TokenPipeline(cfg.vocab, 16, 4, microbatches=2,
+                              extra_shapes=frontend_shapes(cfg),
                               seed=1).batch_at(0)
         step = step_lib.make_train_step(cfg, ocfg, 2)
         out = {}
@@ -4170,10 +4274,70 @@ def train_phase(dev, seed: int) -> dict:
     return row
 
 
+#: the dry-run cells whose step runs on ``meta`` in :func:`dryrun_phase`
+#: (the rest record their specs only): the decode cells of both meshes,
+#: and the encdec and vlm families' train step on one mesh (its shapes
+#: are the same on both).  The other train cells and the 32k prefills
+#: take from seconds to minutes of host dispatch each (PERF.md section 6)
+DRYRUN_META_KINDS = ("decode",)
+DRYRUN_META_CELLS = (("seamless-m4t-medium", "train_4k", False),
+                     ("llama-3.2-vision-11b", "train_4k", False))
+
+
+def dryrun_phase() -> dict:
+    """The dry-run's sweep (``python -m repro_torch.launch.dryrun``) of
+    all 80 cells (10 archs x 4 shapes x the 16 x 16 and 2 x 16 x 16
+    meshes) on this machine's CPU, which has no JAX: every cell's specs,
+    per-card argument bytes, analytic costs and roofline terms, and the
+    step run on ``meta`` at full size in the decode cells and
+    ``DRYRUN_META_CELLS``.  Fails unless 64 cells are ``OK``, 16
+    ``SKIPPED`` (the ``long_500k`` cells of the full-attention archs)
+    and none ``FAILED``, every decode cell memory-bound and every serve
+    cell within 80 GB a card."""
+    from repro_torch.configs import ALL_SHAPES, ARCH_IDS, shape_by_name
+    from repro_torch.launch import dryrun
+
+    recs, lines = [], []
+    t0 = time.perf_counter()
+    n = dryrun.sweep(
+        dryrun.cells(ARCH_IDS, [s.name for s in ALL_SHAPES], (False, True)),
+        None, run=lambda a, s, m: shape_by_name(s).kind in DRYRUN_META_KINDS
+        or (a, s, m) in DRYRUN_META_CELLS, log=lines.append, records=recs)
+    wall = time.perf_counter() - t0
+    if n != {"ok": 64, "skipped": 16, "failed": 0}:
+        fail(f"dryrun: {n}; {[x for x in lines if 'FAILED' in x][:3]}")
+    ok = [r for r in recs if r["status"] == "OK"]
+    for r in ok:
+        if r["kind"] == "decode" and r["roofline"]["dominant"] != "memory":
+            fail(f"dryrun: {r['arch']} {r['shape']} {r['mesh']} is "
+                 f"{r['roofline']['dominant']}-bound")
+        if r["kind"] != "train" and not r["memory"]["model_fits_80g_hbm"]:
+            fail(f"dryrun: {r['arch']} {r['shape']} {r['mesh']} needs "
+                 f"{r['memory']['model_per_device_total'] / 1e9:.1f} GB")
+    runs = sorted((r["meta_run_s"], r["arch"], r["shape"], r["mesh"])
+                  for r in ok if r["meta_run"])
+    largest = max(ok, key=lambda r: r["memory"]["model_per_device_total"])
+    row = {"ok": n["ok"], "skipped": n["skipped"], "failed": n["failed"],
+           "wall_s": wall, "meta_runs": len(runs),
+           "meta_run_s": sum(x[0] for x in runs),
+           "slowest_meta_run": runs[-1] if runs else None,
+           "largest_cell": [largest["arch"], largest["shape"],
+                            largest["mesh"],
+                            largest["memory"]["model_per_device_total"]]}
+    print(f"dryrun: {n['ok']} ok, {n['skipped']} skipped, {n['failed']} "
+          f"failed in {wall:.1f} s ({len(runs)} cells' steps run on meta "
+          f"in {row['meta_run_s']:.1f} s, the slowest {runs[-1]}); every "
+          f"decode cell memory-bound, every serve cell within 80 GB a card "
+          f"(largest cell {row['largest_cell']})")
+    print(f"dryrun: {json.dumps(row)}")
+    return row
+
+
 #: the phase groups ``--phases`` names, in the order they run, and the
 #: groups whose results each needs
 PHASES = ("main", "index", "claims", "session", "backfill", "tenancy",
-          "ensemble", "fleet", "placement", "serve", "train", "service")
+          "ensemble", "fleet", "placement", "serve", "train", "dryrun",
+          "service")
 PHASE_NEEDS = {"index": ("main",), "backfill": ("main",),
                "tenancy": ("main", "backfill")}
 
@@ -4353,6 +4517,11 @@ def main(argv=None) -> int:
         train_f32_cpu(dev)
         train_phase(dev, args.seed)
         print(f"train phases took {time.perf_counter() - t0:.1f} s")
+
+    if "dryrun" in phases:
+        t0 = time.perf_counter()
+        dryrun_phase()
+        print(f"dryrun phase took {time.perf_counter() - t0:.1f} s")
 
     if "service" in phases:
         t0 = time.perf_counter()

@@ -57,13 +57,18 @@ def local_device_count(device: DeviceLike = None) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def _production_axes(multi_pod: bool):
+    if multi_pod:
+        return ("pod", "data", "model"), (2, 16, 16)
+    return ("data", "model"), (16, 16)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16 x 16 = 256 cards per pod; 2 pods = 512 cards when multi_pod.
 
     Raises :class:`ValueError` where fewer cards are present.
     """
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    axes, shape = _production_axes(multi_pod)
     need = POD_CARDS * (2 if multi_pod else 1)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < need:
@@ -71,6 +76,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
                          f"cards; {have} present")
     return Mesh(axes, shape,
                 tuple(torch.device("cuda", i) for i in range(need)))
+
+
+def make_placeholder_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh's axes over ``meta`` placeholder devices: the
+    dry-run's mesh (the reference forces 512 host devices for it).  The
+    placement rules read only its axis names and sizes."""
+    axes, shape = _production_axes(multi_pod)
+    return Mesh(axes, shape,
+                (torch.device("meta"),) * (POD_CARDS * (2 if multi_pod else 1)))
 
 
 def make_host_mesh(device: DeviceLike = None) -> Mesh:

@@ -5,7 +5,8 @@
         [--device cpu]
 
 Random weights from a seeded generator (``--smoke``: the reduced
-config).  Prints the prefill latency, the decode throughput and step
+config); the encdec and vlm families get their stub frontends' inputs
+(``serve.engine.frontend_inputs``) from it too.  Prints the prefill latency, the decode throughput and step
 time, and sample tokens.  Each path runs once untimed first, and on a
 card the timed regions start and end with a synchronise.  Without
 ``--device`` it runs on cuda and fails without a card.
@@ -54,6 +55,7 @@ def main(argv=None) -> None:
     gen.manual_seed(0)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    extra = serve_lib.frontend_inputs(cfg, args.batch, gen, dev)
 
     max_len = args.prompt_len + args.gen
     prefill = serve_lib.make_prefill_step(cfg, max_len=max_len)
@@ -62,18 +64,18 @@ def main(argv=None) -> None:
     def decode_all(cache, tok):
         out = [tok]
         for _ in range(args.gen - 1):
-            logits, cache = decode(params, cache, tok)
+            logits, cache = decode(params, cache, tok, extra)
             tok = serve_lib.greedy_token(logits)
             out.append(tok)
         return torch.cat(out, dim=1)
 
     # untimed warm-up of both paths (allocator, library handles)
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, prompt, extra)
     decode_all(cache, serve_lib.greedy_token(logits))
     _sync(dev)
 
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, prompt, extra)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = serve_lib.greedy_token(logits)

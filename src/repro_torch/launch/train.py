@@ -39,6 +39,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def frontend_shapes(cfg) -> dict:
+    """The token pipeline's ``extra_shapes`` for the stub frontends: the
+    encdec family's ``enc_frames`` ``(enc_seq, d)`` and the vlm family's
+    ``image_embeds`` ``(vision_tokens, vision_dim)``, float32."""
+    if cfg.family == "encdec":
+        return {"enc_frames": ((cfg.enc_seq, cfg.d_model), np.float32)}
+    if cfg.family == "vlm":
+        return {"image_embeds": ((cfg.vision_tokens, cfg.vision_dim),
+                                 np.float32)}
+    return {}
+
+
 def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         ckpt_dir: str, ckpt_every: int, microbatches: int,
         lr: float = 3e-4, log_every: int = 10, config=None,
@@ -59,15 +71,8 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
                                   total_steps=steps)
     train_step = step_lib.make_train_step(cfg, opt_cfg, microbatches)
 
-    extra_shapes = {}
-    if cfg.family == "encdec":
-        extra_shapes["enc_frames"] = ((cfg.enc_seq, cfg.d_model),
-                                      np.float32)
-    if cfg.family == "vlm":
-        extra_shapes["image_embeds"] = (
-            (cfg.vision_tokens, cfg.vision_dim), np.float32)
     pipe = TokenPipeline(cfg.vocab, seq, batch, microbatches=microbatches,
-                         extra_shapes=extra_shapes, seed=0)
+                         extra_shapes=frontend_shapes(cfg), seed=0)
     mgr = CheckpointManager(ckpt_dir, keep=2)
 
     params, opt_state = step_lib.init_train_state(cfg, opt_cfg, seed, dev)

@@ -1,10 +1,12 @@
 """Grouped-query attention: training, prefill and cached decode paths.
 
-The port of ``repro/models/attention.py`` for the dense and MoE
-families: GQA with any kv-head count, optional qk-norm (qwen3), RoPE,
-the causal self-attention of a full sequence (with the blockwise
-online-softmax path for long ones) and the one-token decode against a
-KV cache (full, or a ``window``-slot ring buffer), in bfloat16 or int8.
+The port of ``repro/models/attention.py``: GQA with any kv-head count,
+optional qk-norm (qwen3), RoPE, the causal self-attention of a full
+sequence (with the blockwise online-softmax path for long ones), the
+cross-attention of the encdec and vlm families (decoder states against
+precomputed encoder or image K / V: no RoPE, no causal mask) and the
+one-token decode against a KV cache (full, or a ``window``-slot ring
+buffer), in bfloat16 or int8.
 
 Softmax runs in float32; logits are scaled by ``1/sqrt(hd)``.  The
 parameters keep the reference's layouts (``wq`` / ``wk`` / ``wv``
@@ -197,6 +199,26 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(p: Attention, x: torch.Tensor,
+                    kv: Tuple[torch.Tensor, torch.Tensor], cfg: ModelConfig,
+                    enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attend from decoder states ``x`` ``[B, T, d]`` to precomputed
+    encoder K / V ``[B, S, Hkv, hd]`` (:func:`encoder_kv`); ``enc_mask``
+    ``[B, S]`` (True: attend) masks source positions."""
+    k, v = kv
+    q = _project_q(p, x, cfg)
+    mask = None if enc_mask is None else enc_mask[:, None, None, :]
+    out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
+    return _out(p, out)
+
+
+def encoder_kv(p: Attention, enc_out: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross-attention layer's K / V over the encoder's (or the
+    projected image's) states ``[B, S, d]``."""
+    return _project_kv(p, enc_out, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,11 @@
-"""Model assembly: the dense, MoE, hybrid and ssm families.
+"""Model assembly: the dense, MoE, hybrid, ssm, encdec and vlm families.
 
-The port of ``repro/models/transformer.py`` for ``family`` in
-``("dense", "moe", "hybrid", "ssm")``:
+The port of ``repro/models/transformer.py``:
 
     params = init_params(cfg, seed=0, device=dev)        # a Transformer
-    out = forward(params, cfg, tokens, collect=True)     # hidden, aux, kv
+    out = forward(params, cfg, tokens, extra, collect=True)
     loss, metrics = loss_fn(params, cfg, batch)          # training
-    logits, cache = prefill(params, cfg, tokens, max_len=T + n)
+    logits, cache = prefill(params, cfg, tokens, extra, max_len=T + n)
     logits, cache = decode_step(params, cfg, cache, tokens)
 
 The reference stacks its layers ``[L, ...]`` and runs them under
@@ -18,7 +17,21 @@ is the reference's ``layers.attn.wq[i]``), and
 training state, Adam moments included, both ways).  zamba2 (hybrid) is
 groups of [the one ``shared_attn`` block; ``attn_every`` Mamba2 layers]
 plus a remainder; xLSTM (ssm) is groups of [mLSTM layers; one sLSTM
-layer] (``slstm_layers``).  The decode cache keeps the reference's
+layer] (``slstm_layers``).  encdec (seamless) runs a bidirectional
+encoder (``enc_embed_proj``, ``enc_layers``, ``enc_norm``) over the
+stub frontend's ``extra["enc_frames"]`` ``[B, S, d]``, and each decoder
+layer is followed by an ungated cross-attention block of
+``cross_layers`` against its K / V.  vlm (llama-vision) projects
+``extra["image_embeds"]`` ``[B, N, vision_dim]`` with ``img_proj`` and
+follows every ``cross_attn_every``-th decoder layer with a gated cross
+block: its attention and MLP outputs are scaled by ``tanh`` of the
+float32 0-d ``gate_attn`` / ``gate_mlp``, which start at zero, so an
+untrained model ignores the image.  The reference picks the cross
+block with ``lax.cond`` inside its scan; the port picks it on the host
+in its loop of layers.  Prefill stores every cross layer's K / V as
+``cache["cross_kv"]`` (a ``(k, v)`` pair stacked ``[n_cross, B, S,
+Hkv, hd]``), which decode reads and never recomputes.  The decode
+cache keeps the reference's
 stacked layout (``k`` / ``v`` ``[L, B, S, Hkv, hd]``, the recurrent
 states ``[L, ...]``; ``pos`` a 0-d int32 tensor on the card), and each
 step writes it in place.  Decode computes RoPE angles for the current
@@ -29,9 +42,9 @@ Under grad (training) every layer is rematerialised, as the reference's
 ``jax.checkpoint(..., nothing_saveable)``: ``torch.utils.checkpoint``
 (non-reentrant) around each block, and for the hybrid family around
 each group and each Mamba layer inside it, as the reference's nested
-scans.  ``seq_parallel`` (a sharding constraint in the reference)
-changes nothing on one device.  The encdec and vlm families are not
-ported yet and raise :class:`NotImplementedError`.
+scans, and for the encdec / vlm families around each encoder layer
+and each decoder layer with its cross block.  ``seq_parallel`` (a
+sharding constraint in the reference) changes nothing on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.train.optim import OptState
 from repro_torch.models.common import (
+    apply_rope,
     dense_init,
     embed_init,
     param,
@@ -58,25 +72,14 @@ from repro_torch.models.common import (
     rope_angles,
 )
 
-#: the families this module runs
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-#: the ROADMAP item that ports each other family
-_UNPORTED = {
-    "encdec": "ROADMAP A17b (the encdec family)",
-    "vlm": "ROADMAP A17b (the vlm family)",
-}
+#: the families this module runs: all of the reference's
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Refuse a family this module does not run (no fallback)."""
-    if cfg.family in FAMILIES:
-        return
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-            f"{_UNPORTED[cfg.family]}")
-    raise ValueError(cfg.family)
+    """Refuse a family the reference does not have."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -103,8 +106,10 @@ def _xlstm_groups(cfg: ModelConfig) -> Tuple[int, int]:
 class Block(nn.Module):
     """One layer of ``kind``: ``ln1`` and then ``attn``, ``ln2`` and
     ``mlp`` (``"attn_mlp"``) or ``moe`` (``"attn_moe"``), or ``ssm``
-    (``"mamba"``), ``mlstm`` or ``slstm``.  The default kind is the
-    dense or MoE family's layer."""
+    (``"mamba"``), ``mlstm`` or ``slstm``; ``"cross"`` is ``ln1``, a
+    cross-attention ``attn`` (no qk-norm), ``ln2``, ``mlp`` and the
+    float32 0-d gates ``gate_attn`` / ``gate_mlp``.  The default kind
+    is the dense or MoE family's layer."""
 
     def __init__(self, cfg: ModelConfig, dtype, device=None,
                  kind: Optional[str] = None):
@@ -114,13 +119,18 @@ class Block(nn.Module):
         self.ln1 = param((d,), dtype, device)
         self.attn = self.ln2 = self.mlp = self.moe = None
         self.ssm = self.mlstm = self.slstm = None
-        if kind in ("attn_mlp", "attn_moe"):
-            self.attn = attn_lib.Attention(cfg, dtype, device)
+        self.gate_attn = self.gate_mlp = None
+        if kind in ("attn_mlp", "attn_moe", "cross"):
+            self.attn = attn_lib.Attention(cfg, dtype, device,
+                                           cross=kind == "cross")
             self.ln2 = param((d,), dtype, device)
             if kind == "attn_moe":
                 self.moe = moe_lib.MoE(cfg, dtype, device)
             else:
                 self.mlp = mlp_lib.MLP(d, cfg.d_ff, dtype, device)
+            if kind == "cross":
+                self.gate_attn = param((), torch.float32, device)
+                self.gate_mlp = param((), torch.float32, device)
         elif kind == "mamba":
             self.ssm = ssm_lib.SSM(cfg, dtype, device)
         elif kind == "mlstm":
@@ -134,6 +144,9 @@ class Block(nn.Module):
         self.ln1.fill_(1)
         if self.ln2 is not None:
             self.ln2.fill_(1)
+        for g in (self.gate_attn, self.gate_mlp):
+            if g is not None:
+                g.zero_()
         for sub in (self.attn, self.mlp, self.moe, self.ssm, self.mlstm,
                     self.slstm):
             if sub is not None:
@@ -144,9 +157,13 @@ class Transformer(nn.Module):
     """The parameters of a model: ``tok_embed`` ``[V, d]``,
     ``final_norm``, ``lm_head`` ``[d, V]`` (absent with
     ``tie_embeddings``) and ``layers`` (attention, Mamba2 or mLSTM
-    blocks by family), plus the hybrid family's ``shared_attn`` block
-    and the ssm family's ``slstm_layers``.  Construction allocates
-    without initialising (on ``device="meta"`` it allocates nothing)."""
+    blocks by family), plus the hybrid family's ``shared_attn`` block,
+    the ssm family's ``slstm_layers``, the encdec family's
+    ``enc_embed_proj`` ``[d, d]``, ``enc_layers``, ``enc_norm`` and
+    ``cross_layers`` (one a decoder layer) and the vlm family's
+    ``img_proj`` ``[vision_dim, d]`` and ``cross_layers`` (one every
+    ``cross_attn_every`` layers).  Construction allocates without
+    initialising (on ``device="meta"`` it allocates nothing)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -160,8 +177,26 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else param(
             (cfg.d_model, cfg.vocab), dt, device)
         self.shared_attn = self.slstm_layers = None
+        self.enc_embed_proj = self.enc_layers = self.enc_norm = None
+        self.img_proj = self.cross_layers = None
         kind, n = None, cfg.n_layers
-        if cfg.family == "hybrid":
+        if cfg.family == "encdec":
+            kind = "attn_mlp"
+            self.enc_embed_proj = param((cfg.d_model, cfg.d_model), dt,
+                                        device)
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, dt, device, "attn_mlp")
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = param((cfg.d_model,), dt, device)
+            self.cross_layers = nn.ModuleList(
+                Block(cfg, dt, device, "cross") for _ in range(n))
+        elif cfg.family == "vlm":
+            kind = "attn_mlp"
+            self.img_proj = param((cfg.vision_dim, cfg.d_model), dt, device)
+            self.cross_layers = nn.ModuleList(
+                Block(cfg, dt, device, "cross")
+                for _ in range(n // cfg.cross_attn_every))
+        elif cfg.family == "hybrid":
             kind = "mamba"
             self.shared_attn = Block(cfg, dt, device, "attn_mlp")
         elif cfg.family == "ssm":
@@ -185,10 +220,12 @@ class Transformer(nn.Module):
                                         self.tok_embed.dtype,
                                         self.tok_embed.device))
         self.final_norm.fill_(1)
-        if self.lm_head is not None:
-            self.lm_head.copy_(dense_init(gen, self.lm_head.shape,
-                                          cfg.d_model, self.lm_head.dtype,
-                                          self.lm_head.device))
+        for w in (self.lm_head, self.enc_embed_proj, self.img_proj):
+            if w is not None:
+                w.copy_(dense_init(gen, w.shape, w.shape[0], w.dtype,
+                                   w.device))
+        if self.enc_norm is not None:
+            self.enc_norm.fill_(1)
         for blk in self.modules():
             if isinstance(blk, Block):
                 blk.reset(gen)
@@ -274,7 +311,8 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ModelConfig,
 
     ``tree`` is the reference's nested dict with numpy (or array-like)
     leaves and its stacked ``[L, ...]`` layer leaves (``layers``,
-    ``slstm_layers``); layer ``i`` of the port takes row ``i`` of each,
+    ``slstm_layers``, ``enc_layers``, ``cross_layers``: the gates
+    ``[n]`` float32); layer ``i`` of the port takes row ``i`` of each,
     and unstacked leaves (``shared_attn``) go across as they are.
     bfloat16 arrays go through float32, which is exact both ways.
     """
@@ -393,6 +431,43 @@ def _attn_block_decode(blk: Block, x, cache, pos, cfg, rope, window=0):
     return x + h, cache
 
 
+def _cross_block(blk: Block, x, kv, cfg, gated: bool):
+    """Cross-attention to ``kv`` and an MLP, each a residual branch;
+    ``gated`` scales both branches by ``tanh`` of the block's gates."""
+    h = attn_lib.cross_attention(
+        blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), kv, cfg)
+    if gated:
+        h = h * torch.tanh(blk.gate_attn).to(h.dtype)
+    x = x + h
+    h = mlp_lib.mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps))
+    if gated:
+        h = h * torch.tanh(blk.gate_mlp).to(h.dtype)
+    return x + h
+
+
+def _cross_layer(blk: Block, cross: Optional[Block], kv, x, cfg, rope,
+                 gated: bool, collect: bool):
+    """A decoder layer and then, where ``cross`` is given, its cross
+    block against ``kv``: ``(x, the layer's roped K / V or None)``."""
+    x, _, self_kv = _attn_block(blk, x, cfg, rope, 0, collect)
+    if cross is not None:
+        x = _cross_block(cross, x, kv, cfg, gated)
+    return x, self_kv
+
+
+def _enc_layer(blk: Block, x, cfg, rope):
+    """A bidirectional encoder layer: RoPE'd attention with no mask."""
+    xn = rms_norm(x, blk.ln1, cfg.norm_eps)
+    q = attn_lib._project_q(blk.attn, xn, cfg)
+    k, v = attn_lib._project_kv(blk.attn, xn, cfg)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    h = attn_lib._sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv_heads)
+    y = x + attn_lib._out(blk.attn, h)
+    return y + mlp_lib.mlp(blk.mlp, rms_norm(y, blk.ln2, cfg.norm_eps))
+
+
 def _mamba_layer(blk: Block, x, cfg):
     y, st = ssm_lib.ssm_forward(blk.ssm, x, cfg)
     return x + y, st
@@ -431,7 +506,8 @@ class ForwardOut(NamedTuple):
     hidden: torch.Tensor
     aux: Dict[str, torch.Tensor]
     kv: Any           # per-layer roped (K, V) lists (collect=True) or None
-    states: Any       # recurrent states (hybrid / ssm, collect=True) or None
+    states: Any       # recurrent states (hybrid / ssm) or the cross
+                      # layers' stacked (K, V) (encdec / vlm), collect=True
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
@@ -441,9 +517,13 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     caches: each attention layer's (or shared-attention application's)
     roped K / V (``kv = (ks, vs)``, one tensor each) and the recurrent
     states, stacked ``[L, ...]`` (hybrid: an ``SSMState``; ssm:
-    ``{"mlstm": MLSTMState, "slstm": SLSTMState or None}``).  ``extra``
-    (the encdec and vlm families' inputs) is unused here."""
+    ``{"mlstm": MLSTMState, "slstm": SLSTMState or None}``; encdec /
+    vlm: every cross layer's ``(K, V)``, each ``[n_cross, B, S, Hkv,
+    hd]``).  ``extra`` holds the encdec family's ``enc_frames`` ``[B, S,
+    d]`` or the vlm family's ``image_embeds`` ``[B, N, vision_dim]``
+    (any float dtype; cast to the model's)."""
     check_family(cfg)
+    extra = extra or {}
     t = tokens.shape[1]
     x = params.tok_embed[tokens]
     rope = attn_lib.make_rope(cfg, max(t, 1), x.device)
@@ -466,10 +546,66 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     elif cfg.family == "hybrid":
         x, kv_out, states_out = _hybrid_forward(params, cfg, x, rope,
                                                 collect, remat)
-    else:
+    elif cfg.family == "ssm":
         x, states_out = _xlstm_forward(params, cfg, x, collect, remat)
+    else:
+        x, kv_out, states_out = _crossdec_forward(params, cfg, x, rope,
+                                                  extra, collect, remat)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return ForwardOut(hidden=x, aux=aux, kv=kv_out, states=states_out)
+
+
+def _encode(params, cfg, frames, rope, remat):
+    """The bidirectional encoder over (stub) audio frame embeddings."""
+    x = frames.to(_dtype(cfg)) @ params.enc_embed_proj
+    for blk in params.enc_layers:
+        x = _remat(remat, _enc_layer, blk, x, cfg, rope)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _cross_kvs(cross_layers, states, cfg) -> List[Tuple[torch.Tensor,
+                                                        torch.Tensor]]:
+    """Every cross-attention layer's K / V over ``states``."""
+    return [attn_lib.encoder_kv(blk.attn, states, cfg)
+            for blk in cross_layers]
+
+
+def _cross_at(cfg: ModelConfig, i: int) -> Optional[int]:
+    """The cross layer that follows decoder layer ``i``, or ``None``:
+    every layer's (encdec), every ``cross_attn_every``-th layer's
+    (vlm)."""
+    if cfg.family == "encdec":
+        return i
+    every = cfg.cross_attn_every
+    return i // every if (i + 1) % every == 0 else None
+
+
+def _crossdec_forward(params, cfg, x, rope, extra, collect, remat):
+    """The encdec and vlm decoders: each layer, then its cross block
+    (if any) against the encoder's or the image's K / V."""
+    if cfg.family == "encdec":
+        # the encoder's frames outnumber the prompt: a longer table
+        rope = attn_lib.make_rope(cfg, max(x.shape[1], cfg.enc_seq),
+                                  x.device)
+        src = _encode(params, cfg, extra["enc_frames"], rope, remat)
+    else:
+        src = extra["image_embeds"].to(_dtype(cfg)) @ params.img_proj
+    kvs = _cross_kvs(params.cross_layers, src, cfg)
+    gated = cfg.family == "vlm"
+    ks, vs = [], []
+    for i, blk in enumerate(params.layers):
+        ci = _cross_at(cfg, i)
+        cross, kv = (None, None) if ci is None else \
+            (params.cross_layers[ci], kvs[ci])
+        x, self_kv = _remat(remat, _cross_layer, blk, cross, kv, x, cfg,
+                            rope, gated, collect)
+        if collect:
+            ks.append(self_kv[0])
+            vs.append(self_kv[1])
+    if not collect:
+        return x, None, None
+    return x, (ks, vs), (torch.stack([k for k, _ in kvs]),
+                         torch.stack([v for _, v in kvs]))
 
 
 def _hybrid_group(shared, layers, x, cfg, rope, window, collect, remat):
@@ -578,14 +714,15 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     KV cache (``[L, B, S, Hkv, hd]``; hybrid: one entry per application
     of the shared block, a ``window``-slot ring under
     ``long_attention="window"``), ``ssm`` (hybrid) or ``mlstm`` /
-    ``slstm`` (ssm) states."""
+    ``slstm`` (ssm) states.  The encdec and vlm families' ``cross_kv``
+    is the prefill's (:func:`prefill`)."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=dev)}
     kv_len = _attn_cache_len(cfg, max_len)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "encdec", "vlm"):
         cache["attn"] = attn_lib.init_cache(cfg, batch, kv_len, dt, dev,
                                             n_layers=cfg.n_layers)
     elif cfg.family == "hybrid":
@@ -609,7 +746,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt, build the decode cache, return the last
-    position's float32 logits ``[B, V]``."""
+    position's float32 logits ``[B, V]``.  ``extra``: the encdec and
+    vlm families' frontend inputs (:func:`forward`)."""
     b, t = tokens.shape
     max_len = max_len or t
     out = forward(params, cfg, tokens, extra, collect=True)
@@ -635,6 +773,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         cache["mlstm"] = out.states["mlstm"]
         if out.states["slstm"] is not None:
             cache["slstm"] = out.states["slstm"]
+    elif cfg.family in ("encdec", "vlm"):
+        cache["cross_kv"] = out.states
     return logits.float(), cache
 
 
@@ -646,6 +786,8 @@ def decode_step(params: Transformer, cfg: ModelConfig,
 
     Writes the step's K / V and recurrent states into ``cache`` in place
     and returns it with ``pos`` advanced; nothing crosses to the host.
+    The encdec and vlm families read the prefill's ``cross_kv``;
+    ``extra`` is unused, as in the reference.
     """
     check_family(cfg)
     pos = cache["pos"]
@@ -657,8 +799,10 @@ def decode_step(params: Transformer, cfg: ModelConfig,
             x = _attn_decode_at(blk, x, cache, i, pos, cfg, rope)
     elif cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, x, cache, pos, rope)
-    else:
+    elif cfg.family == "ssm":
         x = _xlstm_decode(params, cfg, x, cache)
+    else:
+        x = _crossdec_step(params, cfg, x, cache, pos, rope)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x @ params.head)[:, 0].float()
     cache["pos"] = pos + 1
@@ -720,4 +864,19 @@ def _xlstm_decode(params, cfg, x, cache):
         x = x + h
     for i in range(n_s * per_group, len(params.layers)):
         x = mlstm(i, x)
+    return x
+
+
+def _crossdec_step(params, cfg, x, cache, pos, rope):
+    """The encdec and vlm decoders' step: each layer against its KV
+    cache entry, then its cross block (if any) against the cached
+    cross K / V."""
+    ck, cv = cache["cross_kv"]
+    gated = cfg.family == "vlm"
+    for i, blk in enumerate(params.layers):
+        x = _attn_decode_at(blk, x, cache, i, pos, cfg, rope)
+        ci = _cross_at(cfg, i)
+        if ci is not None:
+            x = _cross_block(params.cross_layers[ci], x, (ck[ci], cv[ci]),
+                             cfg, gated)
     return x

@@ -13,12 +13,16 @@ mesh) it counts a step's FLOPs, HBM bytes and collective bytes, and
 The counts depend only on the configuration and the mesh; only
 :meth:`Costs.terms` reads the card's constants.  The fleet runtime
 (:func:`repro_torch.runtime.fleet.estimate_duration`) prices every job
-with it.  The compiled-HLO collective parse waits for the port's
-dry-run.
+with it.  :func:`parse_collectives` is the reference's text parse of
+compiled HLO (result bytes of every collective, by kind), copied as it
+is; the port compiles no HLO, so its dry-run
+(:mod:`repro_torch.launch.dryrun`) records the analytic collective
+bytes instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -344,3 +348,44 @@ def _decode_cache_bytes(cfg: ModelConfig, shape: ShapeConfig) -> float:
         s_state = n_s * b * cfg.d_model * 4 * 4
         return 2 * (m_state + s_state)
     return 0.0
+
+
+# ---------------------------------------------------------------------------
+# compiled-HLO collective extraction
+# ---------------------------------------------------------------------------
+
+_SHAPE_RE = re.compile(r"(f64|f32|bf16|f16|s64|s32|u64|u32|s8|u8|pred)"
+                       r"\[([0-9,]*)\]")
+_DTYPE_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4,
+                "u32": 4, "bf16": 2, "f16": 2, "s8": 1, "u8": 1,
+                "pred": 1}
+_COLL_RE = re.compile(
+    r"^\s*(?:%\S+\s*=\s*)?(\([^)]*\)|\S+)\s*"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|"
+    r"collective-permute)(?:-start)?\(", re.M)
+
+
+def _shape_bytes(text: str) -> int:
+    total = 0
+    for dt, dims in _SHAPE_RE.findall(text):
+        n = 1
+        for x in dims.split(","):
+            if x:
+                n *= int(x)
+        total += n * _DTYPE_BYTES[dt]
+    return total
+
+
+def parse_collectives(hlo_text: str) -> Dict[str, float]:
+    """Sum result-shape bytes of every collective op, by op kind.
+
+    NOTE: ops inside ``while`` bodies are counted once (XLA prints the
+    body once); the analytic model is authoritative for loop-carried
+    collectives and this parse is the structural cross-check.
+    """
+    out: Dict[str, float] = {}
+    for m in _COLL_RE.finditer(hlo_text):
+        shape_txt, kind = m.group(1), m.group(2)
+        out[kind] = out.get(kind, 0.0) + _shape_bytes(shape_txt)
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out

@@ -32,6 +32,24 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return decode_step
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int,
+                    gen: Optional[torch.Generator] = None,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The stub frontends' ``extra``: the encdec family's precomputed
+    audio frames ``enc_frames`` ``[B, enc_seq, d]`` or the vlm family's
+    patch embeddings ``image_embeds`` ``[B, vision_tokens, vision_dim]``,
+    float32 normals x 0.1 from ``gen`` (the reference's launcher draws
+    the same distribution); empty for the other families."""
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_seq, cfg.d_model)
+    elif cfg.family == "vlm":
+        shape = (batch, cfg.vision_tokens, cfg.vision_dim)
+    else:
+        return {}
+    name = "enc_frames" if cfg.family == "encdec" else "image_embeds"
+    return {name: torch.randn(shape, generator=gen, device=device) * 0.1}
+
+
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     """``[B, V]`` logits -> ``int32[B, 1]``, the first maximum's index."""
     return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -8,7 +8,8 @@ Both sides write the same layout (one ``leaf_<i>.npy`` per leaf in
 opt_state)`` written by the reference's ``CheckpointManager`` is restored
 by the port's, and the reverse, bit-equal on every leaf, for bfloat16
 reduced configs of the dense, hybrid (``shared_attn`` unstacked, float32
-Mamba leaves) and ssm (``slstm_layers``) families.
+Mamba leaves), ssm (``slstm_layers``) and vlm (``cross_layers`` with
+their float32 gates, ``img_proj``) families.
 """
 import dataclasses
 import json
@@ -125,7 +126,7 @@ def test_flatten_order_is_jax_tree_flatten():
 # cross restores with the JAX package
 # ---------------------------------------------------------------------------
 
-ARCHS = ["stablelm-1.6b", "zamba2-7b", "xlstm-1.3b"]
+ARCHS = ["stablelm-1.6b", "zamba2-7b", "xlstm-1.3b", "llama-3.2-vision-11b"]
 
 
 def _ref_state(arch):

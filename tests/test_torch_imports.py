@@ -63,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train", "repro_torch.train.optim",
             "repro_torch.train.step", "repro_torch.checkpoint",
             "repro_torch.checkpoint.manager", "repro_torch.launch.train",
-            "repro_torch.models.ssm", "repro_torch.models.xlstm"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.models.xlstm",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

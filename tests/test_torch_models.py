@@ -2,14 +2,18 @@
 
 Each block of ``repro_torch.models`` (norms, RoPE, SwiGLU, attention
 in its full, blockwise and cached-decode forms, the MoE dispatch, the
-Mamba2 and mLSTM / sLSTM blocks with a state carried in) and the dense,
-MoE, hybrid and ssm families end to end (``forward``, ``prefill``,
-``decode_step``, the window cache) get the same inputs as the
+Mamba2 and mLSTM / sLSTM blocks with a state carried in, the cross
+attention) and all six families end to end (``forward``, ``prefill``,
+``decode_step``, the window cache, the encdec and vlm families' cross
+K / V) get the same inputs as the
 reference: weights from the reference's ``init_params`` carried across
 with ``params_from_reference``, activations drawn from a numpy seed.
 float32 runs agree within ``rtol = atol = 1e-4``; bfloat16 runs within
 the reference's own serving tolerance of 0.12; int8 KV values, the MoE
-expert ids, keep mask and slot table are equal.
+expert ids, keep mask and slot table are equal.  The vlm family's gates
+start at zero, where a gated cross block returns its input whatever the
+image, so every vlm comparison first sets them to nonzero values drawn
+from the seed on both sides.
 """
 import dataclasses
 
@@ -42,7 +46,7 @@ BF16 = dict(rtol=0.12, atol=0.12)
 SERVED = ["qwen3-4b", "stablelm-1.6b", "starcoder2-7b", "minitron-8b",
           "granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 RECURRENT = ["zamba2-7b", "xlstm-1.3b"]
-UNPORTED = ["seamless-m4t-medium", "llama-3.2-vision-11b"]
+CROSS = ["seamless-m4t-medium", "llama-3.2-vision-11b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,7 +135,7 @@ def test_mlp(dtype):
 
 
 def test_count_params_and_init():
-    for arch in SERVED + RECURRENT:
+    for arch in SERVED + RECURRENT + CROSS:
         rcfg, pcfg = _cfgs(arch)
         rp = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
         model = tf.init_params(pcfg, seed=0, device="cpu")
@@ -153,17 +157,6 @@ def test_count_params_and_init():
                         device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(m.parameters(),
                                                  m2.parameters()))
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_refuse(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tf.Transformer(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tf.init_decode_cache(cfg, 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -700,3 +693,228 @@ def test_bf16_moe_routing_against_the_reference(monkeypatch):
         assert port_vs_eager[i] <= ref_compiled_vs_eager[i], i
     assert sum(ref_compiled_vs_eager) > 0
     assert ref_decode_vs_forward == [0] * n_layers
+
+
+# ---------------------------------------------------------------------------
+# the encdec and vlm families
+# ---------------------------------------------------------------------------
+
+def _set_gates(rp, pp, seed):
+    """Nonzero gates (|g| in [0.5, 1.5), either sign) drawn from
+    ``seed``, on both sides: at zero a gated block ignores the image."""
+    n = len(pp.cross_layers)
+    rng = np.random.default_rng(seed + 100)
+    g = rng.uniform(0.5, 1.5, (2, n)) * rng.choice([-1.0, 1.0], (2, n))
+    rp = dict(rp, cross_layers=dict(
+        rp["cross_layers"], gate_attn=jnp.asarray(g[0], jnp.float32),
+        gate_mlp=jnp.asarray(g[1], jnp.float32)))
+    for blk, ga, gm in zip(pp.cross_layers, g[0], g[1]):
+        blk.gate_attn.fill_(float(np.float32(ga)))
+        blk.gate_mlp.fill_(float(np.float32(gm)))
+    return rp
+
+
+def _cross_models(arch, dtype="float32", seed=0, **kw):
+    rcfg, pcfg, rp, pp = _models(arch, dtype, seed, **kw)
+    return rcfg, pcfg, _set_gates(rp, pp, seed), pp
+
+
+def _frontend(cfg, b, seed):
+    """The family's ``extra`` from a numpy seed, on both sides."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        name, shape = "enc_frames", (b, cfg.enc_seq, cfg.d_model)
+    else:
+        name, shape = "image_embeds", (b, cfg.vision_tokens, cfg.vision_dim)
+    a = rng.normal(size=shape).astype(np.float32) * 0.5
+    return {name: jnp.asarray(a)}, {name: torch.from_numpy(a)}
+
+
+def _ref_logits(rp, hidden):
+    return jnp.einsum("bd,dv->bv", hidden, rp["lm_head"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_and_encoder_kv(dtype):
+    rcfg, pcfg, rp, pp = _cross_models("llama-3.2-vision-11b", dtype)
+    rblk, pblk = _layer0(rp["cross_layers"]["attn"]), pp.cross_layers[0].attn
+    assert pblk.q_norm is None and "q_norm" not in rblk
+    rng = np.random.default_rng(20)
+    jx, tx = _pair(rng.normal(size=(2, 5, 128)), dtype)
+    js, ts = _pair(rng.normal(size=(2, 9, 128)), dtype)
+    kv = attn.encoder_kv(pblk, ts, pcfg)
+    rkv = ref_attn.encoder_kv(rblk, js, rcfg)
+    tol = F32 if dtype == "float32" else BF16
+    for a, r in zip(kv, rkv):
+        np.testing.assert_allclose(_np(a), _np(r), **tol)
+    mask = rng.random((2, 9)) < 0.6
+    mask[:, 0] = True
+    for m in (None, mask):
+        got = attn.cross_attention(pblk, tx, kv, pcfg,
+                                   None if m is None else torch.from_numpy(m))
+        want = ref_attn.cross_attention(rblk, jx, rkv, rcfg,
+                                        None if m is None else jnp.asarray(m))
+        assert got.dtype == tx.dtype
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _int8_equal_off_ties(got, want, x):
+    """int8 cache values ``got`` equal the reference's ``want`` except
+    where the float value ``x`` they quantise lies within 1e-3 of a
+    rounding boundary: there the two sides' float32 inputs (equal within
+    rounding) may round one step apart."""
+    got, want = (np.asarray(a).astype(np.int32) for a in (got, want))
+    x = np.asarray(x, np.float32)
+    x = x / (np.max(np.abs(x), -1, keepdims=True) / 127.0 + 1e-9)
+    tie = np.abs(np.abs(x - np.trunc(x)) - 0.5) < 1e-3
+    assert (np.abs(got - want) <= 1).all()
+    assert ((got == want) | tie).all()
+
+
+CROSS_CASES = [(a, d, kv) for a in CROSS
+               for d, kv in (("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+                             ("float32", "int8"))]
+
+
+@pytest.mark.parametrize("arch,dtype,kv", CROSS_CASES,
+                         ids=[f"{a}-{d}-{k}" for a, d, k in CROSS_CASES])
+def test_cross_families_match_reference(arch, dtype, kv, monkeypatch):
+    """forward, prefill (logits, the self-attention cache and every cross
+    layer's K / V) and 4 decode steps against the reference, vlm gates
+    nonzero: float32 within 1e-4 with greedy tokens equal, bfloat16
+    within 0.12, int8 KV values equal."""
+    rcfg, pcfg, rp, pp = _cross_models(arch, dtype, kv_cache_dtype=kv)
+    tol = F32 if dtype == "float32" else BF16
+    rng = np.random.default_rng(21)
+    tok = rng.integers(0, rcfg.vocab, (2, 20)).astype(np.int32)
+    jt, tt = jnp.asarray(tok), torch.from_numpy(tok).long()
+    rex, pex = _frontend(pcfg, 2, 22)
+    ro = ref_tf.forward(rp, rcfg, jt, rex)
+    po = tf.forward(pp, pcfg, tt, pex, collect=True)
+    np.testing.assert_allclose(_np(po.hidden), _np(ro.hidden), **tol)
+    n_cross = len(pp.cross_layers)
+    assert n_cross == (pcfg.n_layers if pcfg.family == "encdec"
+                       else pcfg.n_layers // pcfg.cross_attn_every)
+    rl, rcache = ref_tf.prefill(rp, rcfg, jt[:, :16], rex, max_len=20)
+    pl, pcache = tf.prefill(pp, pcfg, tt[:, :16], pex, max_len=20)
+    assert pl.dtype == torch.float32 and int(pcache["pos"]) == 16
+    np.testing.assert_allclose(pl.numpy(), np.asarray(rl), **tol)
+    for a, r in zip(pcache["cross_kv"], rcache["cross_kv"]):
+        assert tuple(a.shape) == tuple(r.shape) == (
+            n_cross, 2, rex[next(iter(rex))].shape[1], pcfg.n_kv_heads,
+            pcfg.hd)
+        assert a.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(a), _np(r), **tol)
+    if kv == "int8":
+        rkv = ref_tf.forward(rp, rcfg, jt[:, :16], rex, collect=True).kv
+        for name, ref_f in zip(("k", "v"), rkv):
+            got = pcache["attn"][name]
+            assert got.dtype == torch.int8
+            _int8_equal_off_ties(got[:, :, :16].numpy(),
+                                 rcache["attn"][name][:, :, :16], ref_f)
+            np.testing.assert_array_equal(got[:, :, 16:].numpy(), 0)
+        for name in ("k_scale", "v_scale"):
+            np.testing.assert_allclose(_np(pcache["attn"][name]),
+                                       _np(rcache["attn"][name]), **F32)
+        # the float K / V each decode step quantises, layer by layer
+        seen, quantize = [], attn.quantize_kv
+        monkeypatch.setattr(attn, "quantize_kv",
+                            lambda x: seen.append(x) or quantize(x))
+    else:
+        for name in ("k", "v"):
+            np.testing.assert_allclose(_np(pcache["attn"][name]),
+                                       _np(rcache["attn"][name]), **tol)
+    for i in range(16, 20):
+        if kv == "int8":
+            # decode from the same int8 values: a value at a rounding
+            # tie moves a logit by about 1e-4 on its own
+            for name, t in pcache["attn"].items():
+                t.copy_(torch.from_numpy(np.asarray(
+                    rcache["attn"][name], np.float32)).to(t.dtype))
+            seen.clear()
+        rg, rcache = ref_tf.decode_step(rp, rcfg, rcache, jt[:, i:i + 1])
+        pg, pcache = tf.decode_step(pp, pcfg, pcache, tt[:, i:i + 1])
+        np.testing.assert_allclose(pg.numpy(), np.asarray(rg), **tol,
+                                   err_msg=f"decode at {i}")
+        if kv == "int8":
+            for j, name in enumerate(("k", "v")):
+                _int8_equal_off_ties(
+                    pcache["attn"][name][:, :, i].numpy(),
+                    rcache["attn"][name][:, :, i],
+                    torch.stack(seen[j::2])[:, :, 0].numpy())
+        if dtype == "float32":
+            assert (pg.argmax(-1).numpy() ==
+                    np.asarray(rg).argmax(-1)).all(), i
+    assert int(pcache["pos"]) == 20
+
+
+@pytest.mark.parametrize("arch", CROSS)
+def test_logits_move_with_the_frontend_input(arch):
+    """Two frontend inputs give logits apart by far more than the
+    tolerance, each within it of the reference's; with the vlm gates at
+    their initial zero the image changes nothing, on both sides."""
+    rcfg, pcfg, rp0, pp = _models(arch)
+    rng = np.random.default_rng(23)
+    tok = rng.integers(0, rcfg.vocab, (2, 12)).astype(np.int32)
+    jt, tt = jnp.asarray(tok), torch.from_numpy(tok).long()
+    inputs = [_frontend(pcfg, 2, s) for s in (24, 25)]
+
+    def both(rp):
+        out = []
+        for rex, pex in inputs:
+            got = (tf.forward(pp, pcfg, tt, pex).hidden[:, -1]
+                   @ pp.head).numpy()
+            want = np.asarray(_ref_logits(
+                rp, ref_tf.forward(rp, rcfg, jt, rex).hidden[:, -1]))
+            np.testing.assert_allclose(got, want, **F32)
+            out.append(got)
+        return out
+    if pcfg.family == "vlm":
+        a, b = both(rp0)
+        np.testing.assert_array_equal(a, b)
+        assert not any(float(blk.gate_attn) or float(blk.gate_mlp)
+                       for blk in pp.cross_layers)
+    a, b = both(_set_gates(rp0, pp, 0))
+    assert np.abs(a - b).max() > 100 * F32["atol"]
+
+
+def test_cross_family_parameters():
+    """The cross layers' gates are float32 0-d leaves at zero (``[n]``
+    stacked in the reference), carried across both ways; the frontend
+    projections and the encoder's leaves take the reference's shapes and
+    placement specs."""
+    from repro.sharding import rules as ref_rules
+    from repro_torch.sharding import rules
+    for arch in CROSS:
+        rcfg, pcfg = _cfgs(arch, "bfloat16")
+        model = tf.init_params(pcfg, seed=1, device="cpu")
+        flat = dict(model.named_parameters())
+        n = len(model.cross_layers)
+        for i in range(n):
+            for g in ("gate_attn", "gate_mlp"):
+                t = flat[f"cross_layers.{i}.{g}"]
+                assert t.dtype == torch.float32 and t.shape == () and \
+                    float(t) == 0.0
+        assert flat["cross_layers.0.attn.wq"].dtype == torch.bfloat16
+        rp = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))
+        rp = _set_gates(rp, model, 3)
+        back = tf.state_to_reference(
+            tf.params_from_reference(jax.tree.map(np.asarray, rp), pcfg,
+                                     "cpu"))
+        for key, want in tf._flat_tree(jax.tree.map(np.asarray, rp)).items():
+            got = tf._flat_tree(back)[key]
+            assert tuple(got.shape) == want.shape, key
+            np.testing.assert_array_equal(_np(got), np.asarray(
+                want, np.float32), err_msg=str(key))
+        assert back["cross_layers"]["gate_attn"].dtype == torch.float32
+        full = tf.Transformer(get_config(arch), device="meta")
+        shapes = jax.eval_shape(
+            lambda k: ref_tf.init_params(ref_config(arch), k),
+            jax.ShapeDtypeStruct((2,), jnp.uint32))
+        want = {k: tuple(v) for k, v in tf._flat_tree(
+            ref_rules.param_specs(shapes)).items()}
+        got = tf._flat_tree(rules.param_specs(
+            tf.state_to_reference(full, device="meta")))
+        assert got == want
+        proj = "enc_embed_proj" if pcfg.family == "encdec" else "img_proj"
+        assert got[(proj,)] == (None, "model")

@@ -4,7 +4,10 @@ The configurations are copies, so every field must be equal.  The cost
 model's counts (FLOPs, bytes, parameters) depend only on the
 configuration and the mesh and must be equal for every arch x shape x
 mesh the fleet builds; only ``Costs.terms`` reads the card's constants,
-which are the H100's in the port.
+which are the H100's in the port.  The compiled-HLO collective parse
+(``_shape_bytes``, ``parse_collectives``) equals the reference's on the
+reference test's text and on texts with tuples, every collective kind
+and the ``-start`` forms.
 """
 import dataclasses
 
@@ -112,3 +115,55 @@ def test_estimate_duration_prices_jobs_on_the_h100():
     assert d64 > d256 * 2
     assert ref_fleet.estimate_duration(
         "qwen3-4b", "train_4k", 64, 10_000) > d64   # a v5e is slower
+
+
+# HLO texts for the collective parse: the reference test's, tuples,
+# every collective kind, ``-start`` forms, and lines that name a
+# collective without being one
+HLO_TEXTS = {
+    "reference_test": """
+  %ag = bf16[16,128]{1,0} all-gather(bf16[1,128]{1,0} %x), dims={0}
+  %ar.1 = f32[256]{0} all-reduce(f32[256]{0} %y), to_apply=%add
+  %rs = (f32[8]{0}) reduce-scatter(f32[64]{0} %z), dimensions={0}
+    """,
+    "every_kind": """
+  %a2a = bf16[4,32,64]{2,1,0} all-to-all(bf16[4,32,64]{2,1,0} %e), dimensions={0}
+  %cp = s32[7]{0} collective-permute(s32[7]{0} %p), source_target_pairs={{0,1}}
+  %ar = pred[3,3]{1,0} all-reduce(pred[3,3]{1,0} %m), to_apply=%or
+  %ag2 = u8[1024]{0} all-gather(u8[64]{0} %b), dims={0}
+  %rs2 = f16[2,2]{1,0} reduce-scatter(f16[32,2]{1,0} %h), dimensions={0}
+  ROOT %ar64 = f64[5]{0} all-reduce(f64[5]{0} %d), to_apply=%add
+    """,
+    "tuples_and_start": """
+  %ars = (bf16[128,256]{1,0}, f32[16]{0}) all-reduce-start(bf16[128,256]{1,0} %g, f32[16]{0} %s), to_apply=%add
+  %ard = (bf16[128,256]{1,0}, f32[16]{0}) all-reduce-done(%ars)
+  %ags = (bf16[8,64]{1,0}, bf16[64,64]{1,0}) all-gather-start(bf16[8,64]{1,0} %w), dims={0}
+  %cps = (s8[2,16]{1,0}, s8[2,16]{1,0}, u32[], u32[]) collective-permute-start(s8[2,16]{1,0} %q)
+  all-to-all(s64[3]{0} %bare)
+    """,
+    "no_collectives": """
+  %add = f32[8]{0} add(f32[8]{0} %a, f32[8]{0} %b)
+  %fusion = bf16[2,4]{1,0} fusion(%x), kind=kLoop, calls=%all-reduce-like
+    """,
+    "scalars_and_empty_dims": """
+  %r = f32[] all-reduce(f32[] %l), to_apply=%add
+  %g = bf16[0,16]{1,0} all-gather(bf16[0,1]{1,0} %z), dims={1}
+    """,
+}
+
+
+@pytest.mark.parametrize("name", sorted(HLO_TEXTS))
+def test_parse_collectives_equals_the_reference(name):
+    text = HLO_TEXTS[name]
+    got = roof.parse_collectives(text)
+    assert got == ref_roof.parse_collectives(text)
+    for line in text.splitlines():
+        assert roof._shape_bytes(line) == ref_roof._shape_bytes(line)
+    if name == "reference_test":
+        assert got["all-gather"] == 16 * 128 * 2
+        assert got["all-reduce"] == 256 * 4
+    if name == "tuples_and_start":
+        assert got["all-reduce"] == 128 * 256 * 2 + 16 * 4
+        assert "all-reduce-done" not in got
+    if name == "no_collectives":
+        assert got == {"total": 0}

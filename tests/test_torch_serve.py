@@ -1,8 +1,9 @@
 """The port's serving path against the JAX package's, on the CPU.
 
 Greedy ``generate`` gives the reference's tokens in float32 with the
-same weights (carried across with ``params_from_reference``), for the
-dense, MoE, hybrid and ssm families; the port's twins of the reference's serving tests
+same weights (carried across with ``params_from_reference``; the vlm
+family's gates set nonzero from the seed on both sides) and the same
+frontend inputs, for all six families; the port's twins of the reference's serving tests
 (``tests/test_serve_consistency.py``, ``tests/test_perf_knobs.py``)
 hold prefill + decode against the port's own full forward at the
 reference's tolerances; and the ``repro_torch.launch.serve`` entry point
@@ -50,40 +51,76 @@ def _models(arch, seed, **kw):
         jax.tree.map(np.asarray, rp), pcfg, "cpu")
 
 
+def _gated(rp, pp, seed):
+    """The vlm gates (zero at init: the image would change nothing) set
+    to nonzero values from ``seed`` on both sides."""
+    if not pp.cross_layers or pp.cfg.family != "vlm":
+        return rp
+    n = len(pp.cross_layers)
+    g = np.random.default_rng(seed).uniform(0.5, 1.5, (2, n))
+    for blk, ga, gm in zip(pp.cross_layers, g[0], g[1]):
+        blk.gate_attn.fill_(float(np.float32(ga)))
+        blk.gate_mlp.fill_(float(np.float32(gm)))
+    return dict(rp, cross_layers=dict(
+        rp["cross_layers"], gate_attn=jnp.asarray(g[0], jnp.float32),
+        gate_mlp=jnp.asarray(g[1], jnp.float32)))
+
+
+def _extra(cfg, b, seed):
+    """The family's frontend input from a numpy seed: ``(jax, torch)``
+    dicts (empty for the families without one)."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}, {}
+    name, shape = (("enc_frames", (b, cfg.enc_seq, cfg.d_model))
+                   if cfg.family == "encdec" else
+                   ("image_embeds", (b, cfg.vision_tokens, cfg.vision_dim)))
+    a = np.random.default_rng(seed).normal(size=shape).astype(
+        np.float32) * 0.1
+    return {name: jnp.asarray(a)}, {name: torch.from_numpy(a)}
+
+
 def _tokens(seed, shape, vocab):
     return torch.from_numpy(
         np.random.default_rng(seed).integers(0, vocab, shape)).long()
 
 
-def _last_logits(params, cfg, tokens):
-    out = tf.forward(params, cfg, tokens)
+def _last_logits(params, cfg, tokens, extra=None):
+    out = tf.forward(params, cfg, tokens, extra)
     return (out.hidden[:, -1] @ params.head).float().numpy()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m",
-                                  "zamba2-7b", "xlstm-1.3b"])
+                                  "zamba2-7b", "xlstm-1.3b",
+                                  "seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
 def test_generate_matches_reference_tokens(arch):
     rcfg, pcfg, rp, pp = _models(arch, 0, dtype="float32")
+    rp = _gated(rp, pp, 0)
+    rex, pex = _extra(pcfg, 2, 2)
     prompt = _tokens(1, (2, 8), pcfg.vocab)
-    got = engine.generate(pp, pcfg, prompt, n_tokens=6)
+    got = engine.generate(pp, pcfg, prompt, n_tokens=6, extra=pex)
     want = ref_engine.generate(rp, rcfg, jnp.asarray(prompt.numpy()),
-                               n_tokens=6, jit=True)
+                               n_tokens=6, extra=rex or None, jit=True)
     assert got.dtype == torch.int32 and got.shape == (2, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-moe-1b-a400m",
-                                  "zamba2-7b", "xlstm-1.3b"])
+                                  "zamba2-7b", "xlstm-1.3b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
 def test_decode_matches_forward(arch):
     # MoE: no capacity drops, so a 32-token prefill and a 2-token decode
     # compute the same expert mixtures (as the reference's twin)
     kw = dict(capacity_factor=100.0) if "moe" in arch else {}
-    _, cfg, _, params = _models(arch, 1, **kw)
+    _, cfg, rp, params = _models(arch, 1, **kw)
+    _gated(rp, params, 1)
+    _, extra = _extra(cfg, 2, 1)
     B, T = 2, 16
     tokens = _tokens(1, (B, T + 1), cfg.vocab)
-    ref = _last_logits(params, cfg, tokens)
-    _, cache = tf.prefill(params, cfg, tokens[:, :T], max_len=T + 1)
-    got, _ = tf.decode_step(params, cfg, cache, tokens[:, T:T + 1])
+    ref = _last_logits(params, cfg, tokens, extra)
+    _, cache = tf.prefill(params, cfg, tokens[:, :T], extra, max_len=T + 1)
+    got, _ = tf.decode_step(params, cfg, cache, tokens[:, T:T + 1], extra)
     got = got.numpy()
     assert np.argmax(ref, -1).tolist() == np.argmax(got, -1).tolist()
     np.testing.assert_allclose(got, ref, rtol=0.12, atol=0.12)
@@ -218,6 +255,13 @@ def test_serve_launcher_smoke_on_cpu():
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
 def test_serve_launcher_recurrent_families_on_cpu(arch):
+    _launch_serve(arch)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_serve_launcher_cross_families_on_cpu(arch):
+    """The launcher builds the stub frontend's input from its seed."""
     _launch_serve(arch)
 
 

@@ -87,18 +87,17 @@ def test_param_specs_equal_reference(arch):
     assert got == want
     n_model = sum(ax == "model" for spec in got.values() for ax in spec)
     assert n_model > 0, f"{arch}: nothing sharded at all"
-    # the port's model, where its family is ported: layer i's spec is
-    # the stacked leaf's past the layer axis (``layers``, and the ssm
-    # family's ``slstm_layers``); unstacked leaves (the hybrid family's
-    # ``shared_attn``) take the reference's own
+    # the port's model: layer i's spec is the stacked leaf's past the
+    # layer axis (``layers``, the ssm family's ``slstm_layers``, the
+    # encdec family's ``enc_layers`` and the encdec / vlm families'
+    # ``cross_layers``: their 0-d gates take the ``[n]`` leaf's ``()``);
+    # unstacked leaves (the hybrid family's ``shared_attn``) take the
+    # reference's own
     cfg = get_config(arch)
-    if cfg.family not in tf.FAMILIES:
-        with pytest.raises(NotImplementedError):
-            tf.Transformer(cfg, device="meta")
-        return
+    assert cfg.family in tf.FAMILIES
     model = tf.Transformer(cfg, device="meta")
     specs = rules.param_specs(model)
-    stacked = ("layers", "slstm_layers")
+    stacked = ("layers", "slstm_layers", "enc_layers", "cross_layers")
     rows = {k: _flat(shapes)[k].shape[0] for k in want if k[0] in stacked}
     assert len(specs) == sum(rows.get(k, 1) for k in want)
     for name, spec in specs.items():

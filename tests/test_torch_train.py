@@ -3,8 +3,10 @@
 Weights go across with ``params_from_reference`` and training state with
 ``state_to_reference`` / ``state_from_reference``; batches come from the
 same seeded token pipeline.  ``loss_fn``'s gradients match ``jax.grad``
-of the reference's for the dense, MoE, hybrid and ssm reduced configs
-(float32, each leaf within 1e-4 of its largest entry); ``optim.update``
+of the reference's for the reduced configs of all six families
+(float32, each leaf within 1e-4 of its largest entry; the encdec and vlm
+families with their frontend inputs in the batch and the vlm gates set
+nonzero on both sides); ``optim.update``
 matches the reference's AdamW within 1e-6 (the weight-decay mask leaf by
 leaf); whole train steps match at one and two microbatches; and the
 twins of ``tests/test_train.py`` (loss decreases, microbatch equivalence,
@@ -46,6 +48,8 @@ FAMILIES = [("stablelm-1.6b", {}),
 # test_hybrid_gradient_finite_where_the_reference_is_nan), so the hybrid
 # family is held against it where it is defined, at 2
 SEQ = {"zamba2-7b": 2}
+# the encdec and vlm families: batches carry their frontend inputs
+CROSS = ["seamless-m4t-medium", "llama-3.2-vision-11b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,6 +76,35 @@ def _batches(vocab, seq, batch, mb, seed=1):
          for k in ("tokens", "labels")}
     return ({k: jnp.asarray(v) for k, v in b.items()},
             {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def _set_gates(rp, pp, seed):
+    """Nonzero vlm gates from ``seed`` on both sides (at their initial
+    zero the image reaches no gradient but the gates')."""
+    if pp.cfg.family != "vlm":
+        return rp
+    n = len(pp.cross_layers)
+    g = np.random.default_rng(seed).uniform(0.5, 1.5, (2, n))
+    with torch.no_grad():
+        for blk, ga, gm in zip(pp.cross_layers, g[0], g[1]):
+            blk.gate_attn.fill_(float(np.float32(ga)))
+            blk.gate_mlp.fill_(float(np.float32(gm)))
+    return dict(rp, cross_layers=dict(
+        rp["cross_layers"], gate_attn=jnp.asarray(g[0], jnp.float32),
+        gate_mlp=jnp.asarray(g[1], jnp.float32)))
+
+
+def _with_frontend(cfg, jb, tb, seed=2):
+    """The family's frontend input ``[mb, B/mb, ...]`` added to both
+    batches."""
+    mb, b = tb["tokens"].shape[:2]
+    name, shape = (("enc_frames", (cfg.enc_seq, cfg.d_model))
+                   if cfg.family == "encdec" else
+                   ("image_embeds", (cfg.vision_tokens, cfg.vision_dim)))
+    a = np.random.default_rng(seed).normal(size=(mb, b) + shape).astype(
+        np.float32) * 0.5
+    return dict(jb, **{name: jnp.asarray(a)}), \
+        dict(tb, **{name: torch.from_numpy(a)})
 
 
 def _ref_layout(named):
@@ -202,7 +235,7 @@ def test_hybrid_gradient_matches_the_masked_reference(monkeypatch, seq,
         assert err < 2e-4, (key, err)
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in FAMILIES])
+@pytest.mark.parametrize("arch", [a for a, _ in FAMILIES] + CROSS)
 def test_weight_decay_mask_matches_the_reference_leaf_by_leaf(arch):
     cfg = get_config(arch)
     shapes = jax.eval_shape(lambda k: ref_tf.init_params(ref_config(arch), k),
@@ -220,6 +253,14 @@ def test_weight_decay_mask_matches_the_reference_leaf_by_leaf(arch):
         assert mask["layers.0.ssm.a_log"]   # stacked [L, H] there
     if cfg.family == "ssm":
         assert mask["slstm_layers.0.slstm.bias"]
+    if cfg.family in ("encdec", "vlm"):
+        # the gates are [n] stacked in the reference: 1-D, not decayed
+        assert not mask["cross_layers.0.gate_attn"]
+        assert mask["cross_layers.0.ln1"] and mask["cross_layers.0.attn.wq"]
+        proj = "enc_embed_proj" if cfg.family == "encdec" else "img_proj"
+        assert mask[proj]
+    if cfg.family == "encdec":
+        assert not mask["enc_norm"] and mask["enc_layers.0.ln1"]
 
 
 def test_schedule_matches_the_reference():
@@ -233,7 +274,7 @@ def test_schedule_matches_the_reference():
                                    atol=1e-12)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"] + CROSS)
 def test_adamw_update_matches_the_reference(arch):
     rcfg, pcfg, rp, pp = _models(arch)
     rng = np.random.default_rng(5)
@@ -446,3 +487,68 @@ def test_pipeline_batches_feed_both_sides_alike():
     ref = RefPipeline(512, 16, 4, microbatches=2, seed=3).batch_at(2)
     for k in ref:
         np.testing.assert_array_equal(mine[k], ref[k])
+
+
+# ---------------------------------------------------------------------------
+# the encdec and vlm families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", CROSS)
+def test_cross_family_gradients_match_jax_grad(arch):
+    """Every leaf's gradient (the encoder's, the projections', the cross
+    layers' and their gates') within 1e-4 of its largest entry, vlm
+    gates nonzero; the encdec family's unused gates get zeros on both
+    sides."""
+    rcfg, pcfg, rp, pp = _models(arch)
+    rp = _set_gates(rp, pp, 3)
+    jb, tb = _with_frontend(pcfg, *_batches(pcfg.vocab, 16, 2, 1))
+    jb, tb = ({k: v[0] for k, v in b.items()} for b in (jb, tb))
+    (rl, _), rg = jax.jit(jax.value_and_grad(
+        lambda p, b: ref_tf.loss_fn(p, rcfg, b), has_aux=True))(rp, jb)
+    pp.requires_grad_(True)
+    pl, _ = tf.loss_fn(pp, pcfg, tb)
+    names, leaves = zip(*pp.named_parameters())
+    grads = step_lib._grads(pl, leaves)
+    np.testing.assert_allclose(float(pl.detach()), float(rl), rtol=1e-5)
+    mine, ref = _ref_layout(dict(zip(names, grads))), _flat_ref(rg)
+    assert sorted(mine) == sorted(ref)
+    for key, want in ref.items():
+        got = mine[key].numpy()
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(got - want).max()) / scale
+        assert err < 1e-4, (key, err)
+    gates = mine[("cross_layers", "gate_attn")].numpy()
+    proj = ("enc_embed_proj",) if pcfg.family == "encdec" else ("img_proj",)
+    assert np.abs(mine[proj].numpy()).max() > 0
+    if pcfg.family == "encdec":
+        assert not gates.any() and not np.asarray(
+            rg["cross_layers"]["gate_attn"]).any()
+    else:
+        assert (gates != 0).all()
+
+
+@pytest.mark.parametrize("arch", CROSS)
+def test_cross_family_train_step_matches_the_reference(arch):
+    """A 2-microbatch train step with the frontend inputs in the batch:
+    loss and grad norm within 1e-4, every parameter within Adam's 2 x lr
+    of the reference's, vlm gates nonzero."""
+    rcfg, pcfg, rp, pp = _models(arch)
+    rp = _set_gates(rp, pp, 4)
+    lr = 1e-3
+    ocfg = dict(lr=lr, warmup_steps=0, total_steps=10)
+    jb, tb = _with_frontend(pcfg, *_batches(pcfg.vocab, 16, 4, 2))
+    r_params, r_opt, rm = jax.jit(ref_step.make_train_step(
+        rcfg, ref_optim.OptConfig(**ocfg), 2))(
+            rp, ref_optim.init(rp, ref_optim.OptConfig(**ocfg)), jb)
+    p_opt = optim.init(pp, optim.OptConfig(**ocfg))
+    pp, p_opt, pm = step_lib.make_train_step(
+        pcfg, optim.OptConfig(**ocfg), 2)(pp, p_opt, tb)
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(pm[name]), float(rm[name]),
+                                   rtol=1e-4)
+    got, want = _ref_layout(dict(pp.named_parameters())), _flat_ref(r_params)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key].detach().numpy(), want[key],
+                                   rtol=0, atol=2 * lr, err_msg=str(key))
+    assert int(p_opt.step) == int(r_opt.step) == 1
