@@ -201,10 +201,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    a temporary directory, the step-8 checkpoint restored and held
    bit-equal against the live state, the step-8 checkpoint dropped and
    the run resumed from step 4 with its losses within 1e-3 of the
-   straight run's, one step profiled (kernels a step, device time, idle
-   share) beside its bound (``roofline.analysis.step_costs`` with 2
-   microbatches: FLOPs over 989.4 TFLOP/s, bytes over 3.35 TB/s), step
-   ms, tokens/s and the peak memory.  It runs none of the CUDA kernels;
+   straight run's, and the peak memory (the train step's speed is the
+   benchmark's, ``perfbench/``).  It runs none of the CUDA kernels;
 6i. dry-run (after 6h): ``repro_torch.launch.dryrun``'s 80 cells on the
    host CPU (no JAX): 64 ok, 16 skipped (the ``long_500k`` cells of the
    full-attention archs), none failed, each decode cell's step run on
@@ -4151,22 +4149,17 @@ def train_phase(dev, seed: int) -> dict:
     in a temporary directory; the last checkpoint restored and held
     bit-equal against the live state; then the last checkpoint dropped
     and the run resumed from the one before, its losses held against
-    the straight run's; one step profiled; beside the step's bound."""
+    the straight run's.  Its speed is the benchmark's
+    (``perfbench/``), not this phase's."""
     import shutil
     import tempfile
 
     import torch
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import flatten
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.data import TokenPipeline
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import transformer as tf
-    from repro_torch.roofline import analysis as roof
-    from repro_torch.train import optim
-    from repro_torch.train import step as step_lib
 
-    cfg = get_config(TRAIN_ARCH)
     ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     kw = dict(steps=TRAIN_STEPS, smoke=False, batch=TRAIN_BATCH,
               seq=TRAIN_SEQ, ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
@@ -4185,14 +4178,12 @@ def train_phase(dev, seed: int) -> dict:
             fail(f"train[{TRAIN_ARCH}]: losses {losses} do not fall")
         params, opt = out["state"]
         n_params = sum(p.numel() for p in params.parameters())
-        step_ms = float(np.median(out["step_s"][1:])) * 1e3
-        row.update(n_params=n_params, losses=losses, step_ms=step_ms,
-                   first_step_ms=out["step_s"][0] * 1e3,
-                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3)
+        row.update(n_params=n_params, losses=losses)
         mgr = CheckpointManager(ckpt)
         if mgr.all_steps() != [TRAIN_STEPS - TRAIN_CKPT_EVERY, TRAIN_STEPS]:
             fail(f"train: checkpoints {mgr.all_steps()}")
-        ck_bytes = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+        row["checkpoint_gb"] = sum(
+            f.stat().st_size for f in ckpt.rglob("*.npy")) / 2 / 1e9
         # the last checkpoint against the live state, leaf by leaf
         t0 = time.perf_counter()
         live = tf.state_to_reference(params, opt)
@@ -4219,54 +4210,17 @@ def train_phase(dev, seed: int) -> dict:
             fail(f"train: resumed from {out2['resumed_from']} with losses "
                  f"{out2['losses']}, the straight run's {want}")
         row["resume_max_rel_loss_diff"] = dl
-        # one step of the resumed state, profiled
-        params, opt = out2["state"]
-        del out2
-        ocfg = optim.OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
-        step = step_lib.make_train_step(cfg, ocfg, TRAIN_MB)
-        pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
-                             microbatches=TRAIN_MB, seed=0)
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in pipe.batch_at(TRAIN_STEPS).items()}
-        state = {"p": params, "o": opt}
-
-        def one():
-            state["p"], state["o"], m = step(state["p"], state["o"], batch)
-            return m
-        dev_ms, kernels, _ = device_profile(one, reps=1)
-        costs = roof.step_costs(cfg, ShapeConfig(
-            "train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train",
-            microbatches=TRAIN_MB), {"data": 1, "model": 1},
-            microbatches=TRAIN_MB)
-        flops_ms = costs.flops / BF16_FLOPS_PER_S * 1e3
-        bytes_ms = costs.hbm_bytes / HBM_BYTES_PER_S * 1e3
-        row.update(device_ms_per_step=dev_ms, kernels_per_step=kernels,
-                   idle_share=None if dev_ms is None else 1 - dev_ms / step_ms,
-                   bound_ms=max(flops_ms, bytes_ms),
-                   bound_by="operations" if flops_ms >= bytes_ms else "bytes",
-                   step_flops=costs.flops, step_hbm_bytes=costs.hbm_bytes,
-                   checkpoint_gb=ck_bytes / 2 / 1e9)
-        idle = "not measured" if dev_ms is None \
-            else f"{row['idle_share']:.4f}"
         print(f"train[{TRAIN_ARCH}]: {n_params / 1e9:.3f} G parameters "
               f"(bf16, float32 Adam state), {TRAIN_STEPS} steps of "
               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches: "
-              f"losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
-              f"(median of steps 2-{TRAIN_STEPS}; first "
-              f"{row['first_step_ms']:.1f} ms) = {row['tokens_per_s']:.0f} "
-              f"tokens/s (bound {row['bound_ms']:.2f} ms by "
-              f"{row['bound_by']}: {costs.flops / 1e12:.2f} TFLOP at "
-              f"{BF16_FLOPS_PER_S / 1e12:.1f} TFLOP/s, "
-              f"{costs.hbm_bytes / 1e9:.2f} GB at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); on the card "
-              f"{_us(dev_ms)} a step in {kernels:.0f} kernels, idle share "
-              f"{idle}; peak memory {row['peak_mem_gb']:.2f} GB; "
-              f"checkpoint {row['checkpoint_gb']:.2f} GB a step, restored "
-              f"bit-equal in {row['restore_s']:.1f} s; resumed from step "
+              f"losses {[round(x, 4) for x in losses]}; peak memory "
+              f"{row['peak_mem_gb']:.2f} GB; checkpoint "
+              f"{row['checkpoint_gb']:.2f} GB a step, restored bit-equal in "
+              f"{row['restore_s']:.1f} s; resumed from step "
               f"{TRAIN_STEPS - TRAIN_CKPT_EVERY}, losses within "
               f"{dl:.1e} of the straight run's; run {row['run_s']:.1f} s, "
               f"resumed run {row['resume_run_s']:.1f} s")
-        del params, opt, state
+        del out2
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)

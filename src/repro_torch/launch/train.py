@@ -15,6 +15,13 @@ rematerialised, checkpoints are written asynchronously every
 the checkpoint directory already has state, training resumes from the
 latest step, so a killed run rerun with the same command replays the
 same batches from there.
+
+``--spans`` turns the span registry (:mod:`repro_torch.spans`) on: each
+log line (every ``log_every`` steps) then also gives every span's self
+time a step since the last line (``train.fwd``, ``train.bwd``,
+``train.update``, ``attention.bwd``, ``layer.recompute``, ...; on the
+card, from CUDA events) and, for MoE models, the share of assignments dropped past
+capacity; the registry is reset after each line.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import spans as spans_lib
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import TokenPipeline
@@ -51,18 +59,32 @@ def frontend_shapes(cfg) -> dict:
     return {}
 
 
+def span_report(summary: dict) -> str:
+    """A log line's tail from :func:`repro_torch.spans.summary`: each
+    span's self ms a step, and the MoE drop share."""
+    n = max(summary["steps"], 1)
+    parts = [f"{name}={row['self_ms'] / n:.1f}ms"
+             for name, row in sorted(summary["spans"].items())]
+    c = summary["counters"]
+    if c.get("moe.assignments"):
+        share = 100 * c.get("moe.dropped", 0) / c["moe.assignments"]
+        parts.append(f"moe.dropped={share:.2f}%")
+    return " ".join(parts)
+
+
 def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         ckpt_dir: str, ckpt_every: int, microbatches: int,
         lr: float = 3e-4, log_every: int = 10, config=None,
         device: DeviceLike = None,
-        seed: int = 0) -> dict:
+        seed: int = 0, spans: bool = False) -> dict:
     """Train ``arch`` from step 0, or from the latest checkpoint under
     ``ckpt_dir``, to ``steps``.  Returns the reference's summary
     (``first_loss``, ``last_loss``, ``steps_run``, ``resumed_from``)
     plus every step's ``losses`` and wall seconds (``step_s``; each
     step reads its loss back, which synchronises) and the final
     ``state`` ``(params, opt_state)``.  The reference's ``use_mesh`` is
-    absent: the port trains on one device."""
+    absent: the port trains on one device.  ``spans`` adds the span
+    registry's report to each log line (:func:`span_report`)."""
     dev = resolve_device(device)
     cfg = config if config is not None else get_config(arch)
     if smoke and config is None:
@@ -86,25 +108,36 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         print(f"[restore] resumed from step {start} "
               f"(loss was {meta.get('loss')})")
     losses, step_s = [], []
+    if spans:
+        spans_lib.reset()
+        spans_lib.enable()
     t0 = time.time()
-    for s in range(start, steps):
-        t_step = time.perf_counter()
-        batch_dev = {k: torch.from_numpy(v).to(dev)
-                     for k, v in pipe.batch_at(s).items()}
-        params, opt_state, metrics = train_step(params, opt_state,
-                                                batch_dev)
-        loss = float(metrics["loss"])
-        step_s.append(time.perf_counter() - t_step)
-        losses.append(loss)
-        if (s + 1) % log_every == 0:
-            dt = (time.time() - t0) / log_every
-            print(f"step {s+1:5d} loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"{dt*1e3:.0f} ms/step", flush=True)
-            t0 = time.time()
-        if (s + 1) % ckpt_every == 0 or s + 1 == steps:
-            mgr.save_async(s + 1, tf_lib.state_to_reference(
-                params, opt_state), {"loss": loss, "arch": arch})
+    try:
+        for s in range(start, steps):
+            t_step = time.perf_counter()
+            batch_dev = {k: torch.from_numpy(v).to(dev)
+                         for k, v in pipe.batch_at(s).items()}
+            params, opt_state, metrics = train_step(params, opt_state,
+                                                    batch_dev)
+            loss = float(metrics["loss"])
+            step_s.append(time.perf_counter() - t_step)
+            losses.append(loss)
+            if (s + 1) % log_every == 0:
+                dt = (time.time() - t0) / log_every
+                line = (f"step {s+1:5d} loss={loss:.4f} "
+                        f"gnorm={float(metrics['grad_norm']):.3f} "
+                        f"{dt*1e3:.0f} ms/step")
+                if spans:
+                    line += " " + span_report(spans_lib.summary())
+                    spans_lib.reset()
+                print(line, flush=True)
+                t0 = time.time()
+            if (s + 1) % ckpt_every == 0 or s + 1 == steps:
+                mgr.save_async(s + 1, tf_lib.state_to_reference(
+                    params, opt_state), {"loss": loss, "arch": arch})
+    finally:
+        if spans:
+            spans_lib.disable()
     mgr.wait()
     _sync(dev)
     return {"first_loss": losses[0] if losses else None,
@@ -126,10 +159,12 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--spans", action="store_true",
+                    help="add each span's self ms a step to the log lines")
     args = ap.parse_args(argv)
     out = run(args.arch, args.steps, args.smoke, args.batch, args.seq,
               str(Path(args.ckpt_dir) / args.arch), args.ckpt_every,
-              args.microbatches, device=args.device)
+              args.microbatches, device=args.device, spans=args.spans)
     summary = {k: out[k] for k in ("first_loss", "last_loss", "steps_run",
                                    "resumed_from")}
     print(f"done: {summary}")

@@ -45,6 +45,12 @@ each group and each Mamba layer inside it, as the reference's nested
 scans, and for the encdec / vlm families around each encoder layer
 and each decoder layer with its cross block.  ``seq_parallel`` (a
 sharding constraint in the reference) changes nothing on one device.
+
+When the span registry is active (:mod:`repro_torch.spans`), training
+records ``attention.fwd`` / ``.bwd`` around each self-attention call,
+``moe.fwd`` / ``.bwd`` around each expert layer, ``layer.recompute``
+around each rematerialised forward, and the counters
+``moe.assignments`` / ``moe.dropped``.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
@@ -408,16 +415,19 @@ def state_from_reference(state, cfg: ModelConfig,
 def _ffn(blk: Block, x: torch.Tensor, cfg: ModelConfig):
     h = rms_norm(x, blk.ln2, cfg.norm_eps)
     if blk.moe is not None:
-        return moe_lib.moe(blk.moe, h, cfg)
+        with spans.layer("moe") as m:
+            out, aux = moe_lib.moe(blk.moe, m.input(h), cfg)
+        return m.output(out), aux
     return mlp_lib.mlp(blk.mlp, h), {}
 
 
 def _attn_block(blk: Block, x, cfg, rope, window=0, return_kv=False):
-    res = attn_lib.self_attention(
-        blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), cfg, rope,
-        window=window, return_kv=return_kv)
+    h = rms_norm(x, blk.ln1, cfg.norm_eps)
+    with spans.layer("attention") as m:
+        res = attn_lib.self_attention(blk.attn, m.input(h), cfg, rope,
+                                      window=window, return_kv=return_kv)
     h, kv = res if return_kv else (res, None)
-    x = x + h
+    x = x + m.output(h)
     h, aux = _ffn(blk, x, cfg)
     return x + h, aux, kv
 
@@ -484,9 +494,9 @@ def _mlstm_layer(blk: Block, x, cfg, collect: bool):
 def _remat(on: bool, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass
     when ``on`` (the reference's ``jax.checkpoint`` with
-    ``nothing_saveable``)."""
+    ``nothing_saveable``); the recompute is span ``layer.recompute``."""
     if on:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(spans.rerun(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -542,6 +552,10 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.family == "moe":
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
+            if remat and spans.active():
+                n = tokens.numel() * cfg.top_k * len(auxs)
+                spans.count("moe.assignments", n)
+                spans.count("moe.dropped", aux["dropped_frac"], scale=n)
         kv_out = (ks, vs) if collect else None
     elif cfg.family == "hybrid":
         x, kv_out, states_out = _hybrid_forward(params, cfg, x, rope,
