@@ -6,10 +6,20 @@ softmax, the top-k gates renormalised, each (token, k) assignment
 ranked within its expert by one stable sort, ``keep = rank < capacity``,
 and the kept assignments scattered into an ``[E * C + 1]`` slot table
 whose last (sentinel) row takes the dropped ones and is cut off.
-Experts then run as dense batched matmuls over ``[E, C, d]`` and the
-gated outputs are combined with a float32 scatter-add (``index_add_``;
-on CUDA its order of addition varies from run to run, so results agree
-within rounding, not bit for bit).
+Experts then run as dense batched matmuls over ``[E, C, d]``.
+
+Dispatch and combine are a pair of adjoint gathers over the two maps
+``route`` builds: ``table`` (the token of each slot, ``n`` if the slot
+is empty) and ``slot`` (the slot of each assignment, ``E * C`` if it
+was dropped).  Each map indexes a copy of its source with one zero row
+appended, so an empty slot or a dropped assignment reads zeros.  The
+dispatch gathers token rows by ``table``; its backward gathers the
+slots' gradients by ``slot`` and sums each token's ``k`` rows.  The
+combine gathers the gate-weighted float32 expert rows by ``slot`` and
+sums them; its backward gathers the output's gradient by ``table``.
+Each sum over ``k`` runs in float32, in one fixed order, and rounds
+once, so results do not vary from run to run; nothing scatters into the
+zero row, which would pile every empty slot onto one row.
 
 ``jax.lax.top_k`` takes the lower expert index among equal
 probabilities; ``torch.topk`` promises no order among ties, so the port
@@ -108,6 +118,63 @@ def _slot_gate(gate_vals: torch.Tensor, keep: torch.Tensor,
     return g[:-1]
 
 
+def _pad(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` ``[m, d]`` with one zero row appended."""
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+
+
+def _gather_sum(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[t] = sum_j rows[idx[t, j]]`` for ``idx`` ``[n, k]``, summed
+    in float32."""
+    g = rows.index_select(0, idx.reshape(-1))
+    return g.view(*idx.shape, rows.shape[1]).sum(dim=1, dtype=torch.float32)
+
+
+class _Dispatch(torch.autograd.Function):
+    """``ex_in[s] = x[table[s]]``; backward ``grad_x[t] = sum_k
+    grad_ex_in[slot[t, k]]``, rounded once to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, xf, table, slot):
+        ctx.save_for_backward(slot)
+        d = xf.shape[1]
+        return _pad(xf).index_select(0, table.reshape(-1)).view(
+            *table.shape, d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        slot, = ctx.saved_tensors
+        g = _pad(grad.reshape(-1, grad.shape[-1]))
+        return _gather_sum(g, slot).to(grad.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``out[t] = sum_k (gate * vals)[slot[t, k]]`` in float32, for the
+    per-slot gate ``sg``; backward ``grad_vals[s] = sg[s] * grad_out[
+    table[s]]`` and ``grad_sg[s] = <grad_out[table[s]], vals[s]>``."""
+
+    @staticmethod
+    def forward(ctx, vals, sg, slot, table):
+        ctx.save_for_backward(vals, sg, table)
+        s, d = vals.shape
+        rows = vals.new_empty((s + 1, d), dtype=torch.float32)
+        torch.mul(vals, sg[:, None], out=rows[:s])
+        rows[s].zero_()
+        return _gather_sum(rows, slot)
+
+    @staticmethod
+    def backward(ctx, grad):
+        vals, sg, table = ctx.saved_tensors
+        g = _pad(grad.float()).index_select(0, table.reshape(-1))
+        grad_vals = grad_sg = None
+        if ctx.needs_input_grad[0]:
+            grad_vals = torch.mul(g, sg[:, None],
+                                  out=torch.empty_like(vals))
+        if ctx.needs_input_grad[1]:
+            grad_sg = (g * vals).sum(dim=-1)
+        return grad_vals, grad_sg, None, None
+
+
 def _int8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 quantisation: (values, float32 ``[.., 1]`` scales)."""
     xf = x.float()
@@ -125,7 +192,9 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
     xf = x.reshape(n, d)
     r = route(p, xf, cfg)
 
-    # dispatch: gather token rows into [E, C, d] (row n is zeros)
+    slot = r.slot.view(n, cfg.top_k)
+
+    # dispatch: gather token rows into [E, C, d] (empty slots read zeros)
     if cfg.moe_quant_dispatch:
         # int8 payloads with one bf16 scale per token, as the reference
         # moves them across its expert-parallel boundary
@@ -136,25 +205,20 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
         ex_in = (xq[r.table].float()
                  * sq[r.table].float()).to(x.dtype)
     else:
-        xpad = torch.cat([xf, xf.new_zeros((1, d))])
-        ex_in = xpad[r.table]                              # [E, C, d]
+        ex_in = _Dispatch.apply(xf, r.table, slot)         # [E, C, d]
 
     # expert computation: batched matmuls over the experts
     h = F.silu(torch.bmm(ex_in, p.w_gate)) * torch.bmm(ex_in, p.w_up)
     ex_out = torch.bmm(h, p.w_down)                        # [E, C, d]
 
-    # combine: weight by the gates, scatter-add back to the tokens
+    # combine: gather each token's gate-weighted rows, sum in float32
     if cfg.moe_quant_dispatch:
         oq, s_out = _int8_rows(ex_out)
         vals = oq.reshape(-1, d).float() * s_out.reshape(-1, 1)
     else:
-        vals = ex_out.reshape(-1, d).float()
-    weighted = vals * _slot_gate(r.gate_vals, r.keep, r.slot, e,
-                                 cap)[:, None]
-    flat_out = torch.zeros((n + 1, d), dtype=torch.float32,
-                           device=x.device)
-    flat_out.index_add_(0, r.table.reshape(-1), weighted)
-    out = flat_out[:n].reshape(b, t, d)
+        vals = ex_out.reshape(-1, d)
+    sg = _slot_gate(r.gate_vals, r.keep, r.slot, e, cap)
+    out = _Combine.apply(vals, sg, slot, r.table).reshape(b, t, d)
 
     # aux losses
     me = r.probs.mean(dim=0)

@@ -335,6 +335,111 @@ def test_moe_dispatch_exact_and_output_close(case, monkeypatch):
         np.testing.assert_allclose(float(aux[name]), float(raux[name]), **F32)
 
 
+MOE_GRAD_CASES = {
+    # case: (dtype, config overrides, x shape)
+    "drops": ("float32", {}, (2, 16, 128)),
+    "ties": ("float32", {}, (2, 16, 128)),
+    "bf16": ("bfloat16", {}, (2, 16, 128)),
+    # 3 tokens, top-2, 3 slots an expert: 24 slots for 6 assignments, so
+    # at least two experts get none (top-2, not top-1, whose single
+    # renormalised gate is 1 and gives the router no gradient)
+    "empty": ("float32", {"capacity_factor": 4.0}, (1, 3, 128)),
+    "quant": ("float32", {"moe_quant_dispatch": True}, (2, 16, 128)),
+}
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+@pytest.mark.parametrize("case", list(MOE_GRAD_CASES))
+def test_moe_gradients_match_reference(case):
+    """The gradients of one fixed cotangent on the layer's output, through
+    the port's gathers and through ``jax.vjp`` of the reference, for the
+    input and every weight ("quant": the forward, whose int8 dispatch
+    the reference shares)."""
+    dtype, kw, shape = MOE_GRAD_CASES[case]
+    rcfg, pcfg, rp, pp = _models("granite-moe-1b-a400m", dtype, **kw)
+    rmoe = _layer0(rp["layers"]["moe"])
+    pmoe = pp.layers[0].moe
+    if case == "ties":
+        router = np.asarray(rmoe["router"]).copy()
+        router[:, 5] = router[:, 3]
+        rmoe = dict(rmoe, router=jnp.asarray(router))
+        pmoe.router.copy_(torch.from_numpy(router))
+    rng = np.random.default_rng(9)
+    jx, tx = _pair(rng.normal(size=shape), dtype)
+    jct, tct = _pair(rng.normal(size=shape), dtype)
+    r = moe_lib.route(pmoe, tx.reshape(-1, 128), pcfg)
+    n = tx.shape[0] * tx.shape[1]
+    if case == "empty":
+        assert (r.table == n).all(dim=1).any()      # a whole expert idle
+    if case in ("drops", "ties", "bf16"):
+        assert not r.keep.all()                     # capacity binds
+    tol = F32 if dtype == "float32" else BF16
+    if case == "quant":
+        got, _ = moe_lib.moe(pmoe, tx, pcfg)
+        want, _ = ref_moe.moe(rmoe, jx, rcfg)
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+        return
+
+    def ref_out(xx, p):
+        return ref_moe.moe(p, xx, rcfg)[0]
+    want, vjp = jax.vjp(ref_out, jx, rmoe)
+    want_gx, want_gp = vjp(jct)
+    leaves = [getattr(pmoe, name) for name in MOE_LEAVES]
+    tx.requires_grad_(True)
+    for w in leaves:
+        w.requires_grad_(True)
+    got, _ = moe_lib.moe(pmoe, tx, pcfg)
+    grads = torch.autograd.grad(got, [tx] + leaves, grad_outputs=tct)
+    np.testing.assert_allclose(_np(got.detach()), _np(want), **tol)
+    for name, g, w in zip(("x",) + MOE_LEAVES, grads,
+                          [want_gx] + [want_gp[k] for k in MOE_LEAVES]):
+        w = _np(w)
+        atol = tol["atol"] * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(_np(g), w, rtol=tol["rtol"], atol=atol,
+                                   err_msg=name)
+
+
+def test_moe_scatters_into_no_sentinel_row():
+    """The layer's forward and backward at the reduced granite shapes run
+    gathers only: no ``index_add`` and no accumulating ``index_put_``,
+    which would add every empty slot into the one zero row."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            acc = False
+            if name in ("index_put", "index_put_", "_index_put_impl_"):
+                acc = bool(kwargs.get("accumulate",
+                                      args[3] if len(args) > 3 else False))
+            self.seen.append((name, acc))
+            return func(*args, **kwargs)
+
+    _, pcfg, _, pp = _models("granite-moe-1b-a400m", "bfloat16")
+    pmoe = pp.layers[0].moe
+    for w in pmoe.parameters():
+        w.requires_grad_(True)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 16, 128)).astype(np.float32)).to(torch.bfloat16)
+    x.requires_grad_(True)
+    ops = Ops()
+    with ops:
+        out, aux = moe_lib.moe(pmoe, x, pcfg)
+        r = moe_lib.route(pmoe, x.detach().reshape(-1, 128), pcfg)
+        loss = out.float().square().sum() + aux["load_balance"]
+        torch.autograd.grad(loss, [x] + list(pmoe.parameters()))
+    assert not r.keep.all() and (r.table == 2 * 16).any()
+    names = {name for name, _ in ops.seen}
+    assert "index_select" in names                  # the gathers were seen
+    assert not any("index_add" in name for name in names)
+    assert not [name for name, acc in ops.seen if acc]
+
+
 # ---------------------------------------------------------------------------
 # the families end to end
 # ---------------------------------------------------------------------------
