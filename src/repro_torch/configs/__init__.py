@@ -8,6 +8,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ALL_SHAPES,
     DECODE_32K,
     LONG_500K,
+    LatentConfig,
     ModelConfig,
     PREFILL_32K,
     ShapeConfig,
@@ -31,13 +32,16 @@ _MODULES = {
 
 ARCH_IDS: List[str] = list(_MODULES)
 
+#: configurations of the port alone, which the JAX package does not have
+PORT_ONLY = {"kimi-k2-instruct": "kimi_k2_instruct"}
+
 
 def get_config(arch_id: str) -> ModelConfig:
     try:
-        mod_name = _MODULES[arch_id]
+        mod_name = {**_MODULES, **PORT_ONLY}[arch_id]
     except KeyError:
-        raise KeyError(
-            f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; available: "
+                       f"{ARCH_IDS + list(PORT_ONLY)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

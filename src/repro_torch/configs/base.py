@@ -130,3 +130,52 @@ def applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
         return False, ("full-attention architecture: 500k dense decode is "
                        "the quadratic regime the spec says to skip")
     return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentConfig(ModelConfig):
+    """A DeepSeek-V3-style model (Kimi K2): multi-head latent attention
+    (MLA), ``first_k_dense`` leading dense layers of width
+    ``dense_d_ff`` and then expert layers with ``n_shared_experts``
+    shared experts and sigmoid routing over ``router_experts`` experts,
+    of which this device holds ``n_experts``, from ``expert_offset``
+    on (the device's share under expert parallelism; ``n_experts ==
+    router_experts`` is the uncut layer).  ``d_ff`` is an expert's
+    width; ``head_dim`` is ``v_head_dim``.  The rotary part of q / k
+    takes YaRN frequencies (``yarn_*``, as the published
+    ``rope_scaling``; its ``mscale`` equals ``mscale_all_dim``, so cos /
+    sin carry no scale)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_shared_experts: int = 1
+    first_k_dense: int = 1
+    dense_d_ff: int = 18432
+    routed_scale: float = 2.827
+    router_experts: int = 384
+    expert_offset: int = 0
+    yarn_factor: float = 32.0
+    yarn_original: int = 4096
+    yarn_beta_fast: float = 1.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale_all_dim: float = 1.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def reduced(self) -> "LatentConfig":
+        """Tiny same-family variant for CPU smoke tests: one dense
+        layer and two expert layers holding 8 of 16 routed experts."""
+        base = super().reduced()
+        return dataclasses.replace(
+            base, n_layers=min(self.n_layers, 3), n_kv_heads=base.n_heads,
+            head_dim=16, d_ff=64, top_k=min(self.top_k, 4),
+            n_experts=min(self.n_experts, 8),
+            router_experts=min(self.router_experts, 16),
+            expert_offset=0, q_lora_rank=48, kv_lora_rank=32,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+            dense_d_ff=256, yarn_original=min(self.yarn_original, 64))

@@ -6,7 +6,10 @@ sequence (with the blockwise online-softmax path for long ones), the
 cross-attention of the encdec and vlm families (decoder states against
 precomputed encoder or image K / V: no RoPE, no causal mask) and the
 one-token decode against a KV cache (full, or a ``window``-slot ring
-buffer), in bfloat16 or int8.
+buffer), in bfloat16 or int8.  :class:`LatentAttention` is the
+multi-head latent attention (MLA) of a
+:class:`~repro_torch.configs.base.LatentConfig` (training and the
+full-sequence forward only; it has no cache).
 
 Softmax runs in float32; logits are scaled by ``1/sqrt(hd)``.  The
 parameters keep the reference's layouts (``wq`` / ``wk`` / ``wv``
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import spans
+from repro_torch.configs.base import LatentConfig, ModelConfig
 from repro_torch.models.common import (
     apply_rope,
     dense_init,
@@ -34,6 +38,8 @@ from repro_torch.models.common import (
     rms_norm,
     rope_freqs,
     rotate,
+    yarn_inv_freq,
+    yarn_mscale,
 )
 
 NEG_INF = -1e30
@@ -105,13 +111,19 @@ def _expand_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: Optional[torch.Tensor], n_rep: int) -> torch.Tensor:
-    """q: [B,T,Hq,hd]; k,v: [B,S,Hkv,hd]; mask broadcastable [B,1,T,S]."""
+          mask: Optional[torch.Tensor], n_rep: int,
+          scale: Optional[float] = None) -> torch.Tensor:
+    """q, k: [B,T,Hq,hd], [B,S,Hkv,hd]; v: [B,S,Hkv,hd_v]; mask
+    broadcastable [B,1,T,S].  Logits are scaled by ``scale``, or divided
+    by ``sqrt(hd)`` without one."""
     hd = q.shape[-1]
     k = _expand_kv(k, n_rep)
     v = _expand_kv(v, n_rep)
     logits = torch.einsum("bthk,bshk->bhts", q, k).float()
-    logits = logits / np.float32(np.sqrt(hd))
+    if scale is None:
+        logits = logits / np.float32(np.sqrt(hd))
+    else:
+        logits = logits * np.float32(scale)
     if mask is not None:
         logits = logits + torch.where(
             mask, torch.zeros((), device=logits.device),
@@ -179,7 +191,11 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                    rope: Tuple[torch.Tensor, torch.Tensor],
                    positions: Optional[torch.Tensor] = None,
                    window: int = 0, return_kv: bool = False):
-    """Causal self-attention over a full sequence (train / prefill)."""
+    """Causal self-attention over a full sequence (train / prefill); a
+    :class:`LatentAttention` layer goes to :func:`latent_attention`
+    (training only: it has no KV cache to return)."""
+    if isinstance(p, LatentAttention):
+        return latent_attention(p, x, cfg, rope)
     t = x.shape[1]
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, x, cfg)
@@ -306,4 +322,83 @@ def decode_attention(p: Attention, x: torch.Tensor,
 
 def make_rope(cfg: ModelConfig, max_pos: int, device=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return rope_freqs(cfg.hd, max_pos, cfg.rope_theta, device)
+    """The ``[max_pos, dim / 2]`` cos / sin table: over the head dim, or
+    for a latent config YaRN's over its rotary dims."""
+    if not isinstance(cfg, LatentConfig):
+        return rope_freqs(cfg.hd, max_pos, cfg.rope_theta, device)
+    inv = yarn_inv_freq(cfg.qk_rope_head_dim, cfg.rope_theta,
+                        cfg.yarn_factor, cfg.yarn_original,
+                        cfg.yarn_beta_fast, cfg.yarn_beta_slow, device)
+    ang = torch.arange(max_pos, dtype=torch.float32, device=device)[:, None] \
+        * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention
+# ---------------------------------------------------------------------------
+
+class LatentAttention(nn.Module):
+    """MLA's leaves: ``wq_a`` ``[d, q_rank]``, ``q_norm`` ``[q_rank]``,
+    ``wq_b`` ``[q_rank, H, nope + rope]``, ``wkv_a`` ``[d, kv_rank +
+    rope]``, ``kv_norm`` ``[kv_rank]``, ``wkv_b`` ``[kv_rank, H, nope +
+    v]`` and ``wo`` ``[H, v, d]``."""
+
+    def __init__(self, cfg: LatentConfig, dtype, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+        self.wq_a = param((d, rq), dtype, device)
+        self.q_norm = param((rq,), dtype, device)
+        self.wq_b = param((rq, h, nope + rope), dtype, device)
+        self.wkv_a = param((d, rkv + rope), dtype, device)
+        self.kv_norm = param((rkv,), dtype, device)
+        self.wkv_b = param((rkv, h, nope + vd), dtype, device)
+        self.wo = param((h, vd, d), dtype, device)
+
+    def reset(self, gen) -> None:
+        for w in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b):
+            w.copy_(dense_init(gen, w.shape, w.shape[0], w.dtype, w.device))
+        h, vd, _ = self.wo.shape
+        self.wo.copy_(dense_init(gen, self.wo.shape, h * vd, self.wo.dtype,
+                                 self.wo.device))
+        self.q_norm.fill_(1)
+        self.kv_norm.fill_(1)
+
+
+def latent_scale(cfg: LatentConfig) -> float:
+    """The softmax scale: ``(nope + rope) ** -0.5`` times the square of
+    YaRN's ``mscale_all_dim`` scale."""
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def latent_attention(p: LatentAttention, x: torch.Tensor,
+                     cfg: LatentConfig,
+                     rope: Tuple[torch.Tensor, torch.Tensor]
+                     ) -> torch.Tensor:
+    """Causal MLA over a full sequence ``x`` ``[B, T, d]``: q from the
+    normed compressed q, k_nope and v from the normed compressed kv, one
+    rotary key ``k_pe`` shared by every head, scores at ``nope + rope``
+    against values at ``v``, through :func:`_sdpa` (span
+    ``attention.latent`` holds what comes before the scores)."""
+    t = x.shape[1]
+    nope, rdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    with spans.span("attention.latent"):
+        c_q = rms_norm(x @ p.wq_a, p.q_norm, cfg.norm_eps)
+        q_nope, q_pe = _proj(c_q, p.wq_b).split([nope, rdim], dim=-1)
+        c_kv, k_pe = (x @ p.wkv_a).split([cfg.kv_lora_rank, rdim], dim=-1)
+        kv = _proj(rms_norm(c_kv, p.kv_norm, cfg.norm_eps), p.wkv_b)
+        k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
+        cos, sin = rope
+        q_pe = apply_rope(q_pe, cos, sin)
+        k_pe = apply_rope(k_pe[:, :, None], cos, sin)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(-1, -1, cfg.n_heads, -1)],
+                      dim=-1)
+    idx = torch.arange(t, device=x.device)
+    mask = idx[None, :, None] >= idx[None, None, :]
+    out = _sdpa(q, k, v, mask[:, None], 1, latent_scale(cfg))
+    return _out(p, out)

@@ -9,6 +9,7 @@ explicit :class:`torch.Generator` on the parameters' device.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +51,42 @@ def rope_freqs(head_dim: int, max_pos: int, theta: float,
     """The ``[max_pos, hd / 2]`` cos / sin table of positions 0..max_pos-1."""
     return rope_angles(head_dim, theta, torch.arange(
         max_pos, dtype=torch.float32, device=device))
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude scale ``0.1 * mscale * ln(factor) + 1`` (1 for
+    ``factor <= 1``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _correction_dim(rotations: float, dim: int, theta: float,
+                    original: int) -> float:
+    """The rotary dim whose wavelength makes ``rotations`` turns over
+    ``original`` positions."""
+    return dim * math.log(original / (rotations * 2 * math.pi)) \
+        / (2 * math.log(theta))
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float, original: int,
+                  beta_fast: float, beta_slow: float,
+                  device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies, float32 ``[dim / 2]``, as DeepSeek-V3
+    computes them: the plain frequencies up to the correction dim of
+    ``beta_fast`` turns, the frequencies over ``factor`` from that of
+    ``beta_slow`` on, and a linear ramp between, taken over the
+    ``dim / 2`` frequency indices."""
+    low = max(math.floor(_correction_dim(beta_fast, dim, theta, original)),
+              0)
+    high = min(math.ceil(_correction_dim(beta_slow, dim, theta, original)),
+               dim - 1)
+    if low == high:
+        high += 0.001
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / theta ** exps
+    inter = 1.0 / (factor * theta ** exps)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
 
 
 def rotate(x: torch.Tensor, cos_t: torch.Tensor,

@@ -25,30 +25,60 @@ zero row, which would pile every empty slot onto one row.
 probabilities; ``torch.topk`` promises no order among ties, so the port
 takes the first k of a stable descending sort, which keeps the
 reference's order on the CPU and on the card alike.
+
+A :class:`~repro_torch.configs.base.LatentConfig` layer (Kimi K2,
+DeepSeek-V3) scores with sigmoids instead: the router is
+``router_experts`` wide, the top-k are chosen on the scores plus the
+float32 ``bias`` buffer (a selection bias only, zero at start), and the
+chosen scores are normalised over the k and scaled by
+``routed_scale``.  The layer holds experts ``[expert_offset,
+expert_offset + n_experts)`` of the router's, the device's share under
+expert parallelism: capacity is that of ``router_experts`` experts, and
+an assignment to an expert held elsewhere is neither dispatched nor
+counted as dropped (the absent experts' part of the result is left
+out).  Its ``shared`` SwiGLU expert (span ``moe.shared``) is added for
+every token.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import spans
+from repro_torch.configs.base import LatentConfig, ModelConfig
+from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import dense_init, param
 
 
+def _routed(cfg: ModelConfig) -> int:
+    """The router's width: every routed expert, held here or not."""
+    return cfg.router_experts if isinstance(cfg, LatentConfig) \
+        else cfg.n_experts
+
+
 class MoE(nn.Module):
-    """``router`` ``[d, E]`` (float32), ``w_gate`` / ``w_up``
-    ``[E, d, f]``, ``w_down`` ``[E, f, d]``."""
+    """``router`` ``[d, E_routed]`` (float32), ``w_gate`` / ``w_up``
+    ``[E, d, f]``, ``w_down`` ``[E, f, d]`` for the ``E`` experts held;
+    for a latent config also the ``shared`` expert (an
+    :class:`~repro_torch.models.mlp.MLP` of ``n_shared_experts x f``)
+    and the float32 selection ``bias`` buffer ``[E_routed]``."""
 
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.router = param((d, e), torch.float32, device)
+        self.router = param((d, _routed(cfg)), torch.float32, device)
         self.w_gate = param((e, d, f), dtype, device)
         self.w_up = param((e, d, f), dtype, device)
         self.w_down = param((e, f, d), dtype, device)
+        self.shared = None
+        if isinstance(cfg, LatentConfig):
+            self.shared = mlp_lib.MLP(d, cfg.n_shared_experts * f, dtype,
+                                      device)
+            self.register_buffer("bias", torch.zeros(
+                _routed(cfg), dtype=torch.float32, device=device))
 
     def reset(self, gen) -> None:
         d = self.router.shape[0]
@@ -56,10 +86,13 @@ class MoE(nn.Module):
         for w, fan_in in ((self.router, d), (self.w_gate, d),
                           (self.w_up, d), (self.w_down, f)):
             w.copy_(dense_init(gen, w.shape, fan_in, w.dtype, w.device))
+        if self.shared is not None:
+            self.shared.reset(gen)
+            self.bias.zero_()
 
 
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
-    cap = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
+    cap = int(cfg.capacity_factor * n_tokens * cfg.top_k / _routed(cfg))
     return max(cap, cfg.top_k)
 
 
@@ -73,6 +106,8 @@ class Routing(NamedTuple):
     keep: torch.Tensor        # bool [A]: assignment within capacity
     slot: torch.Tensor        # int64 [A]: table row, E * C if dropped
     table: torch.Tensor       # int64 [E, C]: token per slot, n if empty
+    held: Optional[torch.Tensor] = None  # bool [A]: to an expert held
+                                         # here (None: every one is)
 
 
 def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> Routing:
@@ -83,20 +118,37 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> Routing:
     cap = _capacity(n, cfg)
     dev = xf.device
     logits = xf.float() @ p.router
-    probs = torch.softmax(logits, dim=-1)
-    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_ids = srt.values[:, :k], srt.indices[:, :k]
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    if isinstance(cfg, LatentConfig):
+        probs = torch.sigmoid(logits)
+        srt = torch.sort(probs + p.bias, dim=-1, descending=True,
+                         stable=True)
+        expert_ids = srt.indices[:, :k]
+        gate_vals = probs.gather(1, expert_ids)
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True) \
+            * cfg.routed_scale
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_vals, expert_ids = srt.values[:, :k], srt.indices[:, :k]
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    # rank of each assignment within its expert (stable sort)
+    # rank of each assignment within its expert (stable sort); under
+    # a share, the experts held elsewhere make one more bucket, ``e``
     flat_e = expert_ids.reshape(-1)
+    held = None
+    if e < _routed(cfg):
+        local = flat_e - cfg.expert_offset
+        held = (local >= 0) & (local < e)
+        flat_e = torch.where(held, local, torch.full_like(local, e))
     order = torch.argsort(flat_e, stable=True)
     ranked = torch.empty_like(order)
     ranked[order] = torch.arange(n * k, device=dev)
-    seg_start = torch.searchsorted(flat_e[order],
-                                   torch.arange(e, device=dev))
+    seg_start = torch.searchsorted(
+        flat_e[order], torch.arange(e + (held is not None), device=dev))
     pos_in_expert = ranked - seg_start[flat_e]
     keep = pos_in_expert < cap
+    if held is not None:
+        keep = keep & held
 
     # the [E * C + 1] slot table; the sentinel row takes the drops
     slot = torch.where(keep, flat_e * cap + pos_in_expert,
@@ -105,7 +157,7 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig) -> Routing:
     table = torch.full((e * cap + 1,), n, dtype=torch.long, device=dev)
     table[slot] = token_of
     return Routing(logits, probs, gate_vals, expert_ids, keep, slot,
-                   table[:-1].reshape(e, cap))
+                   table[:-1].reshape(e, cap), held)
 
 
 def _slot_gate(gate_vals: torch.Tensor, keep: torch.Tensor,
@@ -184,7 +236,10 @@ def _int8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, T, d] -> (out [B, T, d], aux losses)."""
+    """x: [B, T, d] -> (out [B, T, d], aux): the aux losses and the
+    dropped share, or for a latent config (no aux loss), while spans are
+    recorded, the assignments to held experts (``held``) and the share of
+    them dropped (``dropped_frac``)."""
     b, t, d = x.shape
     n = b * t
     e = cfg.n_experts
@@ -219,6 +274,18 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
         vals = ex_out.reshape(-1, d)
     sg = _slot_gate(r.gate_vals, r.keep, r.slot, e, cap)
     out = _Combine.apply(vals, sg, slot, r.table).reshape(b, t, d)
+
+    if p.shared is not None:
+        with spans.span("moe.shared"):
+            out = out.to(x.dtype) + mlp_lib.mlp(p.shared, x)
+        # no aux loss; the counters' numbers, taken only while tracing
+        aux = {}
+        if spans.active():
+            held = r.keep.new_tensor(n * cfg.top_k, dtype=torch.long) \
+                if r.held is None else r.held.sum()
+            aux = {"held": held, "dropped_frac":
+                   1.0 - r.keep.sum().double() / held.clamp(min=1)}
+        return out, aux
 
     # aux losses
     me = r.probs.mean(dim=0)

@@ -46,11 +46,21 @@ scans, and for the encdec / vlm families around each encoder layer
 and each decoder layer with its cross block.  ``seq_parallel`` (a
 sharding constraint in the reference) changes nothing on one device.
 
+A :class:`~repro_torch.configs.base.LatentConfig` (Kimi K2) is a
+decoder of latent-attention layers (:class:`~repro_torch.models.
+attention.LatentAttention`): its first ``first_k_dense`` layers have a
+dense SwiGLU of ``dense_d_ff`` (kind ``"mla_mlp"``), the rest an expert
+layer with a shared expert and sigmoid routing (``"mla_moe"``); its loss
+is the NLL alone.  It has no serving path yet: :func:`prefill`,
+:func:`decode_step` and ``forward(collect=True)`` refuse it.
+
 When the span registry is active (:mod:`repro_torch.spans`), training
 records ``attention.fwd`` / ``.bwd`` around each self-attention call,
 ``moe.fwd`` / ``.bwd`` around each expert layer, ``layer.recompute``
 around each rematerialised forward, and the counters
-``moe.assignments`` / ``moe.dropped``.
+``moe.routed`` (every assignment the routers made), ``moe.assignments``
+(those to experts held here: all of them but under an expert share)
+and ``moe.dropped`` (those of them dropped past capacity).
 """
 from __future__ import annotations
 
@@ -62,7 +72,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import spans
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LatentConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
@@ -93,6 +103,17 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _latent(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, LatentConfig)
+
+
+def _refuse_serving(cfg: ModelConfig) -> None:
+    if _latent(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention has no KV cache or decode path "
+            f"yet; it trains only")
+
+
 # ---------------------------------------------------------------------------
 # modules and init
 # ---------------------------------------------------------------------------
@@ -115,8 +136,10 @@ class Block(nn.Module):
     ``mlp`` (``"attn_mlp"``) or ``moe`` (``"attn_moe"``), or ``ssm``
     (``"mamba"``), ``mlstm`` or ``slstm``; ``"cross"`` is ``ln1``, a
     cross-attention ``attn`` (no qk-norm), ``ln2``, ``mlp`` and the
-    float32 0-d gates ``gate_attn`` / ``gate_mlp``.  The default kind
-    is the dense or MoE family's layer."""
+    float32 0-d gates ``gate_attn`` / ``gate_mlp``; ``"mla_mlp"`` /
+    ``"mla_moe"`` are ``"attn_mlp"`` (with the ``dense_d_ff`` MLP) /
+    ``"attn_moe"`` with latent attention.  The default kind is the dense
+    or MoE family's layer."""
 
     def __init__(self, cfg: ModelConfig, dtype, device=None,
                  kind: Optional[str] = None):
@@ -127,7 +150,14 @@ class Block(nn.Module):
         self.attn = self.ln2 = self.mlp = self.moe = None
         self.ssm = self.mlstm = self.slstm = None
         self.gate_attn = self.gate_mlp = None
-        if kind in ("attn_mlp", "attn_moe", "cross"):
+        if kind in ("mla_mlp", "mla_moe"):
+            self.attn = attn_lib.LatentAttention(cfg, dtype, device)
+            self.ln2 = param((d,), dtype, device)
+            if kind == "mla_moe":
+                self.moe = moe_lib.MoE(cfg, dtype, device)
+            else:
+                self.mlp = mlp_lib.MLP(d, cfg.dense_d_ff, dtype, device)
+        elif kind in ("attn_mlp", "attn_moe", "cross"):
             self.attn = attn_lib.Attention(cfg, dtype, device,
                                            cross=kind == "cross")
             self.ln2 = param((d,), dtype, device)
@@ -212,8 +242,14 @@ class Transformer(nn.Module):
             if n_s:
                 self.slstm_layers = nn.ModuleList(
                     Block(cfg, dt, device, "slstm") for _ in range(n_s))
-        self.layers = nn.ModuleList(
-            Block(cfg, dt, device, kind) for _ in range(n))
+        if _latent(cfg):
+            self.layers = nn.ModuleList(
+                Block(cfg, dt, device,
+                      "mla_mlp" if i < cfg.first_k_dense else "mla_moe")
+                for i in range(n))
+        else:
+            self.layers = nn.ModuleList(
+                Block(cfg, dt, device, kind) for _ in range(n))
 
     @property
     def head(self) -> torch.Tensor:
@@ -289,17 +325,30 @@ def _stacked(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     return parts, None
 
 
+def _first_rows(names) -> Dict[Tuple[str, ...], int]:
+    """Each stacked key's first layer row: 0, but for a leaf only later
+    layers have (a latent model's experts follow its dense layers)."""
+    first: Dict[Tuple[str, ...], int] = {}
+    for name in names:
+        key, row = _stacked(name)
+        if row is not None:
+            first[key] = min(first.get(key, row), row)
+    return first
+
+
 def _load(targets: Mapping[str, torch.Tensor], tree: Mapping[str, Any]
           ) -> None:
     """Copy the reference tree's leaves into ``targets`` (port names),
     which must take every leaf, each at its shape."""
     flat = _flat_tree(tree)
+    first = _first_rows(targets)
     seen = set()
     for name, p in targets.items():
         key, row = _stacked(name)
         if key not in flat:
             raise ValueError(f"{name}: no reference leaf {'.'.join(key)}")
-        val = _as_tensor(flat[key] if row is None else flat[key][row])
+        val = _as_tensor(flat[key] if row is None
+                         else flat[key][row - first[key]])
         seen.add(key)
         if tuple(val.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {tuple(val.shape)}, "
@@ -342,7 +391,7 @@ def _reference_tree(leaves: Mapping[str, torch.Tensor],
         else:
             rows.setdefault(key, {})[row] = t
     for key, by_row in rows.items():
-        flat[key] = torch.stack([by_row[i] for i in range(len(by_row))])
+        flat[key] = torch.stack([by_row[i] for i in sorted(by_row)])
     tree: Dict[str, Any] = {}
     for key, t in flat.items():
         node = tree
@@ -520,6 +569,19 @@ class ForwardOut(NamedTuple):
                       # layers' stacked (K, V) (encdec / vlm), collect=True
 
 
+def _count_routing(per_layer: int, auxs) -> None:
+    """Each expert layer's assignments: all the router made
+    (``moe.routed``), those to experts held here (``moe.assignments``:
+    the layer's ``held``, else all) and those of them dropped past
+    capacity (``moe.dropped``: its ``dropped_frac`` of them, multiplied
+    when read, so counting launches no kernel)."""
+    for a in auxs:
+        held = a.get("held", per_layer)
+        spans.count("moe.routed", per_layer)
+        spans.count("moe.assignments", held)
+        spans.count("moe.dropped", a["dropped_frac"], scale=held)
+
+
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             extra: Optional[Dict[str, torch.Tensor]] = None,
             collect: bool = False) -> ForwardOut:
@@ -533,6 +595,8 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     d]`` or the vlm family's ``image_embeds`` ``[B, N, vision_dim]``
     (any float dtype; cast to the model's)."""
     check_family(cfg)
+    if collect:
+        _refuse_serving(cfg)
     extra = extra or {}
     t = tokens.shape[1]
     x = params.tok_embed[tokens]
@@ -549,13 +613,12 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             if collect:
                 ks.append(kv[0])
                 vs.append(kv[1])
-        if cfg.family == "moe":
+        if cfg.family == "moe" and not _latent(cfg):
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
-            if remat and spans.active():
-                n = tokens.numel() * cfg.top_k * len(auxs)
-                spans.count("moe.assignments", n)
-                spans.count("moe.dropped", aux["dropped_frac"], scale=n)
+        if cfg.family == "moe" and remat and spans.active():
+            _count_routing(tokens.numel() * cfg.top_k,
+                           [a for a in auxs if a])
         kv_out = (ks, vs) if collect else None
     elif cfg.family == "hybrid":
         x, kv_out, states_out = _hybrid_forward(params, cfg, x, rope,
@@ -686,8 +749,9 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's training loss: masked next-token NLL (labels < 0
-    ignored) plus, for MoE, 0.01 x load balance and 1e-3 x router z.
-    Differentiable; every layer is rematerialised under grad."""
+    ignored) plus, for MoE (not a latent config), 0.01 x load balance
+    and 1e-3 x router z.  Differentiable; every layer is rematerialised
+    under grad."""
     out = forward(params, cfg, batch["tokens"],
                   {k: v for k, v in batch.items()
                    if k not in ("tokens", "labels")})
@@ -731,6 +795,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``slstm`` (ssm) states.  The encdec and vlm families' ``cross_kv``
     is the prefill's (:func:`prefill`)."""
     check_family(cfg)
+    _refuse_serving(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {
@@ -762,6 +827,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     """Process the prompt, build the decode cache, return the last
     position's float32 logits ``[B, V]``.  ``extra``: the encdec and
     vlm families' frontend inputs (:func:`forward`)."""
+    _refuse_serving(cfg)
     b, t = tokens.shape
     max_len = max_len or t
     out = forward(params, cfg, tokens, extra, collect=True)
@@ -804,6 +870,7 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     ``extra`` is unused, as in the reference.
     """
     check_family(cfg)
+    _refuse_serving(cfg)
     pos = cache["pos"]
     b = tokens.shape[0]
     x = params.tok_embed[tokens]

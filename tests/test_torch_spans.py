@@ -207,7 +207,7 @@ def test_drop_counters_equal_the_routing_keep(monkeypatch):
     c = spans.summary()["counters"]
     keep = torch.cat(kept).float()
     assert len(kept) == cfg.n_layers
-    assert c["moe.assignments"] == keep.numel()
+    assert c["moe.assignments"] == c["moe.routed"] == keep.numel()
     share = c["moe.dropped"] / c["moe.assignments"]
     assert 0 < share < 1
     assert math.isclose(share, 1 - keep.mean().item(), abs_tol=1e-6)
