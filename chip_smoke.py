@@ -164,7 +164,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    prompts of 64 through ``repro_torch.serve.engine`` with the bf16 and
    the int8 KV cache, after a warm-up, with prefill ms, decode ms a step
    and tokens/s, each decode position's logits held against one full
-   forward over prompt + generated tokens (within 0.12, int8 0.25; the
+   forward over prompt + generated tokens, its causal attention the
+   eager chain as the decode's (within 0.12, int8 0.25; the
    token the forward's top-1 wherever its top-two margin exceeds the
    tolerance; MoE at ``capacity_factor=100`` for the check, positions
    whose tokens took other experts in the two paths counted and left
@@ -187,8 +188,10 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    cross path makes printed (gates set against zero; a second draw of
    audio frames), and their reduced float32 configs in the
    card-against-CPU check.
-   The serving path runs none of the CUDA kernels (its work is
-   PyTorch's matmuls and elementwise operations);
+   The serving path runs the fused attention's forward in every prefill
+   (``kernels/flash.py``, float32 in the card-against-CPU check; the
+   launches of one prefill counted, one a causal self-attention layer);
+   the rest of its work is PyTorch's matmuls and elementwise operations;
 6h. training (after 6g): one microbatched train step of each
    family's reduced float32 config (stablelm, granite-moe at
    ``capacity_factor=100``, zamba2, xlstm, seamless, llama-vision with
@@ -202,19 +205,34 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    bit-equal against the live state, the step-8 checkpoint dropped and
    the run resumed from step 4 with its losses within 1e-3 of the
    straight run's, and the peak memory (the train step's speed is the
-   benchmark's, ``perfbench/``).  It runs none of the CUDA kernels;
+   benchmark's, ``perfbench/``).  Its attention is the fused kernel,
+   forward and backward, its launches over the first run counted (a
+   layer of a microbatch: two forwards, one of them the recompute, and one of
+   each backward kernel);
 6i. dry-run (after 6h): ``repro_torch.launch.dryrun``'s 80 cells on the
    host CPU (no JAX): 64 ok, 16 skipped (the ``long_500k`` cells of the
    full-attention archs), none failed, each decode cell's step run on
    the ``meta`` device at full size, every decode cell memory-bound and
-   every serve cell within 80 GB a card.
+   every serve cell within 80 GB a card;
+6j. attention (before 6g): the fused causal attention
+   (``kernels/flash.py``) at the three 4k cells' per-call shapes
+   (stablelm-1.6b 2 x 4,096 x 32 heads of 64; granite-moe-1b-a400m 8 x
+   4,096, GQA 16 / 8 of 64; Kimi K2's MLA 1 x 4,096 x 64 heads, scores
+   at 192, values at 128, its softmax scale): its O, log-sum-exp, dQ, dK
+   and dV held against the plain float32 version on the batch's first
+   and last sequences (the eager chain's errors beside them), then
+   forward and backward
+   timed (CUDA events) beside the eager chain it replaces and beside
+   the bound (the causal half's products at 989.4 TFLOP/s against q, k,
+   v, o, dO and the gradients once each at 3.35 TB/s), with each
+   kernel's registers, shared memory and spills (``nvcc``'s report).
 
 ``--placement-cards`` builds the kernels and runs only
 :func:`placement_cards`, which holds lane placement over every local
 card against one card.  ``--phases`` runs only the named phase groups
 (``main``, ``index``, ``claims``, ``session``, ``backfill``, ``tenancy``,
-``ensemble``, ``fleet``, ``placement``, ``serve``, ``train``,
-``dryrun``, ``service``; each with the groups whose results it needs) after the
+``ensemble``, ``fleet``, ``placement``, ``attention``, ``serve``,
+``train``, ``dryrun``, ``service``; each with the groups whose results it needs) after the
 build and the kernel phases; an unknown name exits non-zero before any
 work.  With no flag every group runs.
 
@@ -3609,6 +3627,156 @@ def placement_cards(dev) -> dict:
     return report
 
 
+# the 4k cells' attention calls: (B, T, Hq, Hkv, D, Dv, latent scale)
+ATTN_SHAPES = {"stablelm-1.6b": (2, 4096, 32, 32, 64, 64, False),
+               "granite-moe-1b-a400m": (8, 4096, 16, 8, 64, 64, False),
+               "kimi-k2-instruct": (1, 4096, 64, 64, 192, 128, True)}
+# the kernels against the plain float32 version (relative Frobenius
+# error): bf16 P, dS and outputs (2**-9 relative each); the log-sum-exp
+# is float32 on both sides
+ATTN_TOL = {"o": 1e-2, "lse": 1e-4, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2}
+
+
+def _attn_errors(got, want) -> dict:
+    out = {}
+    for name, a, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        if a is None:
+            continue
+        w = w.detach().float()
+        out[name] = float((a.float() - w).norm()) / (float(w.norm()) or 1.0)
+    return out
+
+
+def attention_phase(dev, rows: dict) -> None:
+    """The fused causal attention at the 4k cells' shapes: held against
+    the plain version on the batch's first and last sequences (the eager
+    chain's errors beside it), then timed beside the eager chain and the
+    bound, with each kernel's registers, shared memory and spills (the
+    case library's ``-Xptxas -v`` report)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash
+    from repro_torch.models import attention as attn
+
+    for arch, (b, t, h, hk, d, dv, latent) in ATTN_SHAPES.items():
+        scale = attn.latent_scale(get_config(arch)) if latent else None
+        n_rep = h // hk
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q, k, v, do = rnd(b, t, h, d), rnd(b, t, hk, d), rnd(b, t, hk, dv), \
+            rnd(b, t, h, dv)
+        flash.reset_launches()
+        o, lse = flash.forward(q, k, v, n_rep, scale)
+        dq, dk, dv_ = flash.backward(q, k, v, o, lse, do, n_rep, scale)
+        torch.cuda.synchronize()
+        if flash.LAUNCHES != {"attention_fwd": 1, "attention_bwd_pre": 1,
+                              "attention_bwd_dkdv": 1,
+                              "attention_bwd_dq": 1}:
+            fail(f"attention[{arch}]: launches {flash.LAUNCHES}")
+        # the first and the last sequence: a fault in the batch stride
+        # shows in the last
+        held = sorted({0, b - 1})
+        leaves = [x[held].float().requires_grad_(True) for x in (q, k, v)]
+        ro, rlse = flash.attention_ref(*leaves, n_rep, scale)
+        ro.backward(do[held].float())
+        want = (ro, rlse, *(x.grad for x in leaves))
+        errs = _attn_errors([x[held] for x in (o, lse, dq, dk, dv_)], want)
+        bad = {n: e for n, e in errs.items() if not e <= ATTN_TOL[n]}
+        if bad:
+            fail(f"attention[{arch}]: off the plain version on sequences "
+                 f"{held}: {errs}")
+        idx = torch.arange(t, device=dev)
+        mask = (idx[None, :, None] >= idx[None, None, :])[:, None]
+        el = [x[held].detach().clone().requires_grad_(True)
+              for x in (q, k, v)]
+        eo = attn._sdpa(*el, mask, n_rep, scale)
+        eo.backward(do[held])
+        eager_errs = _attn_errors([eo, None] + [x.grad for x in el], want)
+        del leaves, ro, rlse, want, el, eo
+        torch.cuda.empty_cache()
+
+        built = flash.tiles(d, dv)
+        report = ptxas_report(
+            flash.library_path(d, dv).with_suffix(".log").read_text())
+        res = {}
+        for name in flash.LAUNCHES:
+            # the bf16 template of that name
+            entry = next(r for m, r in report.items()
+                         if f"{name}I" in m and "bfloat16" in m)
+            res[name] = {"registers": entry.get("registers"),
+                         "spills": entry.get("spill_bytes", 0),
+                         "smem_bytes": entry.get("smem_static", 0)
+                         + built["smem"].get(name, 0)}
+        fwd_ms = cuda_time_ms(lambda: flash.forward(q, k, v, n_rep, scale),
+                              20)
+        bwd_ms = cuda_time_ms(lambda: flash.backward(
+            q, k, v, o, lse, do, n_rep, scale), 10)
+        qe, ke, ve = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+
+        def eager_fwd():
+            with torch.no_grad():
+                attn._sdpa(qe, ke, ve, mask, n_rep, scale)
+
+        def eager_both():
+            attn._sdpa(qe, ke, ve, mask, n_rep, scale).backward(do)
+        plain_fwd_ms = cuda_time_ms(eager_fwd, 3, rounds=3)
+        plain_bwd_ms = cuda_time_ms(eager_both, 3, rounds=3) - plain_fwd_ms
+        del qe, ke, ve
+        torch.cuda.empty_cache()
+
+        pairs = b * h * t * (t + 1) // 2
+        nq, nkv, no = b * t * h * d, b * t * hk * (d + dv), b * t * h * dv
+        lse_bytes = 4 * b * h * t
+        bounds = {}
+        for name, flops, nbytes in (
+                ("fwd", 2 * pairs * (d + dv),
+                 2 * (nq + nkv + no) + lse_bytes),
+                # the recomputed QK^T, dO V^T, dS K, dS^T Q and P^T dO
+                ("bwd", 2 * pairs * (3 * d + 2 * dv),
+                 2 * (2 * nq + 2 * nkv + 2 * no) + 2 * lse_bytes)):
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bounds[name] = dict(bound_ms=max(t_ops, t_bytes),
+                                bound_by="operations" if t_ops >= t_bytes
+                                else "bytes", flops=flops, bytes=nbytes)
+        row = dict(kernel=f"attention/{arch}",
+                   shape=dict(B=b, T=t, Hq=h, Hkv=hk, D=d, Dv=dv,
+                              scale=scale),
+                   fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
+                   plain_bwd_ms=plain_bwd_ms, bound=bounds,
+                   roofline_fwd=bounds["fwd"]["bound_ms"] / fwd_ms,
+                   roofline_bwd=bounds["bwd"]["bound_ms"] / bwd_ms,
+                   errors=errs, eager_errors=eager_errs, held=held,
+                   tiles=built, resources=res)
+        rows[row["kernel"]] = row
+        print(f"attention[{arch}]: fwd {fwd_ms:.3f} ms (bound "
+              f"{bounds['fwd']['bound_ms']:.3f}, "
+              f"{100 * row['roofline_fwd']:.1f}%; eager {plain_fwd_ms:.2f}),"
+              f" bwd {bwd_ms:.3f} ms (bound {bounds['bwd']['bound_ms']:.3f}"
+              f", {100 * row['roofline_bwd']:.1f}%; eager "
+              f"{plain_bwd_ms:.2f}); errors {errs} (eager {eager_errs})")
+        for n, r in res.items():
+            print(f"  {n}: {r['registers']} registers, "
+                  f"{r['smem_bytes']} bytes smem, {r['spills']} spilled")
+
+
+def flash_launches(what: str, fwd: int, bwd: int) -> dict:
+    """Fails unless the fused attention launched ``fwd`` forwards and
+    ``bwd`` of each backward kernel since its last ``reset_launches()``;
+    the counts."""
+    from repro_torch.kernels import flash
+    want = {"attention_fwd": fwd, "attention_bwd_pre": bwd,
+            "attention_bwd_dkdv": bwd, "attention_bwd_dq": bwd}
+    if flash.LAUNCHES != want:
+        fail(f"{what}: fused attention launches {flash.LAUNCHES}, want "
+             f"{want}")
+    return dict(flash.LAUNCHES)
+
+
 SERVE_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "zamba2-7b", "xlstm-1.3b",
                "seamless-m4t-medium", "llama-3.2-vision-11b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
@@ -3699,12 +3867,38 @@ def _same_routing(gen_log, fwd_log, n_layers: int, b: int, t: int,
     return same
 
 
+@contextlib.contextmanager
+def eager_attention():
+    """While open, causal attention runs the eager chain (``_sdpa`` with
+    the causal mask: bf16 logits, as the decode step's attention) in
+    place of the fused kernel: a yardstick, never the port's route."""
+    import torch
+    from repro_torch.models import attention as attn
+    real = attn.causal_attention
+
+    def eager(q, k, v, n_rep, scale=None):
+        idx = torch.arange(q.shape[1], device=q.device)
+        mask = idx[None, :, None] >= idx[None, None, :]
+        return attn._sdpa(q, k, v, mask[:, None], n_rep, scale)
+    attn.causal_attention = eager
+    try:
+        yield
+    finally:
+        attn.causal_attention = real
+
+
 def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
                  gen_log=None, extra=None) -> str:
     """Each generated position's decode logits against one full forward
     over prompt + generated tokens: values within ``tol``, and the
     decode's token the forward's top-1 wherever the forward's top-two
-    margin exceeds ``tol`` (closer pairs are near-ties, counted).  For
+    margin exceeds ``tol`` (closer pairs are near-ties, counted).  The
+    forward's causal attention is the eager chain
+    (:func:`eager_attention`), the decode step's arithmetic, so the two
+    differ by the cache alone (the fused kernel's float32 logits moved
+    qwen3-4b's top-two margin at one tie of the decode past ``tol``,
+    where the float32 forward's was 0.077; the kernel is held against
+    the plain version in the attention phase).  For
     MoE (``gen_log``: the decode's routing) the positions whose tokens
     took other experts in some layer than in the forward are counted and
     left out: the dispatch is discrete, and a rounding difference
@@ -3714,7 +3908,8 @@ def _hold_decode(label, params, cfg, prompt, tokens, logits, tol,
 
     b, t = prompt.shape
     gen = tokens.shape[1]
-    with torch.inference_mode(), recorded_routing() as fwd_log:
+    with torch.inference_mode(), recorded_routing() as fwd_log, \
+            eager_attention():
         seq = torch.cat([prompt, tokens[:, :-1].long()], 1)
         hid = tf.forward(params, cfg, seq, extra).hidden[:, t - 1:]
         ref = (hid @ params.head).float()
@@ -3979,6 +4174,7 @@ def serve_phase(dev, seed: int) -> dict:
     families the cross path shown live (:func:`_cross_live`)."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import flash
     from repro_torch.models import transformer as tf
     from repro_torch.roofline import analysis as roof
     from repro_torch.serve import engine
@@ -4029,6 +4225,14 @@ def serve_phase(dev, seed: int) -> dict:
             kernels, dev_ms = _decode_profile(params, c, prompt, extra)
             pre_fn = engine.make_prefill_step(c, max_len=SERVE_PROMPT
                                               + SERVE_GEN)
+            # every causal self-attention layer of a prefill takes the
+            # fused kernel, forward only
+            flash.reset_launches()
+            pre_fn(params, prompt, extra)
+            torch.cuda.synchronize()
+            launches = flash_launches(
+                f"serve[{arch}, {kv}] prefill",
+                cfg.n_layers if attention else 0, 0)
             pre_dev_ms, pre_kernels, _ = device_profile(
                 lambda: pre_fn(params, prompt, extra), reps=1)
             n_bytes, bound_ms = _decode_bound(c, params, ctx)
@@ -4042,6 +4246,7 @@ def serve_phase(dev, seed: int) -> dict:
                        else 1 - dev_ms / step_ms,
                        kernels_per_step=kernels, bound_ms=bound_ms,
                        prefill_kernels=pre_kernels,
+                       prefill_attention_launches=launches,
                        prefill_device_ms=pre_dev_ms,
                        bound_bytes=n_bytes,
                        roofline_memory_ms=costs["memory_s"] * 1e3,
@@ -4052,7 +4257,8 @@ def serve_phase(dev, seed: int) -> dict:
                 else f"{row['idle_share']:.4f}"
             print(f"serve[{arch}, {kv}]: prefill ({SERVE_BATCH} x "
                   f"{SERVE_PROMPT} tok) {pre_ms:.2f} ms in {pre_kernels:.0f} "
-                  f"kernels ({_us(pre_dev_ms)} on the card); decode "
+                  f"kernels ({_us(pre_dev_ms)} on the card; fused "
+                  f"attention {launches['attention_fwd']}); decode "
                   f"{step_ms:.3f} ms/step = {row['tokens_per_s']:.1f} tok/s "
                   f"(bound {bound_ms:.3f} ms: {n_bytes / 1e9:.3f} GB at "
                   f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; roofline.step_costs "
@@ -4157,6 +4363,8 @@ def train_phase(dev, seed: int) -> dict:
     import torch
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import transformer as tf
 
@@ -4168,9 +4376,15 @@ def train_phase(dev, seed: int) -> dict:
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
         t0 = time.perf_counter()
         out = train_run(TRAIN_ARCH, **kw)
         row["run_s"] = time.perf_counter() - t0
+        # each layer of each microbatch: one forward, one in the
+        # recompute, one of each backward kernel
+        calls = TRAIN_STEPS * TRAIN_MB * get_config(TRAIN_ARCH).n_layers
+        row["attention_launches"] = flash_launches(
+            f"train[{TRAIN_ARCH}]", 2 * calls, calls)
         row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         losses = out["losses"]
         if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
@@ -4212,7 +4426,8 @@ def train_phase(dev, seed: int) -> dict:
         row["resume_max_rel_loss_diff"] = dl
         print(f"train[{TRAIN_ARCH}]: {n_params / 1e9:.3f} G parameters "
               f"(bf16, float32 Adam state), {TRAIN_STEPS} steps of "
-              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches: "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches "
+              f"(fused attention {row['attention_launches']}): "
               f"losses {[round(x, 4) for x in losses]}; peak memory "
               f"{row['peak_mem_gb']:.2f} GB; checkpoint "
               f"{row['checkpoint_gb']:.2f} GB a step, restored bit-equal in "
@@ -4290,8 +4505,8 @@ def dryrun_phase() -> dict:
 #: the phase groups ``--phases`` names, in the order they run, and the
 #: groups whose results each needs
 PHASES = ("main", "index", "claims", "session", "backfill", "tenancy",
-          "ensemble", "fleet", "placement", "serve", "train", "dryrun",
-          "service")
+          "ensemble", "fleet", "placement", "attention", "serve", "train",
+          "dryrun", "service")
 PHASE_NEEDS = {"index": ("main",), "backfill": ("main",),
                "tenancy": ("main", "backfill")}
 
@@ -4459,6 +4674,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         placement_phase(jobs, dev, rows)
         print(f"placement phase took {time.perf_counter() - t0:.1f} s")
+
+    if "attention" in phases:
+        t0 = time.perf_counter()
+        attention_phase(dev, rows)
+        print(f"attention phase took {time.perf_counter() - t0:.1f} s")
 
     if "serve" in phases:
         t0 = time.perf_counter()

@@ -1,2 +1,4 @@
-"""Hand-written CUDA kernels for the availability scan, their launch
-wrappers, and their plain PyTorch versions (``ref``)."""
+"""Hand-written CUDA kernels: the availability scan (``availscan``, its
+plain PyTorch versions in ``ref``) and the fused causal attention
+(``flash``, its plain version ``flash.attention_ref``), with their launch
+wrappers."""

@@ -1,10 +1,13 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 The sources under ``csrc/`` have a plain C interface, so they compile
-in seconds without PyTorch's headers.  The shared library goes into
+in seconds without PyTorch's headers.  Each shared library goes into
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of the sources and flags, and is built at first use: a checkout that
-holds only the sources builds it on its first kernel call.
+of its sources and flags, and is built at first use: a checkout that
+holds only the sources builds it on its first kernel call.  The
+availability scan is one library (:func:`build`, :func:`load`); the
+fused attention one per head-dim case (:func:`compile_library`, from
+``kernels/flash.py``).
 """
 from __future__ import annotations
 
@@ -33,26 +36,34 @@ def _nvcc() -> str:
         f"can only be built where the CUDA toolkit is installed")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+def library_path(stem: str = "availscan", sources=SOURCES,
+                 flags=NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libavailscan_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact build exists; its path.
+    """Compile the availability scan unless this exact build exists; its
+    path."""
+    return compile_library("availscan", SOURCES, NVCC_FLAGS)
+
+
+def compile_library(stem: str, sources, flags) -> Path:
+    """Compile ``sources`` with ``flags`` into a shared library unless
+    this exact build exists; its path.
 
     ``nvcc``'s resource report (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside the library as ``.log``.
     """
-    path = library_path()
+    path = library_path(stem, sources, flags)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
+        [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -11,10 +11,13 @@ multi-head latent attention (MLA) of a
 :class:`~repro_torch.configs.base.LatentConfig` (training and the
 full-sequence forward only; it has no cache).
 
-Softmax runs in float32; logits are scaled by ``1/sqrt(hd)``.  The
-parameters keep the reference's layouts (``wq`` / ``wk`` / ``wv``
-``[d, H, hd]``, ``wo`` ``[H, hd, d]``), so the sharding rules and the
-reference's weights apply leaf for leaf.
+Softmax runs in float32; logits are scaled by ``1/sqrt(hd)``.  Causal,
+unwindowed self-attention (and MLA's) goes through
+:func:`causal_attention`: the fused kernel of
+:mod:`repro_torch.kernels.flash` on the card, the plain chain below on
+the CPU.  The parameters keep the reference's layouts (``wq`` / ``wk`` /
+``wv`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``), so the sharding rules and
+the reference's weights apply leaf for leaf.
 
 Decode updates the cache tensors in place (``index_copy_`` at the
 slot) and returns the same dict: the reference's functional update is
@@ -31,6 +34,7 @@ from torch import nn
 
 from repro_torch import spans
 from repro_torch.configs.base import LatentConfig, ModelConfig
+from repro_torch.kernels import flash
 from repro_torch.models.common import (
     apply_rope,
     dense_init,
@@ -187,6 +191,31 @@ def _blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     n_rep: int, scale: Optional[float] = None
+                     ) -> torch.Tensor:
+    """Causal attention over full sequences: q ``[B, T, Hq, hd]``, k ``[B,
+    T, Hkv, hd]``, v ``[B, T, Hkv, hd_v]`` -> ``[B, T, Hq, hd_v]``, logits
+    scaled by ``scale`` (``1 / sqrt(hd)`` without one).
+
+    On a CUDA tensor, the fused kernel (:func:`repro_torch.kernels.flash.
+    attention`: online softmax, no logits in device memory, its own
+    backward), which raises on what it does not take; elsewhere the plain
+    chain, :func:`_sdpa` with the causal mask, or :func:`_blockwise_sdpa`
+    above ``BLOCKWISE_THRESHOLD`` without a ``scale``.  Counts
+    ``attention.calls``, and ``attention.fused`` for the kernel's."""
+    spans.count("attention.calls", 1)
+    if q.is_cuda:
+        spans.count("attention.fused", 1)
+        return flash.attention(q, k, v, n_rep, scale)
+    t = q.shape[1]
+    if scale is None and t > BLOCKWISE_THRESHOLD and t % Q_BLOCK == 0:
+        return _blockwise_sdpa(q, k, v, n_rep)
+    idx = torch.arange(t, device=q.device)
+    mask = idx[None, :, None] >= idx[None, None, :]
+    return _sdpa(q, k, v, mask[:, None], n_rep, scale)
+
+
 def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                    rope: Tuple[torch.Tensor, torch.Tensor],
                    positions: Optional[torch.Tensor] = None,
@@ -203,13 +232,14 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    if t > BLOCKWISE_THRESHOLD and t % Q_BLOCK == 0:
+    if not window:
+        out = causal_attention(q, k, v, n_rep)
+    elif t > BLOCKWISE_THRESHOLD and t % Q_BLOCK == 0:
         out = _blockwise_sdpa(q, k, v, n_rep, window)
     else:
         idx = torch.arange(t, device=x.device)
         mask = idx[None, :, None] >= idx[None, None, :]
-        if window:
-            mask = mask & (idx[None, :, None] - idx[None, None, :] < window)
+        mask = mask & (idx[None, :, None] - idx[None, None, :] < window)
         out = _sdpa(q, k, v, mask[:, None], n_rep)
     out = _out(p, out)
     if return_kv:
@@ -382,9 +412,8 @@ def latent_attention(p: LatentAttention, x: torch.Tensor,
     """Causal MLA over a full sequence ``x`` ``[B, T, d]``: q from the
     normed compressed q, k_nope and v from the normed compressed kv, one
     rotary key ``k_pe`` shared by every head, scores at ``nope + rope``
-    against values at ``v``, through :func:`_sdpa` (span
+    against values at ``v``, through :func:`causal_attention` (span
     ``attention.latent`` holds what comes before the scores)."""
-    t = x.shape[1]
     nope, rdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     with spans.span("attention.latent"):
         c_q = rms_norm(x @ p.wq_a, p.q_norm, cfg.norm_eps)
@@ -398,7 +427,5 @@ def latent_attention(p: LatentAttention, x: torch.Tensor,
         q = torch.cat([q_nope, q_pe], dim=-1)
         k = torch.cat([k_nope, k_pe.expand(-1, -1, cfg.n_heads, -1)],
                       dim=-1)
-    idx = torch.arange(t, device=x.device)
-    mask = idx[None, :, None] >= idx[None, None, :]
-    out = _sdpa(q, k, v, mask[:, None], 1, latent_scale(cfg))
+    out = causal_attention(q, k, v, 1, latent_scale(cfg))
     return _out(p, out)
